@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the feature engine on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (feature engine and model server) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -25,9 +26,29 @@ then:
 5. holds a ``device="cuda"`` engine against a ``device="cpu"`` engine on
    the same 20,000 events: ``request`` (B=64) and ``query_offline`` give
    equal FeatureFrames;
-6. drives the main path: 200 batches of 100 and 200 of 500 requests on
-   each deployment, asserting OK status, finite outputs and that every
-   kernel's launch counter rose, and prints requests/s and batch p50/p99.
+6. drives the feature main path: 200 batches of 100 and 200 of 500
+   requests on each deployment, asserting OK status, finite outputs and
+   that every kernel's launch counter rose, and prints requests/s and
+   batch p50/p99;
+7. holds the two attention kernels against their plain versions, bf16 and
+   f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
+   lengths; decode in prefix mode with and without a window, past the
+   cache, and in ring mode past the window): ``rtol = atol = 2e-2`` in
+   bf16, ``2e-5`` in f32;
+8. holds ``ModelServer`` for qwen2-1.5b on the card against the same
+   server on the CPU (full width, 2 layers, the same seeded parameters;
+   2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
+   ``1e-4`` with equal greedy tokens, bf16 logits within a relative L2 of
+   ``2e-2``;
+9. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
+   width and depth (bf16, random seeded weights), 16 slots, a 1024-long
+   cache: 8 prompts of 512, 32 decode steps, 8 prompts of 384, 128 decode
+   steps; asserts finite logits and that both attention kernels' launch
+   counters rose; prints prefill ms per admission, decode step p50/p99,
+   tokens/s, peak device memory and the device-busy share of one decode
+   step; then times each attention kernel, its plain version and
+   ``scaled_dot_product_attention`` on the main path's arguments;
+10. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -37,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -519,17 +541,22 @@ def cuda_vs_cpu(sz: Sizes, device) -> None:
 # ---------------------------------------------------------------------------
 
 def launch_counts() -> Dict[str, int]:
-    from repro_torch.kernels import (fused_window, last_join, preagg_window,
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     fused_window, last_join, preagg_window,
                                      window_agg)
     mods = {"window_agg": window_agg, "fused_window": fused_window,
-            "preagg_window": preagg_window, "last_join": last_join}
+            "preagg_window": preagg_window, "last_join": last_join,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
     return {k: m.launches for k, m in mods.items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import (fused_window, last_join, preagg_window,
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     fused_window, last_join, preagg_window,
                                      window_agg)
-    for m in (window_agg, fused_window, preagg_window, last_join):
+    for m in (window_agg, fused_window, preagg_window, last_join,
+              flash_attention, decode_attention):
         m.launches = 0
 
 
@@ -658,7 +685,7 @@ def run(device, sz: Sizes) -> Dict[str, object]:
     stats0 = eng.stats.snapshot()
     report = serve(eng, keys, ts, rows, sz, device)
     launches = launch_counts()
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
@@ -680,6 +707,472 @@ def run(device, sz: Sizes) -> Dict[str, object]:
             "peak_bytes": peak, "engine_stats": stats, "busy": busy}
 
 
+# ---------------------------------------------------------------------------
+# the model server: attention kernels, card against CPU, main path
+# ---------------------------------------------------------------------------
+
+ATTN_KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:91"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:88"),
+}
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# kernel vs plain version: the kernels compute in f32 where the plain
+# versions round logits and probabilities to the input dtype
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSizes:
+    arch: str = "qwen2-1.5b"
+    slots: int = 16
+    cache_len: int = 1024
+    # (prompts admitted, prompt length, decode steps after the admission)
+    admissions: tuple = ((8, 512, 32), (8, 384, 128))
+    check_layers: int = 2        # card-vs-CPU model: full width, 2 layers
+    check_prompts: int = 2
+    check_len: int = 64
+    check_steps: int = 8
+    reps: int = 30
+
+
+def _randn(shape, dtype, device, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+def _attn_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    tol = ATTN_TOL[want.dtype]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    d = float((g - w).abs().max())
+    if not bool(torch.isfinite(g).all()) or not torch.allclose(
+            g, w, rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: differs from the plain version (max "
+                             f"abs diff {d}, tolerance {tol})")
+    return d
+
+
+def attention_cases(device) -> Dict[str, float]:
+    """Both attention kernels against their plain versions, bf16 and f32:
+    MHA, GQA and MQA; causal, causal with a window and full; Sq < Sk and
+    ragged lengths; decode in prefix mode with and without a window, a
+    length past the cache, and in ring mode past the window. No case has a
+    query that keeps no key (the kernels write 0 there, the plain versions
+    the uniform average). Returns the largest absolute difference."""
+    from repro_torch.kernels import ops, ref
+    errs = {k: 0.0 for k in ATTN_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Sq, Sk, Hq, Hkv, D in ((2, 128, 128, 4, 4, 64),
+                                      (1, 128, 128, 8, 2, 64),
+                                      (2, 64, 128, 4, 1, 32),
+                                      (2, 37, 53, 6, 2, 80),
+                                      (1, 200, 200, 12, 2, 128),
+                                      (1, 33, 70, 4, 2, 96)):
+            q = _randn((B, Sq, Hq, D), dtype, device, 1)
+            k = _randn((B, Sk, Hkv, D), dtype, device, 2)
+            v = _randn((B, Sk, Hkv, D), dtype, device, 3)
+            for causal, window in ((True, None), (True, 32), (False, None)):
+                kw = dict(causal=causal, window=window)
+                errs["flash_attention"] = max(
+                    errs["flash_attention"], _attn_err(
+                        ops.flash_attention(q, k, v, **kw),
+                        ref.flash_attention_ref(q, k, v, **kw),
+                        f"flash {dtype} {(B, Sq, Sk, Hq, Hkv, D)} {kw}"))
+        for B, S, Hq, Hkv, D in ((4, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                                 (3, 64, 4, 1, 32), (16, 1024, 12, 2, 128),
+                                 (2, 100, 9, 3, 80)):
+            q = _randn((B, Hq, D), dtype, device, 4)
+            kc = _randn((B, S, Hkv, D), dtype, device, 5)
+            vc = _randn((B, S, Hkv, D), dtype, device, 6)
+            lengths = np.random.default_rng(S).integers(1, S + 1, B)
+            lengths[0] = S + 9                  # past the cache: counts as S
+            lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+            for window in (None, 48):
+                errs["decode_attention"] = max(
+                    errs["decode_attention"], _attn_err(
+                        ops.decode_attention(q, kc, vc, lengths,
+                                             window=window),
+                        ref.decode_attention_ref(q, kc, vc, lengths,
+                                                 window=window),
+                        f"decode prefix {dtype} {(B, S, Hq, Hkv, D)} "
+                        f"window={window}"))
+        for S, window in ((16, 8), (64, 64), (300, 100)):
+            q = _randn((6, 8, 64), dtype, device, 7)
+            kc = _randn((6, S, 2, 64), dtype, device, 8)
+            vc = _randn((6, S, 2, 64), dtype, device, 9)
+            pos = torch.tensor([0, S // 2, S - 1, S, 3 * S + 5, 10 * S + 1],
+                               dtype=torch.int32, device=device)
+            errs["decode_attention"] = max(
+                errs["decode_attention"], _attn_err(
+                    ops.decode_attention(q, kc, vc, pos, window=window,
+                                         ring=True),
+                    ref.decode_attention_ref(q, kc, vc, pos, window=window,
+                                             ring=True),
+                    f"decode ring {dtype} S={S} window={window}"))
+    torch.cuda.synchronize()
+    return errs
+
+
+def attention_work(name: str, a: tuple, kw: dict) -> Dict[str, float]:
+    """Bytes each call must move (inputs read once, the output written
+    once; for decode only the cache rows up to each length) and the flops
+    of the kept (query, key) pairs (QK^T and PV, 4·D per pair and head)."""
+    if name == "flash_attention":
+        q, k, _ = a
+        B, Sq, Hq, D = q.shape
+        Sk = k.shape[1]
+        qpos = np.arange(Sq) + (Sk - Sq)
+        hi = np.minimum(Sk, qpos + 1) if kw.get("causal", True) else \
+            np.full(Sq, Sk)
+        lo = (np.maximum(0, qpos - kw["window"] + 1)
+              if kw.get("window") else np.zeros(Sq, np.int64))
+        pairs = int(np.clip(hi - lo, 0, None).sum()) * B * Hq
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        return {"flops": 4.0 * D * pairs, "bytes": float(nbytes)}
+    q, kc, _, lengths = a
+    B, Hq, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    rows = int(torch.clamp(lengths, min=0, max=S).sum())
+    nbytes = (2 * q.numel() + 2 * rows * Hkv * D) * q.element_size() + 4 * B
+    return {"flops": 4.0 * D * Hq * rows, "bytes": float(nbytes)}
+
+
+def library_call(name: str, a: tuple, kw: dict) -> Callable[[], object]:
+    """One PyTorch call computing the same function, timed as a yardstick
+    only: scaled_dot_product_attention on (B, H, S, D) views, GQA by
+    enable_gqa (or K/V repeated first where the installed torch lacks
+    it), causal for prefill, a boolean length mask (built beforehand) for
+    decode."""
+    import torch.nn.functional as F
+    try:
+        x = torch.zeros((1, 2, 1, 16), device=a[0].device)
+        F.scaled_dot_product_attention(x, x[:, :1], x[:, :1],
+                                       enable_gqa=True)
+        gqa = True
+    except TypeError:
+        gqa = False
+    if name == "flash_attention":
+        q, k, v = (t.transpose(1, 2) for t in a)
+        causal = kw.get("causal", True)
+    else:
+        q0, kc, vc, lengths = a
+        q = q0[:, :, None, :]
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        S = kc.shape[1]
+        mask = (torch.arange(S, device=q.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        causal = False
+    rep = q.shape[1] // k.shape[1]
+    if not gqa and rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    extra = {"enable_gqa": True} if gqa else {}
+    if name == "flash_attention":
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal,
+                                                      **extra)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  **extra)
+
+
+def time_attention(calls: Dict[str, tuple], reps: int, device
+                   ) -> Dict[str, Dict[str, float]]:
+    """Kernel, plain version and library call on the captured main-path
+    arguments of each attention kernel."""
+    from repro_torch.kernels import ops, ref
+    plain = {"flash_attention": ref.flash_attention_ref,
+             "decode_attention": ref.decode_attention_ref}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    res = {}
+    for name, (a, kw) in calls.items():
+        kfn = getattr(ops, name)
+        err = _attn_err(kfn(*a, **kw), plain[name](*a, **kw),
+                        f"{name} main path")
+        work = attention_work(name, a, kw)
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_flops = work["flops"] / BF16_FLOPS_PER_S * 1e3
+        lib = library_call(name, a, kw)
+        res[name] = {
+            "ms": _device_ms(lambda: kfn(*a, **kw), 20),
+            "plain_ms": _device_ms(lambda: plain[name](*a, **kw), 20),
+            "library_ms": _device_ms(lib, 20),
+            "call_ms": _call_ms(lambda: kfn(*a, **kw), reps, flush),
+            "plain_call_ms": _call_ms(lambda: plain[name](*a, **kw), reps,
+                                      flush),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": work["bytes"], "flops": work["flops"],
+            "max_abs_err": err,
+            "shape": [list(t.shape) for t in a]}
+    return res
+
+
+def model_cuda_vs_cpu(ms: ModelSizes, device) -> Dict[str, float]:
+    """ModelServer on the card against ModelServer on the CPU, with the
+    same seeded parameters (drawn on the CPU, copied to the card): full
+    width, ``check_layers`` layers; prompts, then teacher-forced decode
+    steps. f32: logits within rtol = atol = 1e-4 and equal greedy tokens;
+    bf16: relative L2 error of the logits <= 2e-2."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving.server import ModelServer
+    base = get_config(ms.arch)
+    rng = np.random.default_rng(21)
+    n, L, steps = ms.check_prompts, ms.check_len, ms.check_steps
+    toks = rng.integers(0, base.vocab_size, (n, L + steps)).astype(np.int32)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, n_layers=ms.check_layers,
+                                  dtype=dtype, param_dtype=dtype)
+        params = init_params(torch.Generator().manual_seed(5), cfg)
+        logits = {}
+        for dev in (device, "cpu"):
+            p = params if dev == "cpu" else tree_map(
+                lambda t: t.to(dev), params)
+            srv = ModelServer(cfg, p, batch=n, cache_len=L + steps)
+            srv.prefill(toks[:, :L])
+            got = [srv.logits.float().cpu()]
+            for i in range(steps):
+                srv.tokens = torch.as_tensor(toks[:, L + i], device=dev)
+                srv.decode(1)
+                got.append(srv.logits.float().cpu())
+            logits[dev] = torch.stack(got)
+            del srv, p
+        a, b = logits[device].double(), logits["cpu"].double()
+        rel_l2 = float((a - b).norm() / b.norm())
+        max_abs = float((a - b).abs().max())
+        same_tokens = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        if dtype == "float32":
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"f32 model logits differ card vs CPU "
+                                     f"(max abs diff {max_abs})")
+            if not same_tokens:
+                raise AssertionError("f32 greedy tokens differ card vs CPU")
+        elif rel_l2 > 2e-2:
+            raise AssertionError(f"bf16 model logits differ card vs CPU "
+                                 f"(relative L2 {rel_l2})")
+        out[dtype] = {"rel_l2": rel_l2, "max_abs": max_abs,
+                      "same_greedy_tokens": same_tokens}
+        log(f"model card==cpu {ms.arch} (full width, {ms.check_layers} "
+            f"layers) {dtype}: {n} prompts of {L}, {steps} teacher-forced "
+            f"steps; logits max abs diff {max_abs}, relative L2 {rel_l2}, "
+            f"same greedy tokens {same_tokens}")
+    return out
+
+
+def _tensor_bytes(tree) -> int:
+    from repro_torch.models.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def model_main_path(ms: ModelSizes, device) -> Dict[str, object]:
+    """ModelServer for the full model (full width and depth, bf16): admit
+    and decode as ``ms.admissions`` says, so slots sit at different
+    positions. Returns the report, the launch counts and the captured
+    attention calls (the first prefill's flash call, the last decode
+    call)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.serving.server import ModelServer
+    cfg = get_config(ms.arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # warm-up (cuBLAS handles, first launches) on a small server
+    warm = ModelServer(cfg, params, batch=2, cache_len=64)
+    warm.prefill(np.ones((2, 16), np.int32))
+    warm.decode(2)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    srv = ModelServer(cfg, params, batch=ms.slots, cache_len=ms.cache_len)
+    rng = np.random.default_rng(13)
+    calls: Dict[str, tuple] = {}
+    originals = {k: getattr(ops, k) for k in ATTN_KERNELS}
+
+    def recorder(name):
+        def rec(*a, **kw):
+            if name == "decode_attention" or name not in calls:
+                calls[name] = (a, kw)
+            return originals[name](*a, **kw)
+        return rec
+
+    prefill_ms: List[float] = []
+    step_ms: List[float] = []
+    tokens = 0
+    bad = []
+    reset_launch_counts()
+    try:
+        for k in ATTN_KERNELS:
+            setattr(ops, k, recorder(k))
+        for n, L, steps in ms.admissions:
+            prompts = rng.integers(0, cfg.vocab_size, (n, L))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            srv.prefill(prompts)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t1) * 1e3)
+            if not bool(torch.isfinite(srv.logits).all()):
+                bad.append(f"prefill of {n}x{L}")
+            for _ in range(steps):
+                t1 = time.perf_counter()
+                srv.decode(1)                # ends in a device->host copy
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                tokens += int(srv.active.sum())
+                if not bool(torch.isfinite(srv.logits).all()):
+                    bad.append("decode step")
+    finally:
+        for k, fn in originals.items():
+            setattr(ops, k, fn)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    if bad:
+        raise AssertionError(f"non-finite logits after {bad[:3]}")
+    missing = [k for k in ATTN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"model main path never launched {missing}")
+    if srv.logits.shape != (ms.slots, cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(srv.logits.shape)}")
+    if not all(len(srv.generated[s]) > 1 for s in range(ms.slots)):
+        raise AssertionError("a slot generated no tokens")
+    param_bytes = _tensor_bytes(params)
+    cache_bytes = _tensor_bytes(srv.caches)
+    head_f32 = (srv.params["head_f32"].numel() * 4
+                if srv.params["head_f32"].dtype != params["embed"].dtype
+                else 0)
+    sa = np.asarray(step_ms)
+    report = {
+        "arch": ms.arch, "params": sum(t.numel()
+                                       for t in tree_leaves(params)),
+        "param_init_s": init_s,
+        "prefill_ms": prefill_ms,
+        "prefill_shapes": [[n, L] for n, L, _ in ms.admissions],
+        "decode_step_p50_ms": float(np.percentile(sa, 50)),
+        "decode_step_p99_ms": float(np.percentile(sa, 99)),
+        "decode_steps": len(step_ms),
+        "decode_tokens": tokens,
+        "decode_tokens_per_s": tokens / (sa.sum() / 1e3),
+        "peak_bytes_over_params": peak,
+        "param_bytes": param_bytes, "cache_bytes": cache_bytes,
+        "head_f32_bytes": head_f32,
+        "positions": srv.positions.cpu().tolist(),
+    }
+    log(f"model main path {ms.arch}: {report['params']} params "
+        f"({param_bytes} bytes, drawn in {init_s:.3f} s); prefill ms per "
+        f"admission {prefill_ms} for {report['prefill_shapes']}; decode "
+        f"step p50 {report['decode_step_p50_ms']:.4f} ms, p99 "
+        f"{report['decode_step_p99_ms']:.4f} ms over {len(step_ms)} steps; "
+        f"{report['decode_tokens_per_s']:.2f} tokens/s; peak device memory "
+        f"above the parameters {peak} bytes against cache {cache_bytes} + "
+        f"f32 head {head_f32} bytes; launches {launches}")
+    report["busy"] = decode_busy(srv, report["decode_step_p50_ms"])
+    del srv
+    return {"report": report, "launches": launches, "calls": calls}
+
+
+def decode_busy(srv, p50_ms: float) -> Dict[str, object]:
+    """Device time of one decode step from a torch.profiler trace (after a
+    warm step), and its share of the unprofiled step p50."""
+    from torch.profiler import ProfilerActivity, profile
+    srv.decode(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv.decode(1)
+        torch.cuda.synchronize()
+    per_kernel: Dict[str, float] = {}
+    launches, host_ops = 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches += 1
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us())
+        elif e.name.startswith("aten::") and not (
+                e.cpu_parent is not None
+                and e.cpu_parent.name.startswith("aten::")):
+            host_ops += 1             # a PyTorch call made by the step
+    dev_ms = sum(per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out = {"device_ms_per_step": dev_ms,
+           "busy_share_of_p50": dev_ms / p50_ms if dev_ms else None,
+           "device_launches": launches, "torch_calls": host_ops,
+           "top": [[k[:70], v / 1e3] for k, v in top]}
+    log(f"decode step: {host_ops} top-level PyTorch calls, {launches} "
+        f"device operations")
+    if not dev_ms:
+        log("busy decode step: the profiler recorded no device events; "
+            "device time not measured")
+    else:
+        log(f"busy decode step: device {dev_ms:.5f} ms = "
+            f"{dev_ms / p50_ms:.4f} of the step p50; top: " + "; ".join(
+                f"{k} {v:.5f} ms" for k, v in out["top"]))
+    return out
+
+
+def serve_cli(device) -> Dict[str, object]:
+    """``python -m repro_torch.launch.serve --decode`` with its defaults
+    (on the card), as a user runs it."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--decode"],
+        capture_output=True, text=True, env=env, timeout=600,
+        cwd=str(SRC.parent))
+    if out.returncode != 0:
+        raise AssertionError(f"launch.serve --decode failed "
+                             f"({out.returncode}):\n{out.stderr[-3000:]}")
+    report = json.loads(out.stdout)
+    if not str(report.get("device")).startswith(str(device)):
+        raise AssertionError(f"launch.serve ran on {report.get('device')}")
+    if not report.get("decode_tokens_per_s", 0) > 0:
+        raise AssertionError("launch.serve --decode reported no tokens/s")
+    log(f"launch.serve --decode: {report['qps']:.1f} feature req/s, "
+        f"{report['decode_tokens_per_s']:.2f} decode tokens/s "
+        f"({report['decode_arch']}, reduced), device {report['device']}")
+    return {k: report[k] for k in ("qps", "latency_ms_per_batch_p50",
+                                   "latency_ms_per_batch_p99",
+                                   "decode_tokens_per_s", "device")}
+
+
+def run_model(device, ms: ModelSizes) -> Dict[str, object]:
+    """The model-server phases on ``device``; raises on any failure."""
+    errs = attention_cases(device)
+    log(f"attention kernel checks passed; max abs diff per kernel: {errs}")
+    cmp = model_cuda_vs_cpu(ms, device)
+    main = model_main_path(ms, device)
+    timing = time_attention(main["calls"], ms.reps, device)
+    for k, v in timing.items():
+        errs[k] = max(errs[k], v["max_abs_err"])
+        log(f"time {k} {v['shape']}: device per launch: kernel "
+            f"{v['ms']:.6f} ms, plain {v['plain_ms']:.6f} ms, library "
+            f"{v['library_ms']:.6f} ms, bound {v['bound_ms']:.6f} ms "
+            f"({v['bound_by']}: {v['bytes']} bytes, {v['flops']} flops); "
+            f"per call with host work: kernel {v['call_ms']:.5f} ms, plain "
+            f"{v['plain_call_ms']:.5f} ms")
+    cli = serve_cli(device)
+    kernels = [{
+        "name": k, "route": "cuda", "source": ATTN_KERNELS[k][0],
+        "replaces": ATTN_KERNELS[k][1], "launches": main["launches"][k],
+        "max_abs_err": errs[k], "ms": timing[k]["ms"],
+        "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
+        "bound_by": timing[k]["bound_by"],
+        "library_ms": timing[k]["library_ms"],
+        "call_ms": timing[k]["call_ms"],
+        "plain_call_ms": timing[k]["plain_call_ms"]} for k in ATTN_KERNELS]
+    return {"kernels": kernels, "model": main["report"],
+            "model_cuda_vs_cpu": cmp, "serve_cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port "
@@ -698,10 +1191,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
     res = run("cuda", Sizes())
+    torch.cuda.empty_cache()
+    mres = run_model("cuda", ModelSizes())
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy")}))
+    log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
+                                         "serve_cli")}))
     log(card)
-    log(json.dumps({"kernels": res["kernels"]}))
+    log(json.dumps({"kernels": res["kernels"] + mres["kernels"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,13 @@ Given those as numpy arrays (``np.asarray`` of each JAX array), these
 helpers rebuild the same table in the port on a given device, and turn
 PREDICT parameters given as numpy into tensors — so both packages can
 compute on identical state.
+
+The model tier's parameters and KV caches are pytrees of arrays; the port
+keeps the JAX layouts (linear weights ``(d_in, d_out)``, blocks and caches
+stacked per pattern position on a leading ``reps`` axis), so ``lm_params``
+and ``lm_cache`` map a tree of numpy arrays (``jax.tree_util.tree_map(
+np.asarray, tree)``) leaf for leaf onto tensors, keeping each dtype (bf16
+included).
 """
 from __future__ import annotations
 
@@ -14,10 +21,13 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import blocks, lm
+from repro_torch.models.tree import tree_map
 from repro_torch.featurestore.table import (PreAggState, Table,
                                             TableSnapshot, TableState)
 
-__all__ = ["table_state", "preagg_state", "load_table", "to_tensors"]
+__all__ = ["table_state", "preagg_state", "load_table", "to_tensors",
+           "lm_params", "lm_cache"]
 
 _PREAGG_FIELDS = ("sum", "sumsq", "min", "max", "count")
 
@@ -96,3 +106,41 @@ def to_tensors(tree: Any, device) -> Any:
     if tree is None:
         return None
     return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """One numpy array as a tensor of the same dtype on ``device``; JAX's
+    bfloat16 arrays (an ml_dtypes type numpy cannot hand to torch) go
+    across bit for bit."""
+    a = np.array(a)       # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree_tensors(tree: Any, device) -> Any:
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def lm_params(tree: Mapping[str, Any], cfg, device) -> Dict[str, Any]:
+    """The JAX package's ``lm.init_lm`` parameters (as numpy) as the
+    port's parameters on ``device``."""
+    lm.check_supported(cfg)
+    want = {"embed", "blocks", "final_norm"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(tree) != want:
+        raise ValueError(f"parameter tree has {sorted(tree)}, expected "
+                         f"{sorted(want)} for {cfg.name}")
+    return _tree_tensors(dict(tree), device)
+
+
+def lm_cache(tree: Any, cfg, device) -> Any:
+    """A JAX KV-cache tree (``lm.init_cache`` / ``lm.prefill`` layout: a
+    tuple per pattern position of ``{"k", "v"}`` stacked on ``reps``, as
+    numpy) as the port's cache on ``device``."""
+    pattern = blocks.normalize_pattern(cfg)
+    if len(tree) != len(pattern):
+        raise ValueError(f"cache has {len(tree)} pattern positions, "
+                         f"{cfg.name} has {len(pattern)}")
+    return tuple(_tree_tensors(dict(c), device) for c in tree)

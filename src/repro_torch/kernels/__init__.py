@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the feature engine, for Hopper (sm_90a).
+"""Hand-written CUDA kernels of the port, for Hopper (sm_90a).
 
 Layout per kernel: ``csrc/<name>.cu`` (the kernel and its C launch
 function), ``<name>.py`` (the wrapper: checks, allocation, launch, launch
@@ -10,6 +10,8 @@ Kernels:
     fused_window   — a deployment's whole spec table (S frames) in one launch
     preagg_window  — bucketed pre-aggregate window lookup (paper Eq. 2)
     last_join      — point-in-time LAST JOIN row lookup over a right table
+    flash_attention  — causal / sliding-window GQA attention (prefill)
+    decode_attention — one-token GQA attention over a KV cache (decode)
 """
 from repro_torch.kernels import ops, ref
 

@@ -1,0 +1,76 @@
+"""CUDA kernel wrapper: single-token GQA decode attention over a KV cache,
+prefix or ring layout (``csrc/decode_attention.cu``).
+
+Counterpart of the TPU kernel ``decode_attention_pallas``; the plain
+version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
+``launches`` counts the kernel launches this process made.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (DTYPES, check_query,
+                                                 require_aligned)
+
+__all__ = ["decode_attention_cuda", "launches", "MAX_REP_D"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = (_P,) * 5 + (_I,) * 8 + (_F, _P)
+MAX_REP_D = 2048      # (Hq / Hkv) * D one block accumulates (kMaxAcc4)
+
+launches = 0
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None,
+                          ring: bool = False) -> torch.Tensor:
+    """CUDA implementation of :func:`ref.decode_attention_ref`.
+
+    q (B, Hq, D); caches (B, S, Hkv, D), one dtype (bf16 or f32); lengths
+    (B,) int32, read on the device (no host sync); all contiguous on one
+    CUDA device. ``ring=False``: ``lengths`` counts the valid prefix (a
+    length above S counts as S). ``ring=True``: ``lengths`` is the absolute
+    position of a rolling ring. Returns (B, Hq, D); a head that keeps no
+    slot comes out 0, as in the TPU kernel.
+    """
+    global launches
+    dev = _build.require_cuda(q, "decode_attention_cuda")
+    D = check_query(q, 3, "decode_attention_cuda")
+    B, Hq, _ = q.shape
+    if not isinstance(k_cache, torch.Tensor) or k_cache.dim() != 4:
+        raise ValueError(f"k_cache must be (B, S, Hkv, D), got "
+                         f"{getattr(k_cache, 'shape', type(k_cache))}")
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    _build.require(q, "q", q.dtype, (B, Hq, D), dev)
+    _build.require(k_cache, "k_cache", q.dtype, (B, S, Hkv, D), dev)
+    _build.require(v_cache, "v_cache", q.dtype, (B, S, Hkv, D), dev)
+    _build.require(lengths, "lengths", torch.int32, (B,), dev)
+    require_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    if (Hq // Hkv) * D > MAX_REP_D:
+        raise ValueError(f"(Hq/Hkv)*D = {(Hq // Hkv) * D} exceeds "
+                         f"{MAX_REP_D}, what one block accumulates")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    scale = float(D ** -0.5 if scale is None else scale)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if S == 0:
+        return out.zero_()
+    fn = _build.function("decode_attention_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(_build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+                  _build.ptr(lengths), _build.ptr(out), B, S, Hq, Hkv, D,
+                  DTYPES[q.dtype], 0 if window is None else int(window),
+                  int(ring), scale, _build.stream_of(dev))
+    _build.check(code, "decode_attention")
+    launches += 1
+    return out

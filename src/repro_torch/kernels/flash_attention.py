@@ -1,0 +1,90 @@
+"""CUDA kernel wrapper: causal / sliding-window GQA flash attention
+(``csrc/flash_attention.cu``).
+
+Counterpart of the TPU kernel ``flash_attention_pallas``; the plain version
+is :func:`repro_torch.kernels.ref.flash_attention_ref`. ``launches``
+counts the kernel launches this process made.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["flash_attention_cuda", "launches", "HEAD_DIMS", "DTYPES",
+           "check_query", "require_aligned"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = (_P,) * 4 + (_I,) * 9 + (_F, _P)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)          # instantiated in csrc
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+
+def check_query(q: torch.Tensor, ndim: int, what: str) -> int:
+    """The query's head dim, after checking its rank, dtype and head dim
+    against what the kernels are instantiated for."""
+    if not isinstance(q, torch.Tensor) or q.dim() != ndim:
+        raise ValueError(f"{what}: q must be a {ndim}-d tensor, got "
+                         f"{getattr(q, 'shape', type(q))}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{what} takes {tuple(DTYPES)}, got {q.dtype}")
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not one of {HEAD_DIMS}")
+    return D
+
+
+def require_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels load four elements at a time: 16-byte aligned bases."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """CUDA implementation of :func:`ref.flash_attention_ref`.
+
+    q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), one dtype (bf16 or f32), all
+    contiguous on one CUDA device; Sq <= Sk for causal attention (queries
+    right-aligned). Returns (B, Sq, Hq, D). A query row that keeps no key
+    comes out 0, as in the TPU kernel.
+    """
+    global launches
+    dev = _build.require_cuda(q, "flash_attention_cuda")
+    D = check_query(q, 4, "flash_attention_cuda")
+    B, Sq, Hq, _ = q.shape
+    if not isinstance(k, torch.Tensor) or k.dim() != 4:
+        raise ValueError(f"k must be (B, Sk, Hkv, D), got "
+                         f"{getattr(k, 'shape', type(k))}")
+    Sk, Hkv = k.shape[1], k.shape[2]
+    _build.require(q, "q", q.dtype, (B, Sq, Hq, D), dev)
+    _build.require(k, "k", q.dtype, (B, Sk, Hkv, D), dev)
+    _build.require(v, "v", q.dtype, (B, Sk, Hkv, D), dev)
+    require_aligned(q=q, k=k, v=v)
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    scale = float(D ** -0.5 if scale is None else scale)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if Sk == 0:
+        return out.zero_()
+    fn = _build.function("flash_attention_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
+                  _build.ptr(out), B, Sq, Sk, Hq, Hkv, D, DTYPES[q.dtype],
+                  int(causal), 0 if window is None else int(window), scale,
+                  _build.stream_of(dev))
+    _build.check(code, "flash_attention")
+    launches += 1
+    return out

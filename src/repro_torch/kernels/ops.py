@@ -17,12 +17,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_window import fused_window_cuda
 from repro_torch.kernels.last_join import last_join_cuda
 from repro_torch.kernels.preagg_window import preagg_window_cuda
 from repro_torch.kernels.window_agg import window_agg_cuda
 
-__all__ = ["window_agg", "fused_window", "preagg_window", "last_join"]
+__all__ = ["window_agg", "fused_window", "preagg_window", "last_join",
+           "flash_attention", "decode_attention"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -97,3 +100,25 @@ def preagg_window(values: torch.Tensor, ts: torch.Tensor,
               req_key, req_ts, bucket_size=bucket_size, cols=cols,
               rows_preceding=rows_preceding, range_preceding=range_preceding,
               assume_latest=assume_latest, fields=fields)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention.
+    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+    fn = flash_attention_cuda if _on_cuda(q) else ref.flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None,
+                     ring: bool = False) -> torch.Tensor:
+    """Single-token GQA decode vs a KV cache. q (B, Hq, D); caches
+    (B, S, Hkv, D); lengths (B,) int32 -> (B, Hq, D). ``ring=True``:
+    rolling-ring layout; lengths = absolute positions."""
+    fn = decode_attention_cuda if _on_cuda(q) else ref.decode_attention_ref
+    return fn(q, k_cache, v_cache, lengths, window=window, scale=scale,
+              ring=ring)

@@ -21,6 +21,9 @@ Both clamped to retention. All aggregates reduce over that interval.
 ``last_join_ref``     — point-in-time LAST JOIN row lookup: latest right-
                         table row with ts ≤ req_ts, as a masked argmax over
                         positions + one-hot gather of the joined columns.
+``flash_attention_ref``  — causal / sliding-window GQA attention (dense).
+``decode_attention_ref`` — one-token GQA attention over a KV cache, prefix
+                           or rolling-ring layout.
 
 ``cols`` (where a function takes it) names the value columns to read, so a
 caller aggregates a few columns of a wide table without first copying them
@@ -34,11 +37,13 @@ import torch
 
 NEG_INF = -3.0e38
 POS_INF = 3.0e38
+ATTN_NEG_INF = -1.0e30    # masked attention logits, as in the JAX package
 _BIG_I32 = 2**30
 
 __all__ = ["window_agg_ref", "fused_window_ref", "preagg_window_ref",
            "last_join_ref", "window_bounds", "check_fused_specs",
-           "FUSED_FIELDS", "NEG_INF", "POS_INF"]
+           "flash_attention_ref", "decode_attention_ref", "FUSED_FIELDS",
+           "NEG_INF", "POS_INF", "ATTN_NEG_INF"]
 
 FUSED_FIELDS = ("sum", "sumsq", "count", "min", "max", "first", "last")
 
@@ -431,3 +436,83 @@ def preagg_window_ref(values: torch.Tensor, ts: torch.Tensor,
         max_b = torch.where(bmask[:, :, None], g(pa_max), NEG_INF).amax(1)
         out["max"] = torch.maximum(max_b, torch.maximum(h["max"], tl["max"]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Model-side attention
+# ---------------------------------------------------------------------------
+#
+# Both keep the JAX reference's rounding: logits in the input dtype, softmax
+# in f32, probabilities cast back to the input dtype before the PV product.
+# The heads stay grouped (``(Hkv, rep)``), with no repeat of K/V. A row that
+# keeps no key gets the uniform average of V here (softmax of equal masked
+# logits), where the kernels write 0; no prefill or decode of the model
+# produces such a row.
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Reference GQA attention. q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) ->
+    (B, Sq, Hq, D); queries right-aligned (query i at position
+    i + Sk − Sq). ``window``: sliding-window span, None = full."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Sq, Hkv, rep, D)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * scale
+    qpos = (torch.arange(Sq, device=q.device) + (Sk - Sq))[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = logits.masked_fill(~mask, ATTN_NEG_INF)
+    probs = torch.softmax(logits.float(), dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(q.dtype), v)
+    return out.reshape(B, Sq, Hq, D)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None,
+                         ring: bool = False) -> torch.Tensor:
+    """Single-token decode attention with KV cache.
+
+    q (B, Hq, D); k_cache/v_cache (B, S, Hkv, D) -> (B, Hq, D).
+
+    ``ring=False``: prefix layout — ``lengths`` (B,) = number of valid
+    cache entries (the query attends to positions < length; ``window``
+    restricts to the trailing ``window`` of them).
+
+    ``ring=True``: rolling-ring layout (sliding-window serving) —
+    ``lengths`` carries the current absolute POSITION (B,). The entry at
+    ring slot ``s`` holds absolute position ``pos − ((pos − s) mod S)``; it
+    is attended iff that position is ≥ 0 and within the window.
+    """
+    B, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Hkv, rep, D)
+    logits = torch.einsum("bhrd,bkhd->bhrk", qg, k_cache) * scale
+    kpos = torch.arange(S, dtype=torch.int32, device=q.device)[None, :]
+    lengths = lengths.to(torch.int32)[:, None]
+    if ring:
+        pos = lengths
+        wrap = S * (torch.div(pos, S, rounding_mode="floor") + 1)
+        ap = pos - torch.fmod(pos - kpos + wrap, S)
+        mask = ap >= 0
+        if window is not None:
+            mask = mask & (ap > pos - window)
+    else:
+        mask = kpos < lengths
+        if window is not None:
+            mask = mask & (kpos >= lengths - window)
+    logits = logits.masked_fill(~mask[:, None, None, :], ATTN_NEG_INF)
+    probs = torch.softmax(logits.float(), dim=-1)
+    out = torch.einsum("bhrk,bkhd->bhrd", probs.to(q.dtype), v_cache)
+    return out.reshape(B, Hq, D)

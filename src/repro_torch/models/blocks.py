@@ -1,0 +1,178 @@
+"""Decoder blocks and their per-pattern-position stacking.
+
+Block kinds are two-character tokens ``<mixer><ffn>`` (as in the JAX
+package's ``repro.models.blocks``):
+
+    mixer:  'a' = GQA attention, 'm' = Mamba-2 SSD
+    ffn:    'd' = dense MLP, 'e' = MoE, '-' = none (pure mixer block)
+
+The port runs the ``ad`` kind (every dense attention model); the others
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Layers are stacked as in the JAX package: for a pattern of period R over L
+layers, the params (and caches) of pattern position r are stacked along a
+leading ``L/R`` axis, so parameters and caches carry across one to one.
+Where the JAX package runs one ``lax.scan`` over the stack, the port loops
+over layers in Python and hands each block views of its slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm)
+from repro_torch.models.tree import layer_slice, tree_map
+
+Params = Dict[str, Any]
+
+__all__ = ["init_block", "init_stacked_blocks", "block_prefill",
+           "block_decode", "run_blocks_prefill", "run_blocks_decode",
+           "init_block_cache", "normalize_pattern", "check_supported"]
+
+_NOT_PORTED = {
+    "m": "Mamba-2 blocks (ROADMAP Queue 1 item 10: models/ssm.py)",
+    "e": "MoE blocks (ROADMAP Queue 1 item 10: models/moe.py)",
+}
+
+
+def normalize_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Expand legacy one-char tokens to <mixer><ffn> form."""
+    out = []
+    for t in cfg.pattern:
+        if len(t) == 1:
+            if t == "a":
+                out.append("ae" if cfg.moe else "ad")
+            elif t == "m":
+                out.append("m-")
+            else:
+                raise ValueError(f"bad pattern token {t!r}")
+        else:
+            out.append(t)
+    return tuple(out)
+
+
+def check_supported(token: str) -> None:
+    """Raise for a block kind the port does not run yet."""
+    for part in token:
+        if part in _NOT_PORTED:
+            raise NotImplementedError(
+                f"block kind {token!r}: {_NOT_PORTED[part]} is not ported "
+                f"yet")
+    if token != "ad":
+        raise NotImplementedError(f"block kind {token!r} is not ported yet "
+                                  f"(ROADMAP Queue 1 item 10)")
+
+
+# ---------------------------------------------------------------------------
+# Single block
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, token: str) -> Params:
+    check_supported(token)
+    dtype = cfg.torch_param_dtype
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+            "attn": attn.init_attention(gen, cfg),
+            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)}
+
+
+def _ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    return x + apply_mlp(p["mlp"], h, cfg.act)
+
+
+def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
+                  positions: torch.Tensor, cache_len: int
+                  ) -> Tuple[torch.Tensor, Params]:
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    o, cache = attn.attend_prefill(p["attn"], h, cfg, positions, cache_len)
+    return _ffn_apply(p, x + o, cfg), cache
+
+
+def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
+                 cache: Params, position: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Params]:
+    """x (B, d) single token; ``cache`` is updated in place."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    o, cache = attn.attend_decode(p["attn"], h, cfg, cache, position)
+    return _ffn_apply(p, x + o, cfg), cache
+
+
+def init_block_cache(cfg: ModelConfig, token: str, batch: int,
+                     cache_len: int, dtype: torch.dtype,
+                     device: torch.device) -> Params:
+    check_supported(token)
+    S = cache_len
+    if cfg.sliding_window:
+        S = min(cache_len, cfg.sliding_window)  # rolling ring
+    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Stacked layers
+# ---------------------------------------------------------------------------
+
+def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig
+                        ) -> Tuple[Params, ...]:
+    """Per-pattern-position stacked params: a tuple of length R, each a
+    tree with leading axis reps = n_layers / R. Layers are drawn in order
+    into a preallocated stack (no second copy of the weights)."""
+    pattern = normalize_pattern(cfg)
+    reps = cfg.n_layers // len(pattern)
+    out = []
+    for token in pattern:
+        first = init_block(gen, cfg, token)
+        stacked = tree_map(
+            lambda a: torch.empty((reps,) + tuple(a.shape), dtype=a.dtype,
+                                  device=a.device), first)
+        tree_map(lambda s, a: s[0].copy_(a), stacked, first)
+        del first
+        for i in range(1, reps):
+            tree_map(lambda s, a: s[i].copy_(a), stacked,
+                     init_block(gen, cfg, token))
+        out.append(stacked)
+    return tuple(out)
+
+
+def _reps(stacked: Tuple[Params, ...]) -> int:
+    return next(iter(stacked[0]["norm1"].values())).shape[0]
+
+
+def run_blocks_prefill(stacked: Tuple[Params, ...], x: torch.Tensor,
+                       cfg: ModelConfig, positions: torch.Tensor,
+                       cache_len: int) -> Tuple[torch.Tensor, Tuple]:
+    """Returns (x, caches): a tuple of per-position caches stacked on the
+    reps axis."""
+    pattern = normalize_pattern(cfg)
+    per_layer = []
+    for i in range(_reps(stacked)):
+        caches = []
+        for r, token in enumerate(pattern):
+            x, c = block_prefill(layer_slice(stacked[r], i), x, cfg, token,
+                                 positions, cache_len)
+            caches.append(c)
+        per_layer.append(caches)
+    caches = tuple(
+        tree_map(lambda *xs: torch.stack(xs), *(cs[r] for cs in per_layer))
+        for r in range(len(pattern)))
+    return x, caches
+
+
+def run_blocks_decode(stacked: Tuple[Params, ...], x: torch.Tensor,
+                      cfg: ModelConfig, caches: Tuple, position: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Tuple]:
+    """One token through every layer; ``caches`` are written in place and
+    returned."""
+    pattern = normalize_pattern(cfg)
+    for i in range(_reps(stacked)):
+        for r, token in enumerate(pattern):
+            x, _ = block_decode(layer_slice(stacked[r], i), x, cfg, token,
+                                layer_slice(caches[r], i), position)
+    return x, caches

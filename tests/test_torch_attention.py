@@ -1,0 +1,179 @@
+"""Port attention: the plain versions (``repro_torch.kernels.ref``
+``flash_attention_ref`` / ``decode_attention_ref``) against the JAX
+references and the Pallas kernels (interpret mode) on the shapes of
+``tests/test_kernels.py``, plus the attention wrappers' input checks.
+
+The same numpy inputs go to both packages. Tolerances: 2e-5 in f32 (another
+summation order); in bf16 the two references round at the same places
+(logits in bf16, softmax in f32, probabilities cast back before PV), so
+they are held at 1e-2, one bf16 rounding step. Against the Pallas kernels,
+which compute in f32 throughout, the bf16 tolerance is 2e-2, as in
+``tests/test_kernels.py``. No shape here has a query row that keeps no
+key: there the kernels write 0 and the references the uniform average.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref as tref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+torch.set_num_threads(1)
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
+
+
+def _inputs(seed, dtype, *shapes):
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jd, td, _ = DTYPES[dtype]
+    return ([jnp.asarray(x, jd) for x in xs],
+            [torch.from_numpy(x).to(td) for x in xs])
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+FLASH_SHAPES = [(2, 128, 128, 4, 4, 64),     # MHA
+                (1, 128, 128, 8, 2, 64),     # GQA 4x
+                (2, 64, 128, 4, 1, 32),      # MQA, cross lengths
+                (2, 37, 53, 6, 2, 16)]       # ragged lengths
+MASKS = [(True, None), (True, 32), (False, None)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_ref_matches_jax(B, Sq, Sk, Hq, Hkv, D, causal,
+                                         window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        0, dtype, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, Hq, D)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_ref_matches_pallas(causal, window, dtype):
+    from repro.kernels.flash_attention import flash_attention_pallas
+    B, Sq, Sk, Hq, Hkv, D = 1, 128, 128, 8, 2, 64
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        1, dtype, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  interpret=True)
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    _close(got, want, 2e-2 if dtype == "bf16" else 2e-5)
+
+
+DECODE_SHAPES = [(4, 128, 4, 4, 64), (2, 256, 8, 2, 64), (3, 64, 4, 1, 32),
+                 (2, 1024, 12, 2, 128)]     # qwen2-1.5b's heads
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", DECODE_SHAPES)
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_attention_ref_matches_jax(B, S, Hq, Hkv, D, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        2, dtype, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    lengths = np.random.default_rng(2).integers(1, S + 1, B).astype(np.int32)
+    lengths[0] = S + 7                      # a length past the cache
+    got = tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths),
+                                    window=window)
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths),
+                                     window=window)
+    assert got.dtype == tq.dtype and got.shape == (B, Hq, D)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_decode_attention_ref_matches_pallas(window):
+    from repro.kernels.decode_attention import decode_attention_pallas
+    B, S, Hq, Hkv, D = 2, 256, 8, 2, 64
+    (jq, jk, jv), (tq, tk, tv) = _inputs(3, "f32", (B, Hq, D),
+                                         (B, S, Hkv, D), (B, S, Hkv, D))
+    lengths = np.asarray([100, 256], np.int32)
+    want = decode_attention_pallas(jq, jk, jv, jnp.asarray(lengths),
+                                   window=window, interpret=True)
+    got = tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths),
+                                    window=window)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("S,window,steps", [(16, 8, 20), (8, 8, 12),
+                                            (16, None, 11)])
+def test_decode_attention_ring_matches_prefix_and_jax(S, window, steps):
+    """Ring-layout decode past the window == prefix-layout decode on the
+    same history, in both packages, and the Pallas kernel in ring mode."""
+    B, Hq, Hkv, D = 2, 4, 2, 16
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    hist_k = rng.standard_normal((B, steps, Hkv, D)).astype(np.float32)
+    hist_v = rng.standard_normal((B, steps, Hkv, D)).astype(np.float32)
+    kr = np.zeros((B, S, Hkv, D), np.float32)
+    vr = np.zeros((B, S, Hkv, D), np.float32)
+    for t in range(steps):
+        kr[:, t % S], vr[:, t % S] = hist_k[:, t], hist_v[:, t]
+    pos = np.full((B,), steps - 1, np.int32)
+    lengths = np.full((B,), steps, np.int32)
+    T = torch.from_numpy
+    prefix = tref.decode_attention_ref(T(q), T(hist_k), T(hist_v),
+                                       T(lengths), window=window)
+    ring = tref.decode_attention_ref(T(q), T(kr), T(vr), T(pos),
+                                     window=window, ring=True)
+    want = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(kr),
+                                     jnp.asarray(vr), jnp.asarray(pos),
+                                     window=window, ring=True)
+    _close(ring, prefix.numpy(), 1e-5)
+    _close(ring, want, 2e-5)
+    from repro.kernels.decode_attention import decode_attention_pallas
+    got_p = decode_attention_pallas(jnp.asarray(q), jnp.asarray(kr),
+                                    jnp.asarray(vr), jnp.asarray(pos),
+                                    window=window, ring=True,
+                                    interpret=True, block_k=8)
+    _close(ring, got_p, 2e-5)
+
+
+def test_decode_attention_matches_flash_last_row():
+    """Decoding token t equals row t of full causal attention."""
+    B, S, Hq, Hkv, D = 2, 64, 6, 2, 32
+    _, (q_full, k, v) = _inputs(4, "f32", (B, S, Hq, D), (B, S, Hkv, D),
+                                (B, S, Hkv, D))
+    full = tref.flash_attention_ref(q_full, k, v, causal=True)
+    dec = tref.decode_attention_ref(q_full[:, -1].contiguous(), k, v,
+                                    torch.full((B,), S, dtype=torch.int32))
+    _close(dec, full[:, -1].numpy(), 1e-5)
+
+
+def test_ops_dispatch_cpu_tensors_to_the_plain_versions():
+    _, (q, k, v) = _inputs(5, "f32", (1, 8, 4, 16), (1, 8, 2, 16),
+                           (1, 8, 2, 16))
+    torch.testing.assert_close(ops.flash_attention(q, k, v, window=4),
+                               tref.flash_attention_ref(q, k, v, window=4))
+    lengths = torch.tensor([5], dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.decode_attention(q[:, 0].contiguous(), k, v, lengths),
+        tref.decode_attention_ref(q[:, 0].contiguous(), k, v, lengths))
+
+
+@pytest.mark.parametrize("fn,args", [
+    (flash_attention_cuda, ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))),
+    (decode_attention_cuda, ((1, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))),
+])
+def test_attention_wrappers_refuse_cpu_tensors(fn, args):
+    ts = [torch.zeros(s) for s in args]
+    extra = ((torch.ones(1, dtype=torch.int32),)
+             if fn is decode_attention_cuda else ())
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        fn(*ts, *extra)

@@ -7,7 +7,12 @@ has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: exact for count, min, max, first, last and the LAST JOIN
-outputs; ``rtol 2e-4`` for sum and sumsq (another summation order).
+outputs; ``rtol 2e-4`` for sum and sumsq (another summation order). The
+attention kernels compute in f32 throughout where the plain versions round
+logits and probabilities to the input dtype: ``rtol = atol = 2e-2`` in
+bf16 and ``2e-5`` in f32, as ``tests/test_kernels.py`` holds the Pallas
+kernels. No attention case has a query that keeps no key (there the
+kernels write 0 and the plain versions the uniform average).
 """
 import numpy as np
 import pytest
@@ -151,3 +156,117 @@ def test_wrapper_rejects_bad_inputs(table):
     with pytest.raises(ValueError, match="is on cpu"):
         ops.window_agg(st.values, st.ts, st.total, key.cpu(), rts,
                        rows_preceding=5)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 128, 128, 4, 4, 64),      # MHA
+    (1, 128, 128, 8, 2, 64),      # GQA 4x
+    (2, 64, 128, 4, 1, 32),       # MQA, Sq < Sk
+    (2, 37, 53, 6, 2, 80),        # ragged lengths
+    (1, 200, 200, 12, 2, 128),    # qwen2-1.5b's heads
+    (1, 33, 70, 4, 2, 96),
+])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(card, B, Sq, Sk, Hq, Hkv, D, causal, window,
+                                dtype):
+    q = _randn((B, Sq, Hq, D), dtype, card, 0)
+    k = _randn((B, Sk, Hkv, D), dtype, card, 1)
+    v = _randn((B, Sk, Hkv, D), dtype, card, 2)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (4, 128, 4, 4, 64), (2, 256, 8, 2, 64), (3, 64, 4, 1, 32),
+    (16, 1024, 12, 2, 128), (2, 100, 9, 3, 80)])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_prefix(card, B, S, Hq, Hkv, D, window,
+                                        dtype):
+    q = _randn((B, Hq, D), dtype, card, 3)
+    kc = _randn((B, S, Hkv, D), dtype, card, 4)
+    vc = _randn((B, S, Hkv, D), dtype, card, 5)
+    lengths = np.random.default_rng(2).integers(1, S + 1, B)
+    lengths[0] = S + 9                  # a length past the cache counts as S
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
+    got = ops.decode_attention(q, kc, vc, lengths, window=window)
+    want = ref.decode_attention_ref(q, kc, vc, lengths, window=window)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S,window", [(16, 8), (64, 64), (300, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_ring(card, S, window, dtype):
+    """Ring layout: positions before, at and far past the ring's size."""
+    B, Hq, Hkv, D = 6, 8, 2, 64
+    q = _randn((B, Hq, D), dtype, card, 6)
+    kc = _randn((B, S, Hkv, D), dtype, card, 7)
+    vc = _randn((B, S, Hkv, D), dtype, card, 8)
+    pos = torch.tensor([0, S // 2, S - 1, S, 3 * S + 5, 10 * S + 1],
+                       dtype=torch.int32, device=card)
+    got = ops.decode_attention(q, kc, vc, pos, window=window, ring=True)
+    want = ref.decode_attention_ref(q, kc, vc, pos, window=window, ring=True)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_attention_launch_counters(card):
+    from repro_torch.kernels import decode_attention, flash_attention
+    q = _randn((1, 16, 4, 64), torch.bfloat16, card, 9)
+    k = _randn((1, 16, 2, 64), torch.bfloat16, card, 10)
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    ops.flash_attention(q, k, k)
+    ref.flash_attention_ref(q, k, k)
+    lengths = torch.full((1,), 16, dtype=torch.int32, device=card)
+    ops.decode_attention(q[:, 0].contiguous(), k, k, lengths)
+    assert flash_attention.launches == f0 + 1
+    assert decode_attention.launches == d0 + 1
+
+
+def test_attention_wrappers_reject_bad_inputs(card):
+    q = _randn((1, 16, 4, 64), torch.bfloat16, card, 11)
+    k = _randn((1, 16, 2, 64), torch.bfloat16, card, 12)
+    lengths = torch.full((1,), 16, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="takes"):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="k must be"):
+        ops.flash_attention(q, k.float(), k)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q[:, :, :3].contiguous(), k, k)
+    with pytest.raises(TypeError, match="lengths must be torch.int32"):
+        ops.decode_attention(q[:, 0].contiguous(), k, k, lengths.long())
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.decode_attention(q[:, 0].contiguous(), k, k, lengths.cpu())

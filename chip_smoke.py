@@ -32,9 +32,10 @@ then:
    batch p50/p99;
 7. holds the two attention kernels against their plain versions, bf16 and
    f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
-   lengths; decode in prefix mode with and without a window, past the
-   cache, and in ring mode past the window): ``rtol = atol = 2e-2`` in
-   bf16, ``2e-5`` in f32;
+   lengths, query counts around the 64-row tiles; decode in prefix mode
+   with and without a window, at lengths around its split edges, past
+   the cache, and in ring mode past the window): ``rtol = atol = 2e-2``
+   in bf16, ``2e-5`` in f32;
 8. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
@@ -718,8 +719,9 @@ ATTN_KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attention.py:88"),
 }
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-# kernel vs plain version: the kernels compute in f32 where the plain
-# versions round logits and probabilities to the input dtype
+# kernel vs plain version: the kernels keep the logits in f32 where the
+# plain versions round them to the input dtype (in bf16 both round the
+# probabilities to bf16 before PV)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -762,8 +764,12 @@ def attention_cases(device) -> Dict[str, float]:
     ragged lengths; decode in prefix mode with and without a window, a
     length past the cache, and in ring mode past the window. No case has a
     query that keeps no key (the kernels write 0 there, the plain versions
-    the uniform average). Returns the largest absolute difference."""
+    the uniform average). Flash also runs query counts one past and one
+    short of its 64-row tiles and a window of 8; decode also runs lengths
+    on and around its split edges. Returns the largest absolute
+    difference."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import SPLIT
     errs = {k: 0.0 for k in ATTN_KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
         for B, Sq, Sk, Hq, Hkv, D in ((2, 128, 128, 4, 4, 64),
@@ -771,11 +777,14 @@ def attention_cases(device) -> Dict[str, float]:
                                       (2, 64, 128, 4, 1, 32),
                                       (2, 37, 53, 6, 2, 80),
                                       (1, 200, 200, 12, 2, 128),
-                                      (1, 33, 70, 4, 2, 96)):
+                                      (1, 33, 70, 4, 2, 96),
+                                      (2, 65, 65, 12, 2, 128),
+                                      (1, 127, 127, 6, 2, 16)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
-            for causal, window in ((True, None), (True, 32), (False, None)):
+            for causal, window in ((True, None), (True, 32), (True, 8),
+                                   (False, None)):
                 kw = dict(causal=causal, window=window)
                 errs["flash_attention"] = max(
                     errs["flash_attention"], _attn_err(
@@ -784,12 +793,16 @@ def attention_cases(device) -> Dict[str, float]:
                         f"flash {dtype} {(B, Sq, Sk, Hq, Hkv, D)} {kw}"))
         for B, S, Hq, Hkv, D in ((4, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                                  (3, 64, 4, 1, 32), (16, 1024, 12, 2, 128),
-                                 (2, 100, 9, 3, 80)):
+                                 (2, 100, 9, 3, 80), (6, 300, 12, 2, 128)):
             q = _randn((B, Hq, D), dtype, device, 4)
             kc = _randn((B, S, Hkv, D), dtype, device, 5)
             vc = _randn((B, S, Hkv, D), dtype, device, 6)
-            lengths = np.random.default_rng(S).integers(1, S + 1, B)
-            lengths[0] = S + 9                  # past the cache: counts as S
+            if S == 300:                        # split edges, past the cache
+                lengths = np.array([1, SPLIT - 1, SPLIT, SPLIT + 1, S,
+                                    S + 9])
+            else:
+                lengths = np.random.default_rng(S).integers(1, S + 1, B)
+                lengths[0] = S + 9              # past the cache: counts as S
             lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
             for window in (None, 48):
                 errs["decode_attention"] = max(

@@ -3,7 +3,9 @@ prefix or ring layout (``csrc/decode_attention.cu``).
 
 Counterpart of the TPU kernel ``decode_attention_pallas``; the plain
 version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
-``launches`` counts the kernel launches this process made.
+``launches`` counts the calls this process made that launched the
+kernel; each call is two device launches (the split pass over
+``ceil(S / SPLIT)`` cache chunks and the combine pass).
 """
 from __future__ import annotations
 
@@ -16,11 +18,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (DTYPES, check_query,
                                                  require_aligned)
 
-__all__ = ["decode_attention_cuda", "launches", "MAX_REP_D"]
+__all__ = ["decode_attention_cuda", "launches", "MAX_REP_D", "SPLIT"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 5 + (_I,) * 8 + (_F, _P)
+_ARGTYPES = (_P,) * 6 + (_I,) * 9 + (_F, _P)
 MAX_REP_D = 2048      # (Hq / Hkv) * D one block accumulates (kMaxAcc4)
+SPLIT = 64            # cache slots per split block: the kernels' kChunk
+                      # (the launch refuses any other value)
 
 launches = 0
 
@@ -37,7 +41,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     CUDA device. ``ring=False``: ``lengths`` counts the valid prefix (a
     length above S counts as S). ``ring=True``: ``lengths`` is the absolute
     position of a rolling ring. Returns (B, Hq, D); a head that keeps no
-    slot comes out 0, as in the TPU kernel.
+    slot comes out 0, as in the TPU kernel. The split pass writes its
+    partials to an f32 scratch buffer of ``B·Hkv·ceil(S/SPLIT)·rep·(D+2)``
+    floats allocated here; the launch depends only on the shapes, never
+    on the lengths.
     """
     global launches
     dev = _build.require_cuda(q, "decode_attention_cuda")
@@ -65,12 +72,16 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     if S == 0:
         return out.zero_()
+    n_split = -(-S // SPLIT)
+    scratch = torch.empty(B * Hkv * n_split * (Hq // Hkv) * (D + 2),
+                          dtype=torch.float32, device=dev)
     fn = _build.function("decode_attention_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(_build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
-                  _build.ptr(lengths), _build.ptr(out), B, S, Hq, Hkv, D,
-                  DTYPES[q.dtype], 0 if window is None else int(window),
-                  int(ring), scale, _build.stream_of(dev))
+                  _build.ptr(lengths), _build.ptr(out), _build.ptr(scratch),
+                  B, S, Hq, Hkv, D, DTYPES[q.dtype],
+                  0 if window is None else int(window), int(ring), SPLIT,
+                  scale, _build.stream_of(dev))
     _build.check(code, "decode_attention")
     launches += 1
     return out

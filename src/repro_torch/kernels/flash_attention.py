@@ -55,7 +55,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), one dtype (bf16 or f32), all
     contiguous on one CUDA device; Sq <= Sk for causal attention (queries
     right-aligned). Returns (B, Sq, Hq, D). A query row that keeps no key
-    comes out 0, as in the TPU kernel.
+    comes out 0, as in the TPU kernel. bf16 runs QK^T and PV on the
+    tensor cores and rounds the probabilities to bf16 before PV, as the
+    plain version does; f32 stays in full f32 on the FMA units.
     """
     global launches
     dev = _build.require_cuda(q, "flash_attention_cuda")

@@ -12,7 +12,9 @@ which compute in f32 throughout, the bf16 tolerance is 2e-2, as in
 key: there the kernels write 0 and the references the uniform average.
 
 The CUDA kernels themselves are held against these plain versions on the
-card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; the
+arithmetic of the CUDA decode kernel's split and combine passes is
+modelled here in plain PyTorch and held against both references.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -143,6 +145,82 @@ def test_decode_attention_ring_matches_prefix_and_jax(S, window, steps):
                                     window=window, ring=True,
                                     interpret=True, block_k=8)
     _close(ring, got_p, 2e-5)
+
+
+def _split_kv_decode(q, kc, vc, lengths, window, ring, chunk):
+    """Plain model of the CUDA decode kernel's two passes (f32, log2
+    domain). Split pass: split i of a sequence covers the live slots
+    [i·chunk, (i+1)·chunk) ∩ [lo, hi) and yields (m, l, acc); a split with
+    nothing live keeps l = 0, m = −1e30. Combine pass: m* = max m_i,
+    l = Σ l_i·2^(m_i−m*), o = Σ acc_i·2^(m_i−m*) / l, l = 0 writing 0.
+    Returns the output and the number of empty splits."""
+    B, Hq, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    rep = Hq // Hkv
+    n_split = -(-S // chunk)
+    qg = q.reshape(B, Hkv, rep, D) * (D ** -0.5 * np.log2(np.e))
+    out = torch.zeros(B, Hkv, rep, D)
+    empty = 0
+    for b in range(B):
+        L = int(lengths[b])
+        if ring:
+            lo, hi = 0, min(S, L + 1)
+        else:
+            lo, hi = (max(0, L - window) if window else 0), min(S, L)
+        m = torch.full((n_split, Hkv, rep), -1e30)
+        l = torch.zeros(n_split, Hkv, rep)
+        acc = torch.zeros(n_split, Hkv, rep, D)
+        for i in range(n_split):
+            s0, s1 = max(lo, i * chunk), min(hi, (i + 1) * chunk)
+            if s0 >= s1:
+                empty += 1
+                continue
+            sc = torch.einsum("hrd,jhd->hrj", qg[b], kc[b, s0:s1])
+            if ring:
+                kpos = torch.arange(s0, s1)
+                ap = L - (L - kpos + S * (L // S + 1)) % S
+                keep = ap >= 0
+                if window:
+                    keep = keep & (ap > L - window)
+                sc = sc.masked_fill(~keep, float("-inf"))
+            m[i] = torch.clamp(sc.amax(-1), min=-1e30)
+            p = torch.exp2(sc - m[i][..., None])
+            l[i] = p.sum(-1)
+            acc[i] = torch.einsum("hrj,jhd->hrd", p, vc[b, s0:s1])
+        w = torch.exp2(m - m.amax(0))
+        lt = (l * w).sum(0)
+        o = (acc * w[..., None]).sum(0)
+        out[b] = o / torch.where(lt > 0, lt, torch.ones_like(lt))[..., None]
+    return out.reshape(B, Hq, D), empty
+
+
+@pytest.mark.parametrize("ring,window", [(False, None), (False, 100),
+                                         (True, 100), (True, None)])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_split_kv_merge_matches_refs(ring, window, chunk):
+    """The split-KV decode (per-split partials, then the merge) equals the
+    plain decode and the JAX reference in f32, at lengths on and around
+    the split edges, past the cache (prefix) and positions far past the
+    ring (ring), in a cache whose size is no multiple of the split."""
+    B, S, Hq, Hkv, D = 6, 300, 6, 2, 16
+    _, (q, kc, vc) = _inputs(6, "f32", (B, Hq, D), (B, S, Hkv, D),
+                             (B, S, Hkv, D))
+    if ring:
+        lengths = [0, S // 2, S - 1, S, 3 * S + 5, 10 * S + 1]
+    else:
+        lengths = [1, chunk - 1, chunk + 1, 2 * chunk, S, S + 9]
+    lengths = np.asarray(lengths, np.int32)
+    got, empty = _split_kv_decode(q, kc, vc, lengths, window, ring, chunk)
+    assert empty > 0                    # some splits hold nothing live
+    T = torch.from_numpy
+    want = tref.decode_attention_ref(q, kc, vc, T(lengths), window=window,
+                                     ring=ring)
+    _close(got, want.numpy(), 1e-5)
+    want_j = jref.decode_attention_ref(
+        jnp.asarray(q.numpy()), jnp.asarray(kc.numpy()),
+        jnp.asarray(vc.numpy()), jnp.asarray(lengths), window=window,
+        ring=ring)
+    _close(got, want_j, 1e-5)
 
 
 def test_decode_attention_matches_flash_last_row():

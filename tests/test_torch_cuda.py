@@ -8,10 +8,10 @@ has only PyTorch:
 
 Tolerances: exact for count, min, max, first, last and the LAST JOIN
 outputs; ``rtol 2e-4`` for sum and sumsq (another summation order). The
-attention kernels compute in f32 throughout where the plain versions round
-logits and probabilities to the input dtype: ``rtol = atol = 2e-2`` in
-bf16 and ``2e-5`` in f32, as ``tests/test_kernels.py`` holds the Pallas
-kernels. No attention case has a query that keeps no key (there the
+attention kernels keep the logits in f32 where the plain versions round
+them to the input dtype (in bf16 both round the probabilities to bf16
+before PV): ``rtol = atol = 2e-2`` in bf16 and ``2e-5`` in f32, as
+``tests/test_kernels.py`` holds the Pallas kernels. No attention case has a query that keeps no key (there the
 kernels write 0 and the plain versions the uniform average).
 """
 import numpy as np
@@ -21,6 +21,7 @@ import torch
 from repro_torch.data.synthetic import EventStreamConfig, generate_events
 from repro_torch.featurestore.table import Table, TableSchema
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import SPLIT
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -184,9 +185,14 @@ def _randn(shape, dtype, device, seed):
     (2, 37, 53, 6, 2, 80),        # ragged lengths
     (1, 200, 200, 12, 2, 128),    # qwen2-1.5b's heads
     (1, 33, 70, 4, 2, 96),
+    (1, 512, 512, 12, 2, 128),    # the main path's prefill call, one prompt
+    (2, 65, 65, 4, 2, 64),        # Sq one past a 64-row query tile
+    (1, 127, 200, 4, 2, 16),      # Sq one short of two tiles, D 16
+    (2, 127, 127, 6, 2, 80),
+    (2, 100, 100, 6, 2, 64),      # three query heads of a KV group a block
 ])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
-                                           (False, None)])
+                                           (True, 8), (False, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(card, B, Sq, Sk, Hq, Hkv, D, causal, window,
                                 dtype):
@@ -201,18 +207,29 @@ def test_flash_attention_kernel(card, B, Sq, Sk, Hq, Hkv, D, causal, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
-    (4, 128, 4, 4, 64), (2, 256, 8, 2, 64), (3, 64, 4, 1, 32),
-    (16, 1024, 12, 2, 128), (2, 100, 9, 3, 80)])
+# lengths at the edges of a split: one slot, a split less one, one split,
+# one slot into the next, the whole cache and past it
+SPLIT_EDGES = (1, SPLIT - 1, SPLIT, SPLIT + 1, 300, 309)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,lengths", [
+    (4, 128, 4, 4, 64, None), (2, 256, 8, 2, 64, None),
+    (3, 64, 4, 1, 32, None), (16, 1024, 12, 2, 128, None),
+    (2, 100, 9, 3, 80, None),
+    (6, 300, 12, 2, 128, SPLIT_EDGES),  # S not a multiple of the split
+    (6, 300, 4, 1, 16, SPLIT_EDGES)])
 @pytest.mark.parametrize("window", [None, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_kernel_prefix(card, B, S, Hq, Hkv, D, window,
-                                        dtype):
+def test_decode_attention_kernel_prefix(card, B, S, Hq, Hkv, D, lengths,
+                                        window, dtype):
+    """Random lengths (the first past the cache), or the given ones; a
+    window of 48 spans a split boundary for lengths SPLIT + 1 and 300."""
     q = _randn((B, Hq, D), dtype, card, 3)
     kc = _randn((B, S, Hkv, D), dtype, card, 4)
     vc = _randn((B, S, Hkv, D), dtype, card, 5)
-    lengths = np.random.default_rng(2).integers(1, S + 1, B)
-    lengths[0] = S + 9                  # a length past the cache counts as S
+    if lengths is None:
+        lengths = np.random.default_rng(2).integers(1, S + 1, B)
+        lengths[0] = S + 9              # a length past the cache counts as S
     lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
     got = ops.decode_attention(q, kc, vc, lengths, window=window)
     want = ref.decode_attention_ref(q, kc, vc, lengths, window=window)
@@ -221,7 +238,8 @@ def test_decode_attention_kernel_prefix(card, B, S, Hq, Hkv, D, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("S,window", [(16, 8), (64, 64), (300, 100)])
+@pytest.mark.parametrize("S,window", [(16, 8), (64, 64), (300, 100),
+                                      (300, None), (300, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_ring(card, S, window, dtype):
     """Ring layout: positions before, at and far past the ring's size."""

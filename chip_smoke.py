@@ -19,8 +19,10 @@ then:
    card — wrapped, unwrapped and empty rings, ROWS and RANGE frames,
    assume_latest on and off, with and without a WHERE mask, unmatched
    joins — exact for count/min/max/first/last and the join outputs,
-   ``rtol 2e-4`` for sum/sumsq; then times each kernel and its plain
-   version on the calls the main path makes at B=500: device time per
+   ``rtol 2e-4`` for sum/sumsq; fused_window and preagg_window also at
+   the edges of their warp-per-request design (``window_cases``); then
+   times each kernel and its plain version on every call the main path
+   makes at B=500 (each deployment's calls in order): device time per
    launch (a CUDA graph of 20 calls, median of 20 replays) and time per
    call with host work (CUDA events, median of 30, L2 flushed);
 5. holds a ``device="cuda"`` engine against a ``device="cpu"`` engine on
@@ -259,7 +261,8 @@ def kernel_cases(state, preagg, sz: Sizes, n_keys: int, t_max: float,
     hot = np.argsort(-total[:n_keys])[:B // 8]              # wrapped rings
     cold = rng.integers(0, n_keys, B // 2)                  # mostly unwrapped
     empty = rng.integers(n_keys, state.max_keys, B - len(hot) - len(cold))
-    keys = np.concatenate([hot, cold, empty]).astype(np.int32)
+    keys = rng.permutation(np.concatenate([hot, cold, empty])
+                           ).astype(np.int32)
     assert (total[hot] > sz.capacity).all() and (total[empty] == 0).all()
     key = torch.from_numpy(keys).to(device)
     fresh = torch.full((B,), t_max + 1.0, device=device)
@@ -314,19 +317,118 @@ def kernel_cases(state, preagg, sz: Sizes, n_keys: int, t_max: float,
             raise AssertionError("no unmatched LAST JOIN in the cases")
         errs["last_join"] = max(errs["last_join"], _max_err(
             got, {k: v for k, v in want.items()}, f"last_join {j}"))
+    oor = key.clone()                       # out-of-range keys: empty rings
+    oor[[0, 5, 32, 100]] = torch.tensor([-1, state.max_keys,
+                                         state.max_keys + 7, -5],
+                                        dtype=torch.int32, device=device)
+    plain_key = torch.where(oor == key, key, torch.full_like(key,
+                                                             int(empty[0])))
+    for k, e in window_cases(state, preagg, sz, oor, plain_key, fresh, past,
+                             device).items():
+        errs[k] = max(errs[k], e)
     return errs
 
 
-def capture_calls(eng, reqs) -> Dict[str, tuple]:
-    """The (args, kwargs) of each kernel call one B=500 batch of every
-    deployment makes — the shapes the main path gives each kernel."""
+def window_cases(state, preagg, sz: Sizes, key, plain_key, fresh, past,
+                 device) -> Dict[str, float]:
+    """fused_window and preagg_window against their plain versions at the
+    edges of the warp-per-request kernels: batches of 1, 31, 33 and 499
+    requests (ragged blocks), out-of-range keys (``key``; the plain
+    version gets an empty key there, ``plain_key``) among empty and
+    wrapped ones, fresh and point-in-time requests; fused: ROWS 0, 1, 31,
+    32, 33, 100 and 1023 beside RANGE frames, 16 specs, 64 columns, the
+    table's aligned four columns and the batch's rows with a derived fifth
+    column (4-byte column loads), with and without a WHERE mask; preagg:
+    every window shape of ``preagg_window.SHAPES``, one to 64 columns.
+    Returns the largest absolute difference per kernel."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.preagg_window import SHAPES, window_split
+    every = ("sum", "sumsq", "count", "min", "max", "first", "last")
+    edge = dict(spec_rows=(0, 1, 31, 32, 33, 100, 1023, None),
+                spec_ranges=(None,) * 7 + (500.0,),
+                spec_fields=tuple(every[i % 7:] + every[:i % 3]
+                                  for i in range(8)))
+    rows16 = tuple(None if i % 4 == 3 else 1 + 67 * i for i in range(16))
+    sixteen = dict(spec_rows=rows16,
+                   spec_ranges=tuple(40.0 * (i + 1) if r is None else None
+                                     for i, r in enumerate(rows16)),
+                   spec_fields=tuple(every[:1 + i % 7] if i % 2 else
+                                     every[i % 7:] for i in range(16)))
+    cols64 = tuple((3 * i) % 4 for i in range(64))
+    errs = {"fused_window": 0.0, "preagg_window": 0.0}
+    shapes: set = set()
+    tiers = (preagg.sum, preagg.sumsq, preagg.min, preagg.max, preagg.count)
+    for B in (1, 31, 33, 499):
+        kb, kp = key[:B], plain_key[:B]
+        lk = kp.long()
+        lv = state.values[lk]
+        local = (torch.cat([lv, lv[..., :1] * lv[..., :1]], -1).contiguous(),
+                 state.ts[lk].contiguous(), state.total[lk].contiguous())
+        lkey = torch.arange(B, dtype=torch.int32, device=device)
+        mask = lv[:, :, 0] > 20.0
+        for al, rts in ((True, fresh[:B]), (False, past[:B])):
+            inputs = (((state.values, state.ts, state.total), kb, kp, None,
+                       (0, 1, 2, 3)),
+                      ((state.values, state.ts, state.total), kb, kp, None,
+                       cols64),
+                      (local, lkey, lkey, mask, (4, 0, 2)),
+                      (local, lkey, lkey, None, tuple(i % 5
+                                                      for i in range(64))))
+            for ring, k_kernel, k_plain, m, cols in inputs:
+                for specs in (edge, sixteen):
+                    f = dict(specs, cols=cols, evt_mask=m, assume_latest=al)
+                    errs["fused_window"] = max(errs["fused_window"], _max_err(
+                        ops.fused_window(*ring, k_kernel, rts, **f),
+                        ref.fused_window_ref(*ring, k_plain, rts, **f),
+                        f"fused_window B={B} S={len(specs['spec_rows'])} "
+                        f"cols={len(cols)} mask={m is not None} al={al}"))
+            for fr in (dict(rows_preceding=0), dict(rows_preceding=10),
+                       dict(rows_preceding=64), dict(rows_preceding=100),
+                       dict(rows_preceding=500), dict(rows_preceding=1023),
+                       dict(range_preceding=500.0)):
+                for cols, fields in (((0,), ("sum", "sumsq", "count")),
+                                     ((0,), ("count", "max")),
+                                     ((1, 2, 0), ("count", "max", "min",
+                                                  "sum")),
+                                     (cols64, None)):
+                    p = dict(bucket_size=sz.bucket, cols=cols, fields=fields,
+                             assume_latest=al, **fr)
+                    errs["preagg_window"] = max(
+                        errs["preagg_window"], _max_err(
+                            ops.preagg_window(state.values, state.ts,
+                                              state.total, *tiers, kb, rts,
+                                              **p),
+                            ref.preagg_window_ref(state.values, state.ts,
+                                                  state.total, *tiers, kp,
+                                                  rts, **p),
+                            f"preagg_window B={B} {fr} cols={len(cols)} "
+                            f"al={al}"))
+                shapes |= window_split(state.ts, state.total, kp, rts,
+                                       bucket_size=sz.bucket,
+                                       assume_latest=al, **fr)["shapes"]
+    missing = [s for s in SHAPES if s not in shapes]
+    if missing:
+        raise AssertionError(f"no preagg_window case took the shapes "
+                             f"{missing}")
+    return errs
+
+
+def capture_calls(eng, reqs) -> List[dict]:
+    """Every kernel call one B=500 batch of each deployment makes, in call
+    order, labelled ``deployment#order``: the shapes the main path gives
+    each kernel. Each call site launches once per batch of its
+    deployment, and every deployment serves the same batches."""
     from repro_torch.kernels import ops
-    calls: Dict[str, tuple] = {}
+    calls: List[dict] = []
     originals = {k: getattr(ops, k) for k in KERNELS}
+    current = {"deployment": None, "order": 0}
 
     def recorder(name):
         def rec(*a, **kw):
-            calls.setdefault(name, (a, kw))
+            calls.append({"call": f"{current['deployment']}#"
+                                  f"{current['order']}",
+                          "kernel": name, "args": a, "kw": kw})
+            current["order"] += 1
             return originals[name](*a, **kw)
         return rec
 
@@ -334,6 +436,7 @@ def capture_calls(eng, reqs) -> Dict[str, tuple]:
         for k in KERNELS:
             setattr(ops, k, recorder(k))
         for name in DEPLOYMENTS:
+            current.update(deployment=name, order=0)
             keys, ts, rows = reqs[name]
             eng.request(name, keys, ts, rows=rows)
     finally:
@@ -447,32 +550,48 @@ def needed_bytes(name: str, a: tuple, kw: dict, out) -> int:
     return n
 
 
-def time_calls(calls: Dict[str, tuple], reps: int, device
-               ) -> Dict[str, Dict[str, float]]:
-    """Kernel vs plain version on each captured main-path call."""
+def time_calls(calls: List[dict], reps: int, device) -> List[dict]:
+    """Kernel vs plain version on each captured main-path call: device ms
+    per launch, ms per call with host work, the bound."""
     from repro_torch.kernels import ops, ref
     plain = {"window_agg": ref.window_agg_ref,
              "fused_window": ref.fused_window_ref,
              "preagg_window": ref.preagg_window_ref,
              "last_join": ref.last_join_ref}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    res = {}
-    for name, (a, kw) in calls.items():
+    res = []
+    for c in calls:
+        name, a, kw = c["kernel"], c["args"], c["kw"]
         kfn = getattr(ops, name)
         got, want = kfn(*a, **kw), plain[name](*a, **kw)
-        err = _max_err(_as_dict(got), _as_dict(want), f"{name} main path")
+        err = _max_err(_as_dict(got), _as_dict(want),
+                       f"{name} main path {c['call']}")
         nbytes = needed_bytes(name, a, kw, got)
-        res[name] = {
+        res.append({
+            "call": c["call"], "kernel": name,
             "ms": _device_ms(lambda: kfn(*a, **kw), 20),
             "plain_ms": _device_ms(lambda: plain[name](*a, **kw), 20),
             "call_ms": _call_ms(lambda: kfn(*a, **kw), reps, flush),
             "plain_call_ms": _call_ms(lambda: plain[name](*a, **kw), reps,
                                       flush),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "bytes": nbytes, "max_abs_err": err,
-                     "batch": int(a[8 if name == "preagg_window" else 3]
-                                  .shape[0])}
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "max_abs_err": err,
+            "batch": int(a[8 if name == "preagg_window" else 3].shape[0])})
     return res
+
+
+def per_kernel(timing: List[dict]) -> Dict[str, Dict[str, float]]:
+    """Each kernel's numbers over its main-path calls, weighted by the
+    launches of each call; every call site launches once per batch, so
+    the weights are equal."""
+    out: Dict[str, Dict[str, float]] = {}
+    for k in KERNELS:
+        rows = [r for r in timing if r["kernel"] == k]
+        out[k] = {f: statistics.fmean(r[f] for r in rows)
+                  for f in ("ms", "plain_ms", "call_ms", "plain_call_ms",
+                            "bound_ms", "max_abs_err")}
+        out[k]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -667,14 +786,15 @@ def run(device, sz: Sizes) -> Dict[str, object]:
     reqs = {name: next(request_batches(keys, ts, rows, sz.timing_batch, 1,
                                        seed=17))
             for name in DEPLOYMENTS}
-    timing = time_calls(capture_calls(eng, reqs), sz.reps, device)
+    calls = time_calls(capture_calls(eng, reqs), sz.reps, device)
+    for v in calls:
+        log(f"time {v['kernel']} {v['call']} (B={v['batch']}): device per "
+            f"launch: kernel {v['ms']} ms, plain {v['plain_ms']} ms, bound "
+            f"{v['bound_ms']} ms ({v['bytes']} bytes); per call with host "
+            f"work: kernel {v['call_ms']} ms, plain {v['plain_call_ms']} ms")
+    timing = per_kernel(calls)
     for k, v in timing.items():
         errs[k] = max(errs[k], v["max_abs_err"])
-        log(f"time {k} (B={v['batch']}): device per launch: kernel "
-            f"{v['ms']:.6f} ms, plain {v['plain_ms']:.6f} ms, bound "
-            f"{v['bound_ms']:.6f} ms ({v['bytes']} bytes); per call with "
-            f"host work: kernel {v['call_ms']:.5f} ms, plain "
-            f"{v['plain_call_ms']:.5f} ms")
 
     # ---- the CUDA engine against the CPU engine ---------------------------
     cuda_vs_cpu(sz, device)
@@ -705,7 +825,8 @@ def run(device, sz: Sizes) -> Dict[str, object]:
         "call_ms": timing[k]["call_ms"],
         "plain_call_ms": timing[k]["plain_call_ms"]} for k in KERNELS]
     return {"kernels": kernels, "serve": report, "ingest_s": ingest_s,
-            "peak_bytes": peak, "engine_stats": stats, "busy": busy}
+            "peak_bytes": peak, "engine_stats": stats, "busy": busy,
+            "calls": calls}
 
 
 # ---------------------------------------------------------------------------
@@ -1207,7 +1328,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mres = run_model("cuda", ModelSizes())
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
-                                        "engine_stats", "busy")}))
+                                        "engine_stats", "busy", "calls")}))
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))
     log(card)

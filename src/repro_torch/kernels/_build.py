@@ -13,20 +13,22 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["library", "function", "check", "build_seconds", "build_log",
-           "require", "ptr", "stream_of", "int_array", "float_array",
-           "field_bits", "require_cuda", "check_cols", "MAX_COLS", "MAX_SPECS",
-           "BUILD_ROOT", "NVCC_FLAGS"]
+           "require", "ptr", "stream_of", "int_array",
+           "field_bits", "require_cuda", "check_cols", "empty_outputs",
+           "device_table", "MAX_COLS", "MAX_SPECS", "BUILD_ROOT",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -183,6 +185,36 @@ def check_cols(cols: Optional[Sequence[int]], V: int) -> Tuple[int, ...]:
     return cols
 
 
+@functools.lru_cache(maxsize=256)
+def device_table(cols: Tuple[int, ...], device: torch.device,
+                 specs: Tuple[Tuple[int, int, float], ...] = ()
+                 ) -> torch.Tensor:
+    """A launch's static int32 table on ``device``, laid out as
+    ``csrc/warp_window.cuh`` reads it: the column indices padded to
+    MAX_COLS words, then MAX_SPECS words each of the specs' ROWS lengths
+    (-1 for RANGE), field bits and RANGE spans (float32 bits), from one
+    ``(rows, bits, span)`` triple per spec. Copied to the device once per
+    table; the cache keeps it."""
+    def pad(xs, n):
+        return list(xs) + [0] * (n - len(xs))
+
+    rows, bits, spans = zip(*specs) if specs else ((), (), ())
+    span_bits = torch.tensor(spans, dtype=torch.float32).view(torch.int32)
+    words = (pad(cols, MAX_COLS) + pad(rows, MAX_SPECS)
+             + pad(bits, MAX_SPECS) + pad(span_bits.tolist(), MAX_SPECS))
+    return torch.tensor(words, dtype=torch.int32).to(device)
+
+
+def empty_outputs(shapes: Dict[str, Tuple[int, ...]],
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+    """Uninitialised f32 outputs of one launch, carved as contiguous views
+    out of one allocation (one allocator call instead of one per field)."""
+    sizes = [math.prod(s) for s in shapes.values()]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    return {f: t.view(s) for (f, s), t in
+            zip(shapes.items(), flat.split(sizes))}
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -194,6 +226,3 @@ def stream_of(device: torch.device) -> int:
 def int_array(xs: Sequence[int]):
     return (ctypes.c_int * max(len(xs), 1))(*xs)
 
-
-def float_array(xs: Sequence[float]):
-    return (ctypes.c_float * max(len(xs), 1))(*xs)

@@ -3,10 +3,11 @@
 //
 // Ring layout, as in featurestore/table.py: values (K, C, V) f32,
 // ts (K, C) f32, total (K,) i32. Event p of a key sits at slot p mod C and
-// the retained events are [max(0, total - C), total). Every kernel runs one
-// thread block per request; the block loads its own key, total and request
-// time, derives the window's position interval [p0, p1) and reduces only
-// the positions inside it.
+// the retained events are [max(0, total - C), total). window_agg and
+// last_join run one thread block per request, fused_window and
+// preagg_window one warp (warp_window.cuh); each loads its own key, total
+// and request time, derives the window's position interval [p0, p1) and
+// reduces only the positions inside it.
 #pragma once
 
 #include <cuda_runtime.h>

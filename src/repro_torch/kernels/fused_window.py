@@ -8,6 +8,7 @@ kernel launches this process made.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -15,13 +16,37 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import FUSED_FIELDS, check_fused_specs
 
-__all__ = ["fused_window_cuda", "launches"]
+__all__ = ["fused_window_cuda", "spec_table", "launches"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ((_P,) * 6 + (_I,) * 4 + (_P, _I, _I, _P, _P, _P, _I, _I)
-             + (_P,) * 7 + (_P,))
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P,) * 7 + (_I,) * 9 + (_P,) * 7 + (_P,)
 
 launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def spec_table(spec_rows: Tuple[Optional[int], ...],
+               spec_ranges: Tuple[Optional[float], ...],
+               spec_fields: Tuple[Tuple[str, ...], ...]):
+    """A validated spec table as the launch takes it, built once per
+    static table: ``(fields, present, any_range, specs)`` — the fields the
+    launch materialises (in ``FUSED_FIELDS`` order) and their bits,
+    whether a spec is a RANGE frame, and per spec the ``(rows, bits,
+    span)`` triple :func:`_build.device_table` packs (rows -1 for RANGE,
+    span 0.0 for ROWS)."""
+    check_fused_specs(spec_rows, spec_ranges, spec_fields)
+    if len(spec_rows) > _build.MAX_SPECS:
+        raise ValueError(f"a fused launch takes at most {_build.MAX_SPECS} "
+                         f"specs, got {len(spec_rows)}")
+    if any(r is not None and r < 0 for r in spec_rows):
+        raise ValueError(f"ROWS frames must be >= 0, got {spec_rows}")
+    fields = tuple(f for f in FUSED_FIELDS
+                   if any(f in sf for sf in spec_fields))
+    specs = tuple((-1 if r is None else int(r), _build.field_bits(sf),
+                   0.0 if g is None else float(g))
+                  for r, g, sf in zip(spec_rows, spec_ranges, spec_fields))
+    return (fields, _build.field_bits(fields),
+            any(r is None for r in spec_rows), specs)
 
 
 def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
@@ -40,13 +65,10 @@ def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
     ``_build.MAX_SPECS`` specs. Returns field -> (B, S, Vo), count -> (B, S).
     """
     global launches
-    check_fused_specs(spec_rows, spec_ranges, spec_fields)
+    fields, present, any_range, specs = spec_table(
+        tuple(spec_rows), tuple(spec_ranges),
+        tuple(tuple(sf) for sf in spec_fields))
     S = len(spec_rows)
-    if S > _build.MAX_SPECS:
-        raise ValueError(f"a fused launch takes at most {_build.MAX_SPECS} "
-                         f"specs, got {S}")
-    if any(r is not None and r < 0 for r in spec_rows):
-        raise ValueError(f"ROWS frames must be >= 0, got {spec_rows}")
     dev = _build.require_cuda(values, "fused_window_cuda")
     if values.dim() != 3:
         raise ValueError(f"values must be (K, C, V), got {tuple(values.shape)}")
@@ -60,24 +82,19 @@ def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
     if evt_mask is not None:
         _build.require(evt_mask, "evt_mask", torch.bool, (K, C), dev)
     cols = _build.check_cols(cols, V)
-    fields = tuple(f for f in FUSED_FIELDS
-                   if any(f in sf for sf in spec_fields))
-    out = {f: torch.empty((B, S) if f == "count" else (B, S, len(cols)),
-                          dtype=torch.float32, device=dev) for f in fields}
+    out = _build.empty_outputs(
+        {f: (B, S) if f == "count" else (B, S, len(cols)) for f in fields},
+        dev)
     if B == 0:
         return out
+    table = _build.device_table(cols, dev, specs)
     fn = _build.function("fused_window_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(
-            _build.ptr(values), _build.ptr(ts), _build.ptr(total),
-            _build.ptr(req_key), _build.ptr(req_ts), _build.ptr(evt_mask),
-            B, K, C, V, _build.int_array(cols), len(cols), S,
-            _build.int_array([-1 if r is None else int(r)
-                              for r in spec_rows]),
-            _build.float_array([0.0 if r is None else float(r)
-                                for r in spec_ranges]),
-            _build.int_array([_build.field_bits(sf) for sf in spec_fields]),
-            int(assume_latest), _build.field_bits(fields),
+            values.data_ptr(), ts.data_ptr(), total.data_ptr(),
+            req_key.data_ptr(), req_ts.data_ptr(), _build.ptr(evt_mask),
+            table.data_ptr(), B, K, C, V, len(cols), S, int(any_range),
+            int(assume_latest), present,
             *(_build.ptr(out.get(f)) for f in FUSED_FIELDS),
             _build.stream_of(dev))
     _build.check(code, "fused_window")

@@ -3,25 +3,35 @@
 
 Counterpart of the TPU kernel ``preagg_window_pallas``; the plain version
 is :func:`repro_torch.kernels.ref.preagg_window_ref`. ``launches`` counts
-the kernel launches this process made.
+the kernel launches this process made. :func:`window_split` says which of
+the kernel's paths a batch of requests takes (for its tests).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import window_bounds
 
-__all__ = ["preagg_window_cuda", "launches"]
+__all__ = ["preagg_window_cuda", "launches", "window_split", "SHAPES"]
 
 _ALL_FIELDS = ("sum", "sumsq", "count", "min", "max")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ((_P,) * 10 + (_I,) * 6 + (_P, _I, _I, _F, _I, _I)
-             + (_P,) * 5 + (_P,))
+_ARGTYPES = (_P,) * 11 + (_I,) * 8 + (_F, _I, _I) + (_P,) * 5 + (_P,)
 
 launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_fields(fields: Optional[Tuple[str, ...]]):
+    """The fields a launch materialises (in ``_ALL_FIELDS`` order) and
+    their bits, once per static request."""
+    fields = tuple(f for f in _ALL_FIELDS if f in (fields or _ALL_FIELDS))
+    return fields, _build.field_bits(fields)
 
 
 def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
@@ -66,24 +76,58 @@ def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
     if rows_preceding is not None and rows_preceding < 0:
         raise ValueError(f"rows_preceding must be >= 0, got {rows_preceding}")
     cols = _build.check_cols(cols, V)
-    fields = tuple(f for f in _ALL_FIELDS if f in (fields or _ALL_FIELDS))
-    out = {f: torch.empty((B,) if f == "count" else (B, len(cols)),
-                          dtype=torch.float32, device=dev) for f in fields}
+    fields, bits = _launch_fields(None if fields is None else tuple(fields))
+    out = _build.empty_outputs(
+        {f: (B,) if f == "count" else (B, len(cols)) for f in fields}, dev)
     if B == 0:
         return out
+    table = _build.device_table(cols, dev)
     fn = _build.function("preagg_window_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(
             _build.ptr(values), _build.ptr(ts), _build.ptr(total),
             _build.ptr(pa_sum), _build.ptr(pa_sumsq), _build.ptr(pa_min),
             _build.ptr(pa_max), _build.ptr(pa_count), _build.ptr(req_key),
-            _build.ptr(req_ts), B, K, C, V, NB, int(bucket_size),
-            _build.int_array(cols), len(cols),
+            _build.ptr(req_ts), table.data_ptr(), B, K, C, V, NB,
+            int(bucket_size), len(cols),
             -1 if rows_preceding is None else int(rows_preceding),
             0.0 if range_preceding is None else float(range_preceding),
-            int(assume_latest), _build.field_bits(fields),
+            int(assume_latest), bits,
             *(_build.ptr(out.get(f)) for f in _ALL_FIELDS),
             _build.stream_of(dev))
     _build.check(code, "preagg_window")
     launches += 1
     return out
+
+
+SHAPES = ("head only", "one bucket", "many buckets", "head + buckets + tail")
+
+
+def window_split(ts: torch.Tensor, total: torch.Tensor,
+                 req_key: torch.Tensor, req_ts: torch.Tensor, *,
+                 bucket_size: int, rows_preceding: Optional[int] = None,
+                 range_preceding: Optional[float] = None,
+                 assume_latest: bool = False) -> Dict[str, object]:
+    """How the kernel splits each request's window [p0, p1): the full
+    buckets [b0, b1), b0 = ceil(p0 / bucket), b1 = floor(p1 / bucket), and
+    the raw head [p0, b0·bucket) and tail [b1·bucket, p1) positions (all of
+    the window is head where no bucket boundary falls inside it).
+
+    Keys must lie in ``[0, K)``. Returns the (B,) int tensors ``buckets``
+    and ``raw`` (head + tail positions) and ``shapes``, the set of
+    :data:`SHAPES` the windows take."""
+    k = req_key.long()
+    p0, p1 = window_bounds(ts[k], total[k], req_ts,
+                           rows_preceding=rows_preceding,
+                           range_preceding=range_preceding,
+                           assume_latest=assume_latest)
+    b0, b1 = (p0 + bucket_size - 1) // bucket_size, p1 // bucket_size
+    has = b0 <= b1
+    buckets = torch.where(has, b1 - b0, torch.zeros_like(b0))
+    head = torch.where(has, b0 * bucket_size - p0, p1 - p0)
+    tail = torch.where(has, p1 - b1 * bucket_size, torch.zeros_like(p1))
+    found = {"head only": (buckets == 0) & (p1 > p0),
+             "one bucket": buckets == 1, "many buckets": buckets >= 2,
+             "head + buckets + tail": (buckets > 0) & (head > 0) & (tail > 0)}
+    return {"buckets": buckets, "raw": head + tail,
+            "shapes": {n for n in SHAPES if bool(found[n].any())}}

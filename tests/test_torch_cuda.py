@@ -22,6 +22,7 @@ from repro_torch.data.synthetic import EventStreamConfig, generate_events
 from repro_torch.featurestore.table import Table, TableSchema
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import SPLIT
+from repro_torch.kernels.preagg_window import SHAPES, window_split
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -117,6 +118,150 @@ def test_preagg_window_kernel(table, point_in_time, frame):
             pa.count, key, rts)
     _assert_same(ops.preagg_window(*args, **kw),
                  ref.preagg_window_ref(*args, **kw))
+
+
+# ---------------------------------------------------------------------------
+# the warp-per-request kernels (fused_window, preagg_window) at their edges
+# ---------------------------------------------------------------------------
+
+FIELDS = ("sum", "sumsq", "count", "min", "max", "first", "last")
+EDGE_ROWS = (0, 1, 31, 32, 33, 100, 1023)
+
+
+def _edge_requests(t, B, point_in_time):
+    """Requests whose keys include out-of-range ones (negative and past
+    max_keys), empty and wrapped ones. The kernels read an out-of-range key
+    as an empty ring; the plain version is given an empty key there."""
+    key, rts = _requests(t, B, point_in_time, seed=B)
+    oor = key.clone()
+    bad = torch.tensor([-1, t.max_keys, t.max_keys + 9, -7],
+                       dtype=torch.int32, device=t.device)
+    idx = torch.arange(0, B, 7, device=t.device)[:len(bad)]
+    oor[idx] = bad[:len(idx)]
+    plain = torch.where(oor == key, key, torch.full_like(key, t.max_keys - 1))
+    assert int(t.state.total[t.max_keys - 1]) == 0
+    return oor, plain, rts
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 499])
+@pytest.mark.parametrize("point_in_time", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_fused_window_kernel_geometry(table, B, point_in_time, with_mask):
+    """Ragged blocks, out-of-range keys, the ROWS edges of a warp's walk
+    and RANGE frames in one spec table."""
+    key, plain_key, rts = _edge_requests(table, B, point_in_time)
+    st = table.state
+    kw = dict(spec_rows=EDGE_ROWS + (None, None),
+              spec_ranges=(None,) * len(EDGE_ROWS) + (50.0, 400.0),
+              spec_fields=tuple(FIELDS[i % 7:] + FIELDS[:i % 3]
+                                for i in range(len(EDGE_ROWS) + 2)),
+              cols=(1, 2, 0),
+              evt_mask=(st.values[:, :, 0] > 0) if with_mask else None,
+              assume_latest=not point_in_time)
+    _assert_same(ops.fused_window(st.values, st.ts, st.total, key, rts, **kw),
+                 ref.fused_window_ref(st.values, st.ts, st.total, plain_key,
+                                      rts, **kw))
+
+
+@pytest.mark.parametrize("V", [68, 70])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_fused_window_kernel_16_specs_64_columns(table, V, point_in_time):
+    """16 specs over 64 columns: many chunks of specs and columns, read
+    as aligned groups of four (V=68) or column by column (V=70)."""
+    key, plain_key, rts = _edge_requests(table, 64, point_in_time)
+    st = table.state
+    K, C = st.ts.shape
+    wide = torch.from_numpy(np.random.default_rng(V).normal(
+        size=(K, C, V)).astype(np.float32)).to(table.device)
+    rows = tuple(None if i % 4 == 3 else 9 * i for i in range(16))
+    kw = dict(spec_rows=rows,
+              spec_ranges=tuple(25.0 * (i + 1) if r is None else None
+                                for i, r in enumerate(rows)),
+              spec_fields=tuple(FIELDS[:1 + i % 7] if i % 2 else FIELDS[i % 7:]
+                                for i in range(16)),
+              evt_mask=(wide[:, :, 0] > 0) if point_in_time else None,
+              assume_latest=not point_in_time)
+    for cols in (tuple(range(64)), tuple((7 * i) % V for i in range(64))):
+        _assert_same(
+            ops.fused_window(wide, st.ts, st.total, key, rts, cols=cols,
+                             **kw),
+            ref.fused_window_ref(wide, st.ts, st.total, plain_key, rts,
+                                 cols=cols, **kw))
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 499])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_preagg_window_kernel_geometry(table, B, point_in_time):
+    """Ragged blocks, out-of-range keys, and every window shape: head
+    only, one bucket, many buckets, head + buckets + tail; one to 64
+    columns."""
+    key, plain_key, rts = _edge_requests(table, B, point_in_time)
+    st, pa = table.state, table.preagg
+    shapes = set()
+    for frame in (dict(rows_preceding=r) for r in (0, 1, 10, 16, 31, 100,
+                                                   112, 127)):
+        for cols, fields in (((1,), ("sum", "sumsq", "count")),
+                             ((0,), ("count", "max")),
+                             ((1, 2, 0), ("count", "max", "min", "sum")),
+                             (tuple(i % 3 for i in range(64)), None)):
+            kw = dict(bucket_size=table.bucket_size, cols=cols, fields=fields,
+                      assume_latest=not point_in_time, **frame)
+            args = (st.values, st.ts, st.total, pa.sum, pa.sumsq, pa.min,
+                    pa.max, pa.count)
+            _assert_same(ops.preagg_window(*args, key, rts, **kw),
+                         ref.preagg_window_ref(*args, plain_key, rts, **kw))
+        shapes |= window_split(st.ts, st.total, plain_key, rts,
+                               bucket_size=table.bucket_size,
+                               assume_latest=not point_in_time,
+                               **frame)["shapes"]
+    if B == 499:
+        assert shapes == set(SHAPES)
+
+
+@pytest.fixture(scope="module", params=[16, 256])
+def wide_table(request):
+    """A CUDA table of capacity 1024 whose hot keys wrap their rings: with
+    buckets of 16 a window spans up to 63 of its 64 buckets, with buckets
+    of 256 a window without a full bucket holds up to 510 raw rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=40000, n_keys=24, n_features=3, seed=6))
+    t = Table(TableSchema("events", "k", "ts", ("a", "b", "c")),
+              max_keys=32, capacity=1024, bucket_size=request.param,
+              device="cuda")
+    t.insert(keys.tolist(), ts.tolist(), rows)
+    assert int(t.state.total.max()) > 2 * t.capacity
+    return t
+
+
+@pytest.mark.parametrize("B", [33, 499])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_preagg_window_kernel_wide_buckets(wide_table, B, point_in_time):
+    """More than 32 full buckets (a lane takes a second bucket) and raw
+    walks of more than 128 rows (more than one group of four steps)."""
+    t = wide_table
+    key, plain_key, rts = _edge_requests(t, B, point_in_time)
+    st, pa = t.state, t.preagg
+    most_buckets = most_raw = 0
+    for frame in (dict(rows_preceding=r) for r in (100, 300, 500, 700, 1000,
+                                                   1023)):
+        for cols, fields in (((1,), ("sum", "sumsq", "count")),
+                             ((1, 2, 0), ("count", "max", "min", "sum")),
+                             (tuple(i % 3 for i in range(9)), None)):
+            kw = dict(bucket_size=t.bucket_size, cols=cols, fields=fields,
+                      assume_latest=not point_in_time, **frame)
+            args = (st.values, st.ts, st.total, pa.sum, pa.sumsq, pa.min,
+                    pa.max, pa.count)
+            _assert_same(ops.preagg_window(*args, key, rts, **kw),
+                         ref.preagg_window_ref(*args, plain_key, rts, **kw))
+        split = window_split(st.ts, st.total, plain_key, rts,
+                             bucket_size=t.bucket_size,
+                             assume_latest=not point_in_time, **frame)
+        most_buckets = max(most_buckets, int(split["buckets"].max()))
+        most_raw = max(most_raw, int(split["raw"].max()))
+    if B == 499:
+        assert most_buckets > 32 if t.bucket_size == 16 else most_raw > 128
 
 
 @pytest.mark.parametrize("point_in_time", [False, True])

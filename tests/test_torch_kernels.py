@@ -20,10 +20,11 @@ import torch
 
 from conftest import make_table_with_events
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref as tref
-from repro_torch.kernels.fused_window import fused_window_cuda
+from repro_torch.kernels import _build, ops, ref as tref
+from repro_torch.kernels.fused_window import fused_window_cuda, spec_table
 from repro_torch.kernels.last_join import last_join_cuda
-from repro_torch.kernels.preagg_window import preagg_window_cuda
+from repro_torch.kernels.preagg_window import (SHAPES, preagg_window_cuda,
+                                               window_split)
 from repro_torch.kernels.window_agg import window_agg_cuda
 
 torch.set_num_threads(1)
@@ -362,6 +363,116 @@ def test_cuda_wrapper_rejects_cpu_tensors(wrapper):
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[wrapper]()
+
+
+def test_fused_spec_table_packs_once_per_static_table():
+    """The materialised fields in FUSED_FIELDS order and their bits,
+    whether a spec is a RANGE frame, and per spec its (rows, bits, span)
+    triple (rows -1 for RANGE, span 0.0 for ROWS); the same object for
+    the same tuples."""
+    rows, ranges = (10, None, 0), (None, 50.0, None)
+    fields = (("sum", "last"), ("count", "min"), ("max",))
+    got = spec_table(rows, ranges, fields)
+    assert spec_table(rows, ranges, fields) is got
+    names, present, any_range, specs = got
+    assert names == ("sum", "count", "min", "max", "last")
+    assert present == _build.field_bits(names) and any_range
+    assert specs == tuple(zip((10, -1, 0),
+                              (_build.field_bits(f) for f in fields),
+                              (0.0, 50.0, 0.0)))
+    assert not spec_table((1,), (None,), (("sum",),))[2]
+
+
+@pytest.mark.parametrize("rows,ranges,fields,match", [
+    ((1,) * 17, (None,) * 17, (("sum",),) * 17, "at most 16"),
+    ((-1,), (None,), (("sum",),), ">= 0"),
+    ((1,), (None,), (("median",),), "unknown fields"),
+    ((1, 2), (None,), (("sum",), ("sum",)), "lengths must match"),
+])
+def test_fused_spec_table_rejects_bad_tables(rows, ranges, fields, match):
+    with pytest.raises(ValueError, match=match):
+        spec_table(rows, ranges, fields)
+    s, rk, rt = _small_ring()
+    with pytest.raises(ValueError, match=match):       # before any launch
+        fused_window_cuda(s["values"], s["ts"], s["total"], rk, rt,
+                          spec_rows=rows, spec_ranges=ranges,
+                          spec_fields=fields)
+
+
+def test_empty_outputs_are_views_of_one_allocation():
+    shapes = {"sum": (5, 2, 3), "count": (5, 2), "min": (5, 2, 3),
+              "last": (5, 2, 0)}
+    out = _build.empty_outputs(shapes, torch.device("cpu"))
+    assert list(out) == list(shapes)
+    base = out["sum"].untyped_storage().data_ptr()
+    spans = []
+    for f, t in out.items():
+        assert tuple(t.shape) == shapes[f] and t.dtype == torch.float32
+        assert t.is_contiguous()
+        assert t.untyped_storage().data_ptr() == base
+        spans.append((t.storage_offset(), t.storage_offset() + t.numel()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert _build.empty_outputs({}, torch.device("cpu")) == {}
+
+
+def test_device_table_is_built_once_per_table():
+    """The layout csrc/warp_window.cuh reads: MAX_COLS column words, then
+    MAX_SPECS words each of ROWS lengths, field bits and RANGE spans as
+    float32 bits, zero-padded; one tensor per table."""
+    cpu = torch.device("cpu")
+    specs = ((10, 5, 0.0), (-1, 3, 50.0))
+    t = _build.device_table((3, 1, 2), cpu, specs)
+    assert _build.device_table((3, 1, 2), cpu, specs) is t
+    assert t.dtype == torch.int32
+    words = t.tolist()
+    C, S = _build.MAX_COLS, _build.MAX_SPECS
+    assert len(words) == C + 3 * S
+    assert words[:C] == [3, 1, 2] + [0] * (C - 3)
+    assert words[C:C + S] == [10, -1] + [0] * (S - 2)
+    assert words[C + S:C + 2 * S] == [5, 3] + [0] * (S - 2)
+    spans = np.asarray(words[C + 2 * S:], np.int32).view(np.float32)
+    assert list(spans) == [0.0, 50.0] + [0.0] * (S - 2)
+    assert _build.device_table((0,), cpu).tolist() == [0] * (C + 3 * S)
+
+
+@pytest.mark.parametrize("bucket", [4, 16])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_preagg_window_split_matches_a_walk(bucket, point_in_time):
+    """window_split against a walk over each window's positions: the full
+    buckets are the aligned runs of ``bucket`` positions inside [p0, p1),
+    the rest of the window is raw, and the shapes follow from both."""
+    s, rk, rt = _small_ring()
+    if not point_in_time:
+        rt = torch.full_like(rt, float(s["ts"].max()) + 1.0)
+    frames = [dict(rows_preceding=r, range_preceding=None)
+              for r in (0, 1, 3, 9, 17, 40)]
+    frames += [dict(rows_preceding=None, range_preceding=g)
+               for g in (50.0, 300.0)]
+    every = set()
+    for frame in frames:
+        kw = dict(frame, assume_latest=not point_in_time)
+        got = window_split(s["ts"], s["total"], rk, rt, bucket_size=bucket,
+                           **kw)
+        k = rk.long()
+        p0, p1 = tref.window_bounds(s["ts"][k], s["total"][k], rt, **kw)
+        shapes = set()
+        for i, (a, b) in enumerate(zip(p0.tolist(), p1.tolist())):
+            full = [q for q in range(a, b) if q % bucket == 0
+                    and q + bucket <= b]
+            raw = b - a - bucket * len(full)
+            assert int(got["buckets"][i]) == len(full), (frame, i)
+            assert int(got["raw"][i]) == raw, (frame, i)
+            if b > a and not full:
+                shapes.add("head only")
+            if full:
+                shapes.add("one bucket" if len(full) == 1
+                           else "many buckets")
+            if full and full[0] > a and full[-1] + bucket < b:
+                shapes.add("head + buckets + tail")
+        assert got["shapes"] == shapes, frame
+        every |= shapes
+    assert every == set(SHAPES)
 
 
 def test_dispatch_refuses_other_devices():

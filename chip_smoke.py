@@ -19,15 +19,18 @@ then:
    card — wrapped, unwrapped and empty rings, ROWS and RANGE frames,
    assume_latest on and off, with and without a WHERE mask, unmatched
    joins — exact for count/min/max/first/last and the join outputs,
-   ``rtol 2e-4`` for sum/sumsq; fused_window and preagg_window also at
-   the edges of their warp-per-request design (``window_cases``); then
-   times each kernel and its plain version on every call the main path
-   makes at B=500 (each deployment's calls in order): device time per
-   launch (a CUDA graph of 20 calls, median of 20 replays) and time per
-   call with host work (CUDA events, median of 30, L2 flushed);
+   ``rtol 2e-4`` for sum/sumsq; all four also at the edges of their
+   warp-per-request design and with 17 specs and 65 columns, more than
+   one launch takes (``window_cases``); then times each kernel and its
+   plain version on every call the main path makes at B=500 and B=100
+   (each deployment's calls in order) and on the point-in-time calls of
+   ``query_offline``'s first batch: device time per launch (a CUDA graph
+   of 20 calls, median of 20 replays) and time per call with host work
+   (CUDA events, median of 30, L2 flushed);
 5. holds a ``device="cuda"`` engine against a ``device="cpu"`` engine on
    the same 20,000 events: ``request`` (B=64) and ``query_offline`` give
-   equal FeatureFrames;
+   equal FeatureFrames; the same for a deployment of 17 raw-scan windows
+   over 65 columns;
 6. drives the feature main path: 200 batches of 100 and 200 of 500
    requests on each deployment, asserting OK status, finite outputs and
    that every kernel's launch counter rose, and prints requests/s and
@@ -56,6 +59,13 @@ then:
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before doing anything.
+
+    python3 chip_smoke.py --calls
+
+runs only step 3 and the timing of step 4 (every main-path call at B=500
+and B=100, and the point-in-time calls of ``query_offline``'s first
+batch), and prints the card and ``{"calls": [...]}``: the quick way to
+time two trees of the kernels against each other in one run.
 """
 from __future__ import annotations
 
@@ -250,8 +260,8 @@ def _as_dict(out) -> Dict[str, torch.Tensor]:
     return {n: t for n, t in zip(("row", "matched", "sel_ts"), out)}
 
 
-def kernel_cases(state, preagg, sz: Sizes, n_keys: int, t_max: float,
-                 device) -> Dict[str, float]:
+def kernel_cases(state, preagg, merchants, sz: Sizes, n_keys: int,
+                 t_max: float, device) -> Dict[str, float]:
     """Every kernel against its plain version over the coverage cases.
     Returns the largest absolute difference per kernel."""
     from repro_torch.kernels import ops, ref
@@ -279,7 +289,7 @@ def kernel_cases(state, preagg, sz: Sizes, n_keys: int, t_max: float,
     local = (state.values[kl].contiguous(), state.ts[kl].contiguous(),
              state.total[kl].contiguous(),
              torch.arange(B, dtype=torch.int32, device=device))
-    mask = local[0][:, :, 0] > 20.0
+    mask = mask_of(local[0])
     errs = {k: 0.0 for k in KERNELS}
     frames = (dict(rows_preceding=10), dict(rows_preceding=100),
               dict(range_preceding=500.0))
@@ -323,24 +333,27 @@ def kernel_cases(state, preagg, sz: Sizes, n_keys: int, t_max: float,
                                         dtype=torch.int32, device=device)
     plain_key = torch.where(oor == key, key, torch.full_like(key,
                                                              int(empty[0])))
-    for k, e in window_cases(state, preagg, sz, oor, plain_key, fresh, past,
-                             device).items():
+    for k, e in window_cases(state, preagg, merchants, sz, oor, plain_key,
+                             fresh, past, device).items():
         errs[k] = max(errs[k], e)
     return errs
 
 
-def window_cases(state, preagg, sz: Sizes, key, plain_key, fresh, past,
-                 device) -> Dict[str, float]:
-    """fused_window and preagg_window against their plain versions at the
-    edges of the warp-per-request kernels: batches of 1, 31, 33 and 499
-    requests (ragged blocks), out-of-range keys (``key``; the plain
-    version gets an empty key there, ``plain_key``) among empty and
-    wrapped ones, fresh and point-in-time requests; fused: ROWS 0, 1, 31,
-    32, 33, 100 and 1023 beside RANGE frames, 16 specs, 64 columns, the
-    table's aligned four columns and the batch's rows with a derived fifth
-    column (4-byte column loads), with and without a WHERE mask; preagg:
-    every window shape of ``preagg_window.SHAPES``, one to 64 columns.
-    Returns the largest absolute difference per kernel."""
+def window_cases(state, preagg, merchants, sz: Sizes, key, plain_key, fresh,
+                 past, device) -> Dict[str, float]:
+    """All four feature kernels against their plain versions at the edges
+    of the warp-per-request design: batches of 1, 31, 33 and 499 requests
+    (ragged blocks), out-of-range keys (``key``; the plain version gets an
+    empty key there, ``plain_key``) among empty and wrapped ones, fresh and
+    point-in-time requests; window_agg and fused: ROWS 0, 1, 31, 32, 33,
+    100 and 1023 beside RANGE frames, the table's aligned four columns and
+    the batch's rows with a derived fifth column (4-byte column loads),
+    with and without a WHERE mask, 64 and 65 columns, and fused 16 and 17
+    specs (65 columns and 17 specs take more than one launch); preagg:
+    every window shape of ``preagg_window.SHAPES``, one to 65 columns;
+    last_join: the events ring (capacity 1024, wrapped) and the merchants
+    ring (capacity 64), 2 to 65 columns, unmatched requests. Returns the
+    largest absolute difference per kernel."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.preagg_window import SHAPES, window_split
     every = ("sum", "sumsq", "count", "min", "max", "first", "last")
@@ -348,14 +361,21 @@ def window_cases(state, preagg, sz: Sizes, key, plain_key, fresh, past,
                 spec_ranges=(None,) * 7 + (500.0,),
                 spec_fields=tuple(every[i % 7:] + every[:i % 3]
                                   for i in range(8)))
-    rows16 = tuple(None if i % 4 == 3 else 1 + 67 * i for i in range(16))
-    sixteen = dict(spec_rows=rows16,
-                   spec_ranges=tuple(40.0 * (i + 1) if r is None else None
-                                     for i, r in enumerate(rows16)),
-                   spec_fields=tuple(every[:1 + i % 7] if i % 2 else
-                                     every[i % 7:] for i in range(16)))
+    rows17 = tuple(None if i % 4 == 3 else 1 + 63 * i for i in range(17))
+    many = [dict(spec_rows=rows17[:n],
+                 spec_ranges=tuple(40.0 * (i + 1) if r is None else None
+                                   for i, r in enumerate(rows17[:n])),
+                 spec_fields=tuple(every[:1 + i % 7] if i % 2 else
+                                   every[i % 7:] for i in range(n)))
+            for n in (16, 17)]
+    frames = ([dict(rows_preceding=r) for r in (0, 1, 31, 32, 33, 100, 1023)]
+              + [dict(range_preceding=500.0)])
     cols64 = tuple((3 * i) % 4 for i in range(64))
-    errs = {"fused_window": 0.0, "preagg_window": 0.0}
+    cols65 = tuple((3 * i + 1) % 4 for i in range(65))
+    ring = (state.values, state.ts, state.total)
+    ring_mask = mask_of(state.values)
+    mring = (merchants.values, merchants.ts, merchants.total)
+    errs = {k: 0.0 for k in KERNELS}
     shapes: set = set()
     tiers = (preagg.sum, preagg.sumsq, preagg.min, preagg.max, preagg.count)
     for B in (1, 31, 33, 499):
@@ -365,23 +385,46 @@ def window_cases(state, preagg, sz: Sizes, key, plain_key, fresh, past,
         local = (torch.cat([lv, lv[..., :1] * lv[..., :1]], -1).contiguous(),
                  state.ts[lk].contiguous(), state.total[lk].contiguous())
         lkey = torch.arange(B, dtype=torch.int32, device=device)
-        mask = lv[:, :, 0] > 20.0
+        mask = mask_of(lv)
         for al, rts in ((True, fresh[:B]), (False, past[:B])):
-            inputs = (((state.values, state.ts, state.total), kb, kp, None,
-                       (0, 1, 2, 3)),
-                      ((state.values, state.ts, state.total), kb, kp, None,
-                       cols64),
+            inputs = ((ring, kb, kp, None, (0, 1, 2, 3)),
+                      (ring, kb, kp, None, cols64),
+                      (ring, kb, kp, ring_mask, cols65),
                       (local, lkey, lkey, mask, (4, 0, 2)),
                       (local, lkey, lkey, None, tuple(i % 5
-                                                      for i in range(64))))
-            for ring, k_kernel, k_plain, m, cols in inputs:
-                for specs in (edge, sixteen):
+                                                      for i in range(64))),
+                      (local, lkey, lkey, mask, tuple((2 * i) % 5
+                                                      for i in range(65))))
+            for src, k_kernel, k_plain, m, cols in inputs:
+                for specs in [edge] + many:
                     f = dict(specs, cols=cols, evt_mask=m, assume_latest=al)
                     errs["fused_window"] = max(errs["fused_window"], _max_err(
-                        ops.fused_window(*ring, k_kernel, rts, **f),
-                        ref.fused_window_ref(*ring, k_plain, rts, **f),
+                        ops.fused_window(*src, k_kernel, rts, **f),
+                        ref.fused_window_ref(*src, k_plain, rts, **f),
                         f"fused_window B={B} S={len(specs['spec_rows'])} "
                         f"cols={len(cols)} mask={m is not None} al={al}"))
+                for fr in frames:
+                    w = dict(fr, cols=cols, evt_mask=m, assume_latest=al)
+                    errs["window_agg"] = max(errs["window_agg"], _max_err(
+                        ops.window_agg(*src, k_kernel, rts, **w),
+                        ref.window_agg_ref(*src, k_plain, rts, **w),
+                        f"window_agg B={B} {fr} cols={len(cols)} "
+                        f"mask={m is not None} al={al}"))
+            mkey = torch.from_numpy(np.random.default_rng(B).integers(
+                0, merchants.total.shape[0], B).astype(np.int32)).to(device)
+            for jring, jk, jp, cols in ((ring, kb, kp, (3, 0)),
+                                        (ring, kb, kp, cols65),
+                                        (mring, mkey, mkey, (1, 0))):
+                j = dict(col_idx=cols, assume_latest=al, with_ts=True)
+                got = _as_dict(ops.last_join(*jring, jk, rts, **j))
+                want = _as_dict(ref.last_join_ref(*jring, jp, rts, **j))
+                if (B == 499 and (jring is ring or not al)
+                        and bool(want["matched"].all())):
+                    raise AssertionError("no unmatched LAST JOIN in the "
+                                         "edge cases")
+                errs["last_join"] = max(errs["last_join"], _max_err(
+                    got, want, f"last_join B={B} C={jring[1].shape[1]} "
+                               f"cols={len(cols)} al={al}"))
             for fr in (dict(rows_preceding=0), dict(rows_preceding=10),
                        dict(rows_preceding=64), dict(rows_preceding=100),
                        dict(rows_preceding=500), dict(rows_preceding=1023),
@@ -390,7 +433,7 @@ def window_cases(state, preagg, sz: Sizes, key, plain_key, fresh, past,
                                      ((0,), ("count", "max")),
                                      ((1, 2, 0), ("count", "max", "min",
                                                   "sum")),
-                                     (cols64, None)):
+                                     (cols64, None), (cols65, None)):
                     p = dict(bucket_size=sz.bucket, cols=cols, fields=fields,
                              assume_latest=al, **fr)
                     errs["preagg_window"] = max(
@@ -413,11 +456,16 @@ def window_cases(state, preagg, sz: Sizes, key, plain_key, fresh, past,
     return errs
 
 
-def capture_calls(eng, reqs) -> List[dict]:
-    """Every kernel call one B=500 batch of each deployment makes, in call
-    order, labelled ``deployment#order``: the shapes the main path gives
-    each kernel. Each call site launches once per batch of its
-    deployment, and every deployment serves the same batches."""
+def mask_of(values: torch.Tensor) -> torch.Tensor:
+    """A WHERE mask over a ring's rows: amount above 20."""
+    return values[:, :, 0] > 20.0
+
+
+def capture_calls(serve_batch: Callable[[str], object], names,
+                  suffix: str = "") -> List[dict]:
+    """Every kernel call that ``serve_batch(name)`` makes for each
+    deployment name, in call order, labelled ``deployment#order`` plus
+    ``suffix``: the shapes the path gives each kernel."""
     from repro_torch.kernels import ops
     calls: List[dict] = []
     originals = {k: getattr(ops, k) for k in KERNELS}
@@ -426,7 +474,7 @@ def capture_calls(eng, reqs) -> List[dict]:
     def recorder(name):
         def rec(*a, **kw):
             calls.append({"call": f"{current['deployment']}#"
-                                  f"{current['order']}",
+                                  f"{current['order']}{suffix}",
                           "kernel": name, "args": a, "kw": kw})
             current["order"] += 1
             return originals[name](*a, **kw)
@@ -435,13 +483,65 @@ def capture_calls(eng, reqs) -> List[dict]:
     try:
         for k in KERNELS:
             setattr(ops, k, recorder(k))
-        for name in DEPLOYMENTS:
+        for name in names:
             current.update(deployment=name, order=0)
-            keys, ts, rows = reqs[name]
-            eng.request(name, keys, ts, rows=rows)
+            serve_batch(name)
     finally:
         for k, fn in originals.items():
             setattr(ops, k, fn)
+    return calls
+
+
+def offline_first_batch(eng, name: str):
+    """The first batch ``query_offline(name)`` runs: the retained events of
+    the table's keys in key order, the first ``OFFLINE_BATCH`` of them,
+    each requested point in time at its own timestamp."""
+    dep = eng.handle(name)
+    table = dep.table
+    snap = table.snapshot()
+    st, C = snap.state, table.capacity
+    tot = st.total.cpu().numpy()
+    kidx, slots = [], []
+    for k in range(table.n_keys):
+        t = int(tot[k])
+        for p in range(t - min(t, C), t):
+            kidx.append(k)
+            slots.append(p % C)
+        if len(kidx) >= eng.OFFLINE_BATCH:
+            break
+    kidx, slots = kidx[:eng.OFFLINE_BATCH], slots[:eng.OFFLINE_BATCH]
+    kt = torch.tensor(kidx, device=st.ts.device)
+    sl = torch.tensor(slots, device=st.ts.device)
+    return eng._request_batched(
+        dep, np.asarray(kidx, np.int32), st.ts[kt, sl].cpu().numpy(),
+        st.values[kt, sl].cpu().numpy(), snap=snap,
+        join_snaps=dep.join_snapshots(), assume_latest=False,
+        record_joins=False)
+
+
+def main_path_calls(eng, keys, ts, rows, sz: Sizes, device) -> List[dict]:
+    """Each kernel against its plain version, timed, on every call the
+    main path makes: one batch of each deployment at B=500 (``name#i``)
+    and at B=100 (``name#i@B=100``), and the calls of the first batch of
+    ``query_offline`` that reach window_agg and last_join, point in time
+    (``name#i@offline``)."""
+    calls: List[dict] = []
+    for B in sorted(sz.batches, key=lambda b: b != sz.timing_batch):
+        reqs = {name: next(request_batches(keys, ts, rows, B, 1, seed=17))
+                for name in DEPLOYMENTS}
+        calls += capture_calls(
+            lambda n: eng.request(n, *reqs[n][:2], rows=reqs[n][2]),
+            DEPLOYMENTS, "" if B == sz.timing_batch else f"@B={B}")
+    calls += [c for c in capture_calls(
+        lambda n: offline_first_batch(eng, n),
+        ("fraud_scored", "serve_features"), "@offline")
+        if c["kernel"] in ("window_agg", "last_join")]
+    calls = time_calls(calls, sz.reps, device)
+    for v in calls:
+        log(f"time {v['kernel']} {v['call']} (B={v['batch']}): device per "
+            f"launch: kernel {v['ms']} ms, plain {v['plain_ms']} ms, bound "
+            f"{v['bound_ms']} ms ({v['bytes']} bytes); per call with host "
+            f"work: kernel {v['call_ms']} ms, plain {v['plain_call_ms']} ms")
     return calls
 
 
@@ -581,12 +681,12 @@ def time_calls(calls: List[dict], reps: int, device) -> List[dict]:
 
 
 def per_kernel(timing: List[dict]) -> Dict[str, Dict[str, float]]:
-    """Each kernel's numbers over its main-path calls, weighted by the
-    launches of each call; every call site launches once per batch, so
-    the weights are equal."""
+    """Each kernel's numbers over its main-path calls at B=500 (the calls
+    labelled without ``@``), weighted by the launches of each call; every
+    call site launches once per batch, so the weights are equal."""
     out: Dict[str, Dict[str, float]] = {}
     for k in KERNELS:
-        rows = [r for r in timing if r["kernel"] == k]
+        rows = [r for r in timing if r["kernel"] == k and "@" not in r["call"]]
         out[k] = {f: statistics.fmean(r[f] for r in rows)
                   for f in ("ms", "plain_ms", "call_ms", "plain_call_ms",
                             "bound_ms", "max_abs_err")}
@@ -619,6 +719,61 @@ def compare_frames(got, want, what: str, std_atol: float,
         if not ok:
             raise AssertionError(f"{what}: column {c} differs (max abs "
                                  f"diff {d})")
+
+
+WIDE_COLS, WIDE_WINDOWS = 65, 17
+_WIDE_AGGS = (("sum", "SUM"), ("max", "MAX"), ("min", "MIN"),
+              ("avg", "AVG"), ("cnt", "COUNT"), ("first", "FIRST"))
+# 17 raw-scan windows over 65 columns: the plan fuses them into one launch,
+# which the CUDA wrapper splits into 16-spec x 64-column launches
+WIDE_SQL = (
+    "SELECT\n  " + ",\n  ".join(
+        [f"{_WIDE_AGGS[j % 6][1]}(c{j}) OVER w{j % WIDE_WINDOWS} "
+         f"AS {_WIDE_AGGS[j % 6][0]}_{j}" for j in range(WIDE_COLS)]
+        + [f"LAST(c{i}) OVER w{i} AS last_{i}" for i in range(WIDE_WINDOWS)])
+    + "\nFROM wide\nWINDOW " + ",\n  ".join(
+        f"w{i} AS (PARTITION BY user ORDER BY ts "
+        + (f"ROWS BETWEEN {1 + 6 * i}" if i % 2 == 0
+           else f"RANGE BETWEEN {15 * (i + 1)}")
+        + " PRECEDING AND CURRENT ROW)" for i in range(WIDE_WINDOWS)))
+
+
+def wide_vs_cpu(device) -> None:
+    """The 17-window, 65-column deployment on a card engine against a CPU
+    engine: equal FeatureFrames online and offline."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.optimizer import OptFlags
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    from repro_torch.featurestore.table import TableSchema
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=4000, n_keys=64, n_features=WIDE_COLS, rate_hz=2.0, seed=8))
+    engines = {}
+    for dev in (device, "cpu"):
+        eng = Engine(OptFlags(), device=dev)
+        eng.create_table(TableSchema("wide", "user", "ts", tuple(
+            f"c{j}" for j in range(WIDE_COLS))), max_keys=64, capacity=64,
+            bucket_size=8)
+        eng.insert("wide", keys.tolist(), ts.tolist(), rows)
+        h = eng.deploy("wide17", WIDE_SQL)
+        if h.phys.n_kernel_launches != 1:
+            raise AssertionError(f"wide17 plans {h.phys.n_kernel_launches} "
+                                 f"launches, not one fused launch")
+        engines[dev] = eng
+    rng = np.random.default_rng(4)
+    B = 64
+    rk = rng.integers(0, 70, B)
+    rts = (float(ts.max()) + 1.0 + np.arange(B)).astype(np.float32)
+    a, b = (engines[d].request("wide17", rk.tolist(), rts.tolist())
+            for d in (device, "cpu"))
+    if not np.array_equal(a.status, b.status) or a.all_ok:
+        raise AssertionError("wide17: status differs or no unknown key")
+    compare_frames(a, b, "wide17 online", 1e-4, 1e-4)
+    oa, ob = (engines[d].query_offline("wide17") for d in (device, "cpu"))
+    compare_frames(oa, ob, "wide17 offline", 1e-4, 1e-4)
+    log(f"cuda==cpu wide17 ({WIDE_WINDOWS} windows, {WIDE_COLS} columns): "
+        f"online B={B}, offline {len(oa['__key'])} rows")
+    for eng in engines.values():
+        eng.close()
 
 
 def cuda_vs_cpu(sz: Sizes, device) -> None:
@@ -654,6 +809,7 @@ def cuda_vs_cpu(sz: Sizes, device) -> None:
             f"offline {len(oa['__key'])} rows")
     for eng in engines.values():
         eng.close()
+    wide_vs_cpu(device)
 
 
 # ---------------------------------------------------------------------------
@@ -756,11 +912,10 @@ def device_busy(eng, keys, ts, rows, sz: Sizes, report: Dict[str, dict]
     return out
 
 
-def run(device, sz: Sizes) -> Dict[str, object]:
-    """All phases on ``device``; raises on any failure."""
+def setup(device, sz: Sizes):
+    """One node at production key space: the engine with its tables
+    filled and the three deployments, and the events it ingested."""
     from repro_torch.data.synthetic import EventStreamConfig, generate_events
-
-    # ---- setup: one node at production key space --------------------------
     eng = make_engine(device, sz, sz.keys)
     keys, ts, rows = generate_events(EventStreamConfig(
         n_events=sz.events, n_keys=sz.keys, n_features=4, seed=0))
@@ -777,21 +932,21 @@ def run(device, sz: Sizes) -> Dict[str, object]:
     deploy_all(eng, scorer_params(rows, device))
     for name in DEPLOYMENTS:
         log(eng.explain(name))
+    return eng, (keys, ts, rows), ingest_s
+
+
+def run(device, sz: Sizes) -> Dict[str, object]:
+    """All phases on ``device``; raises on any failure."""
+    eng, (keys, ts, rows), ingest_s = setup(device, sz)
+    table = eng.tables["events"]
 
     # ---- kernels against their plain versions -----------------------------
     snap = table.snapshot()
-    errs = kernel_cases(snap.state, snap.preagg, sz, table.n_keys,
-                        float(ts.max()), device)
+    errs = kernel_cases(snap.state, snap.preagg,
+                        eng.tables["merchants"].snapshot().state, sz,
+                        table.n_keys, float(ts.max()), device)
     log(f"kernel checks passed; max abs diff per kernel: {errs}")
-    reqs = {name: next(request_batches(keys, ts, rows, sz.timing_batch, 1,
-                                       seed=17))
-            for name in DEPLOYMENTS}
-    calls = time_calls(capture_calls(eng, reqs), sz.reps, device)
-    for v in calls:
-        log(f"time {v['kernel']} {v['call']} (B={v['batch']}): device per "
-            f"launch: kernel {v['ms']} ms, plain {v['plain_ms']} ms, bound "
-            f"{v['bound_ms']} ms ({v['bytes']} bytes); per call with host "
-            f"work: kernel {v['call_ms']} ms, plain {v['plain_call_ms']} ms")
+    calls = main_path_calls(eng, keys, ts, rows, sz, device)
     timing = per_kernel(calls)
     for k, v in timing.items():
         errs[k] = max(errs[k], v["max_abs_err"])
@@ -1308,6 +1463,10 @@ def run_model(device, ms: ModelSizes) -> Dict[str, object]:
 
 
 def main() -> int:
+    calls_only = sys.argv[1:] == ["--calls"]
+    if sys.argv[1:] and not calls_only:
+        print(f"usage: {sys.argv[0]} [--calls]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port "
               "on the GPU only", file=sys.stderr)
@@ -1324,6 +1483,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
+    if calls_only:
+        eng, (keys, ts, rows), _ = setup("cuda", Sizes())
+        calls = main_path_calls(eng, keys, ts, rows, Sizes(), "cuda")
+        log(card)
+        log(json.dumps({"calls": calls}))
+        return 0
     res = run("cuda", Sizes())
     torch.cuda.empty_cache()
     mres = run_model("cuda", ModelSizes())

@@ -25,9 +25,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["library", "function", "check", "build_seconds", "build_log",
-           "require", "ptr", "stream_of", "int_array",
-           "field_bits", "require_cuda", "check_cols", "empty_outputs",
-           "device_table", "MAX_COLS", "MAX_SPECS", "BUILD_ROOT",
+           "require", "ptr", "stream_of", "field_bits", "launch_fields",
+           "require_cuda", "check_cols", "empty_outputs", "device_table",
+           "launch_slices", "MAX_COLS", "MAX_SPECS", "BUILD_ROOT",
            "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -137,8 +137,17 @@ def check(code: int, what: str) -> None:
 # field bits, as in csrc/common.cuh
 _FIELD_BITS = {"sum": 1, "sumsq": 2, "count": 4, "min": 8, "max": 16,
                "first": 32, "last": 64}
-MAX_COLS = 64      # rt::kMaxCols
-MAX_SPECS = 16     # rt::kMaxSpecs
+MAX_COLS = 64      # rt::kMaxCols: value columns one launch reads
+MAX_SPECS = 16     # rt::kMaxSpecs: window specs one fused launch takes
+
+
+@functools.lru_cache(maxsize=256)
+def launch_fields(fields: Optional[Tuple[str, ...]],
+                  order: Tuple[str, ...]) -> Tuple[Tuple[str, ...], int]:
+    """The fields a launch materialises (``order``'s, in its order; all
+    of them for None) and their bits, once per static request."""
+    fields = tuple(f for f in order if f in (fields or order))
+    return fields, field_bits(fields)
 
 
 def field_bits(fields: Sequence[str]) -> int:
@@ -176,13 +185,25 @@ def require_cuda(t: torch.Tensor, what: str) -> torch.device:
 
 def check_cols(cols: Optional[Sequence[int]], V: int) -> Tuple[int, ...]:
     cols = tuple(range(V)) if cols is None else tuple(int(c) for c in cols)
-    if len(cols) > MAX_COLS:
-        raise ValueError(f"a launch reads at most {MAX_COLS} columns, got "
-                         f"{len(cols)}")
     bad = [c for c in cols if not 0 <= c < V]
     if bad:
         raise ValueError(f"column indices {bad} outside [0, {V})")
     return cols
+
+
+@functools.lru_cache(maxsize=256)
+def launch_slices(n_specs: int, n_cols: int
+                  ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """The launches one wrapper call makes: one ``(s0, s1, c0, c1)`` per
+    slice of at most MAX_SPECS specs and MAX_COLS output columns, specs
+    outer, ⌈S/MAX_SPECS⌉ × ⌈V/MAX_COLS⌉ of them (one column slice, empty,
+    where ``n_cols`` is 0). Specs and columns are independent in every
+    feature kernel, so each slice is exact on its own; a launch writes its
+    slice into the call's outputs through their full strides."""
+    def cuts(n, w):
+        return [(a, min(a + w, n)) for a in range(0, n, w)] or [(0, 0)]
+    return tuple((s0, s1, c0, c1) for s0, s1 in cuts(n_specs, MAX_SPECS)
+                 for c0, c1 in cuts(n_cols, MAX_COLS))
 
 
 @functools.lru_cache(maxsize=256)
@@ -215,14 +236,11 @@ def empty_outputs(shapes: Dict[str, Tuple[int, ...]],
             zip(shapes.items(), flat.split(sizes))}
 
 
-def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
+def ptr(t: Optional[torch.Tensor], offset: int = 0) -> Optional[int]:
+    """The address of element ``offset`` of ``t`` (None for no tensor)."""
+    return None if t is None else t.data_ptr() + offset * t.element_size()
 
 
 def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def int_array(xs: Sequence[int]):
-    return (ctypes.c_int * max(len(xs), 1))(*xs)
 

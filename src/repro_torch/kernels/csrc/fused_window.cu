@@ -35,7 +35,10 @@
 // Kept from the plain version: the +-3.0e38 sentinels of empty min/max,
 // __fmul_rn for sumsq (no contraction into an FMA), floor-mod slots,
 // 64-bit offsets (K*C*V = 2^32 at the smoke's shape), out-of-range keys
-// read as empty rings.
+// read as empty rings. A launch takes at most kMaxSpecs specs and kMaxCols
+// columns; the wrapper splits a wider table into launches of one slice
+// each, and a launch writes its slice through the outputs' strides (oS
+// specs, oC columns).
 //
 // Bound on an H100 (3.35 TB/s): per request the ts row when a bound needs
 // it plus the widest frame's window values and the (S, V_out) outputs. The
@@ -72,8 +75,8 @@ __global__ void __launch_bounds__(32 * kWarps) fused_window_kernel(
     const int* __restrict__ total, const int* __restrict__ req_key,
     const float* __restrict__ req_ts, const uint8_t* __restrict__ mask,
     const int* __restrict__ tab, int B, int K, int C, int V, int ncols,
-    int S, int any_range, int assume_latest, int present, int vec,
-    int vec_ts, FusedOut out) {
+    int S, int oS, int oC, int any_range, int assume_latest, int present,
+    int vec, int vec_ts, FusedOut out) {
   const int b = warp_request();
   if (b >= B) return;                 // the whole warp: no request here
   const int lane = threadIdx.x & 31;
@@ -248,7 +251,7 @@ __global__ void __launch_bounds__(32 * kWarps) fused_window_kernel(
                                  C)) * V + col_e);
 
       if (mine) {
-        const size_t o = (static_cast<size_t>(b) * S + sc0 + je) * ncols
+        const size_t o = (static_cast<size_t>(b) * oS + sc0 + je) * oC
                          + ch * kChunkCols + ce;
         if (present & fbit) fout[o] = (want_e & fbit) ? red : 0.f;
         if (lane < 2 * kElems && (present & lbit))
@@ -257,7 +260,7 @@ __global__ void __launch_bounds__(32 * kWarps) fused_window_kernel(
       if (ch == 0 && (present & kCount) && lane < kChunkSpecs &&
           sc0 + lane < S) {
         const int w = select(want, lane);
-        out.count[static_cast<size_t>(b) * S + sc0 + lane] =
+        out.count[static_cast<size_t>(b) * oS + sc0 + lane] =
             (w & kCount) ? static_cast<float>(select(cnt, lane)) : 0.f;
       }
     }
@@ -270,11 +273,12 @@ extern "C" int fused_window_launch(
     const float* values, const float* ts, const int* total,
     const int* req_key, const float* req_ts, const uint8_t* mask,
     const int* table, int B, int K, int C, int V, int n_cols, int n_specs,
-    int any_range, int assume_latest, int present, float* o_sum,
+    int out_specs, int out_cols, int any_range, int assume_latest,
+    int present, float* o_sum,
     float* o_sumsq, float* o_count, float* o_min, float* o_max,
     float* o_first, float* o_last, void* stream) {
   if (B <= 0 || n_cols < 0 || n_cols > rt::kMaxCols || n_specs <= 0 ||
-      n_specs > rt::kMaxSpecs)
+      n_specs > rt::kMaxSpecs || out_specs < n_specs || out_cols < n_cols)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = V % 4 == 0 && rt::aligned16(values);
   const int vec_ts = C % 4 == 0 && rt::aligned16(ts);
@@ -283,6 +287,7 @@ extern "C" int fused_window_launch(
   rt::fused_window_kernel<<<blocks, 32 * rt::kWarps, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       values, ts, total, req_key, req_ts, mask, table, B, K, C, V, n_cols,
-      n_specs, any_range, assume_latest, present, vec, vec_ts, out);
+      n_specs, out_specs, out_cols, any_range, assume_latest, present, vec,
+      vec_ts, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,45 +4,80 @@
 // row, matched = 0 and a zero selected ts.
 //
 // Replaces the TPU kernel last_join_pallas (src/repro/kernels/
-// last_join.py). Per-key timestamps are non-decreasing, so the qualifying
-// positions are [max(0, total - C), p1) and the selected row is p1 - 1:
-// one block per request counts the timestamps newer than the request (none
-// under assume_latest) and reads one row, where the TPU kernel stages and
-// reduces the whole (C, V) block.
+// last_join.py), which stages and reduces the key's whole (C, V) block.
+// Per-key timestamps are non-decreasing (ingest enforces it), so the
+// qualifying positions are [max(0, total - C), p1) and the selected row is
+// p1 - 1, with p1 = total - #{retained ts > req_ts}: the count the plain
+// version makes.
+//
+// Design: one warp per request, kWarps requests a block (warp_window.cuh),
+// no block barrier, no shared memory. Online (assume_latest) a request is
+// one chain of dependent loads: req_key -> total -> (row, ts). Point in
+// time adds one coalesced pass over the retained ts slots (16-byte loads,
+// count_ts_warp, no per-slot modulo) and one butterfly of five shuffles
+// before the row. The lanes stride the columns (lane l reads columns l and
+// l + 32 of the launch), and lane 0 loads the selected ts in the same
+// round. A launch reads at most kMaxCols columns; the wrapper splits wider
+// calls into launches of one column slice each, writing through the row
+// stride oC (matched and the ts come with the first slice).
 //
 // Bound on an H100 (3.35 TB/s): per request one row of V_out values, the
 // ts row for point-in-time lookups (4 C bytes) and the outputs. The main
 // path's call (fraud_scored's merchants join, B=500, two columns, online)
-// moves 18,500 bytes: a 0.006 us bound, against 2.37 us measured per
-// launch (H100 SXM, 700 W; chip_smoke.py). Latency-bound. Written to be
-// right; making it fast is later work.
-#include "common.cuh"
+// moves 18,500 bytes: a 0.006 us bound, against 2.3 us measured per
+// launch (2.5 us for the block-per-request kernel this replaced, in the
+// same run); the point-in-time call of query_offline's first batch
+// (B=1024, merchants ring C=64) takes 3.2 us (3.6 us). Both from
+// chip_smoke.py --calls on an NVIDIA H100 80GB HBM3 at 700 W. The chain
+// of three dependent loads is the floor.
+#include "warp_window.cuh"
 
 namespace rt {
 
-__global__ void __launch_bounds__(kThreads) last_join_kernel(
+__global__ void __launch_bounds__(32 * kWarps) last_join_kernel(
     const float* __restrict__ values, const float* __restrict__ ts,
     const int* __restrict__ total, const int* __restrict__ req_key,
-    const float* __restrict__ req_ts, int K, int C, int V, ColMap cols,
-    int assume_latest, float* __restrict__ row,
-    uint8_t* __restrict__ matched, float* __restrict__ sel_ts) {
-  __shared__ int iscr[32];
-  const int b = blockIdx.x;
+    const float* __restrict__ req_ts, const int* __restrict__ tab, int B,
+    int K, int C, int V, int ncols, int oC, int assume_latest, int vec_ts,
+    float* __restrict__ row, uint8_t* __restrict__ matched,
+    float* __restrict__ sel_ts) {
+  const int b = warp_request();
+  if (b >= B) return;                 // the whole warp: no request here
+  const int lane = threadIdx.x & 31;
+  const LaneCols lc = lane_cols(tab);   // the columns, two a lane
   const int key = req_key[b];
   const bool key_ok = key >= 0 && key < K;
   const int tot = key_ok ? total[key] : 0;
+  const float t = req_ts[b];
   const size_t kbase = key_ok ? static_cast<size_t>(key) * C : 0;
-  const int p1 = upper_bound_p1(ts + kbase, tot, C, req_ts[b],
-                                assume_latest != 0, iscr);
-  const int lo = tot - C > 0 ? tot - C : 0;
-  const bool ok = p1 > lo;
+
+  int p1 = tot;
+  if (!assume_latest) {
+    const float t_lo[1] = {0.f};
+    const bool on[1] = {false};
+    int unused[1] = {0}, after = 0;
+    count_ts_warp(ts + kbase, min(tot, C), vec_ts != 0, t, t_lo, on, after,
+                  unused);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      after += __shfl_xor_sync(kFullMask, after, o);
+    p1 = tot - after;
+  }
+  const bool ok = p1 > max(tot - C, 0);
   const size_t slot = kbase + (ok ? floor_mod(p1 - 1, C) : 0);
-  for (int j = threadIdx.x; j < cols.n; j += blockDim.x)
-    row[static_cast<size_t>(b) * cols.n + j] =
-        ok ? values[slot * V + cols.idx[j]] : 0.f;
-  if (threadIdx.x == 0) {
-    matched[b] = ok ? 1 : 0;
-    if (sel_ts != nullptr) sel_ts[b] = ok ? ts[slot] : 0.f;
+  const float* vrow = values + slot * V;
+
+  // one round: the row's columns and the selected ts
+  const float v_lo = (ok && lane < ncols) ? __ldg(vrow + lc.lo) : 0.f;
+  const float v_hi = (ok && lane + 32 < ncols) ? __ldg(vrow + lc.hi) : 0.f;
+  const float s_ts = (ok && lane == 0 && sel_ts != nullptr)
+                         ? __ldg(ts + slot) : 0.f;
+  float* const orow = row + static_cast<size_t>(b) * oC;
+  if (lane < ncols) orow[lane] = v_lo;
+  if (lane + 32 < ncols) orow[lane + 32] = v_hi;
+  if (lane == 0) {
+    if (matched != nullptr) matched[b] = ok ? 1 : 0;
+    if (sel_ts != nullptr) sel_ts[b] = s_ts;
   }
 }
 
@@ -50,17 +85,16 @@ __global__ void __launch_bounds__(kThreads) last_join_kernel(
 
 extern "C" int last_join_launch(
     const float* values, const float* ts, const int* total,
-    const int* req_key, const float* req_ts, int B, int K, int C, int V,
-    const int* cols, int n_cols, int assume_latest, float* row,
+    const int* req_key, const float* req_ts, const int* table, int B, int K,
+    int C, int V, int n_cols, int out_cols, int assume_latest, float* row,
     uint8_t* matched, float* sel_ts, void* stream) {
-  if (B <= 0 || n_cols <= 0 || n_cols > rt::kMaxCols)
+  if (B <= 0 || n_cols <= 0 || n_cols > rt::kMaxCols || out_cols < n_cols)
     return static_cast<int>(cudaErrorInvalidValue);
-  rt::ColMap cm;
-  cm.n = n_cols;
-  for (int i = 0; i < n_cols; ++i) cm.idx[i] = cols[i];
-  rt::last_join_kernel<<<B, rt::kThreads, 0,
+  const int vec_ts = C % 4 == 0 && rt::aligned16(ts);
+  const int blocks = (B + rt::kWarps - 1) / rt::kWarps;
+  rt::last_join_kernel<<<blocks, 32 * rt::kWarps, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      values, ts, total, req_key, req_ts, K, C, V, cm, assume_latest, row,
-      matched, sel_ts);
+      values, ts, total, req_key, req_ts, table, B, K, C, V, n_cols,
+      out_cols, assume_latest, vec_ts, row, matched, sel_ts);
   return static_cast<int>(cudaGetLastError());
 }

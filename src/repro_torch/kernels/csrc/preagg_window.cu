@@ -26,6 +26,9 @@
 // counts plus the raw positions; one reduce-scatter butterfly
 // (warp_window.cuh) reduces the chunk's 16 moments, leaving moment i in
 // lanes 2i and 2i + 1. ptxas for sm_90a: 128 registers a thread, no spills.
+// A launch reads at most kMaxCols columns; the wrapper splits wider calls
+// into launches of one column slice each, writing through the row stride
+// oC (the counts come with the first slice).
 //
 // Bound on an H100 (3.35 TB/s): per request the ts row only for RANGE or
 // point-in-time frames, (b1 - b0) bucket entries of each requested tier,
@@ -50,7 +53,7 @@ struct Tiers {
 };
 
 struct PreaggOut {
-  float* sum;           // (B, n_cols)
+  float* sum;           // (B, oC), at the launch's first column
   float* sumsq;
   float* count;         // (B,)
   float* min;
@@ -62,8 +65,8 @@ __global__ void __launch_bounds__(32 * kWarps) preagg_window_kernel(
     const int* __restrict__ total, Tiers tiers,
     const int* __restrict__ req_key, const float* __restrict__ req_ts,
     const int* __restrict__ tab, int B, int K, int C, int V, int NB,
-    int BSZ, int ncols, int rows, float range, int assume_latest, int fields,
-    int vec, int vec_ts, PreaggOut out) {
+    int BSZ, int ncols, int oC, int rows, float range, int assume_latest,
+    int fields, int vec, int vec_ts, PreaggOut out) {
   const int b = warp_request();
   if (b >= B) return;                 // the whole warp: no request here
   const int lane = threadIdx.x & 31;
@@ -200,7 +203,7 @@ __global__ void __launch_bounds__(32 * kWarps) preagg_window_kernel(
     if ((lane & 1) == 0 && ce < chunk.nc && (fields & fbit)) {
       float* const o = fe == 0 ? out.sum : fe == 1 ? out.sumsq
                        : fe == 2 ? out.min : out.max;
-      o[static_cast<size_t>(b) * ncols + ch * kChunkCols + ce] = red;
+      o[static_cast<size_t>(b) * oC + ch * kChunkCols + ce] = red;
     }
   }
 }
@@ -212,11 +215,11 @@ extern "C" int preagg_window_launch(
     const float* pa_sum, const float* pa_sumsq, const float* pa_min,
     const float* pa_max, const float* pa_count, const int* req_key,
     const float* req_ts, const int* table, int B, int K, int C, int V,
-    int NB, int BSZ, int n_cols, int rows, float range, int assume_latest,
-    int fields, float* o_sum, float* o_sumsq, float* o_count,
-    float* o_min, float* o_max, void* stream) {
-  if (B <= 0 || n_cols < 0 || n_cols > rt::kMaxCols || BSZ <= 0 ||
-      NB * BSZ != C)
+    int NB, int BSZ, int n_cols, int out_cols, int rows, float range,
+    int assume_latest, int fields, float* o_sum, float* o_sumsq,
+    float* o_count, float* o_min, float* o_max, void* stream) {
+  if (B <= 0 || n_cols < 0 || n_cols > rt::kMaxCols || out_cols < n_cols ||
+      BSZ <= 0 || NB * BSZ != C)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = V % 4 == 0 && rt::aligned16(values) &&
                   rt::aligned16(pa_sum) && rt::aligned16(pa_sumsq) &&
@@ -228,6 +231,6 @@ extern "C" int preagg_window_launch(
   rt::preagg_window_kernel<<<blocks, 32 * rt::kWarps, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       values, ts, total, tiers, req_key, req_ts, table, B, K, C, V, NB, BSZ,
-      n_cols, rows, range, assume_latest, fields, vec, vec_ts, out);
+      n_cols, out_cols, rows, range, assume_latest, fields, vec, vec_ts, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
-// Helpers of the warp-per-request window kernels (fused_window,
-// preagg_window): one warp answers one request, with no block barrier and
-// no shared memory. Each lane reads every 32nd position (or bucket) of the
-// request's window, keeps its partial aggregates in registers, and the
-// warp combines them with __shfl_xor_sync butterflies. One warp runs alone
+// Helpers of the warp-per-request feature kernels (window_agg,
+// fused_window, preagg_window, last_join): one warp answers one request,
+// with no block barrier and no shared memory. Each lane reads every 32nd
+// position (or bucket) of the request's window, keeps its partial
+// aggregates in registers, and the warp combines them with
+// __shfl_xor_sync butterflies. One warp runs alone
 // on its scheduler here (about four warps an SM at B=500), so nothing
 // hides a stall: every load of a step is issued before any is used, and
 // no shuffle sits under a branch.
@@ -20,7 +21,8 @@ namespace rt {
 constexpr unsigned kFullMask = 0xffffffffu;
 // Requests (warps) a block. At the main path's B=500 calls 1, 2 and 4
 // measured within their run-to-run spread and 8 slower (PERF.md, §6);
-// 2 keeps 250 blocks over the 132 SMs there. B=100 was not measured.
+// 2 keeps 250 blocks over the 132 SMs there. At B=100 (50 blocks) every
+// kernel measured at or below its B=500 time per launch (PR 16).
 constexpr int kWarps = 2;
 constexpr int kChunkCols = 4;    // columns one walk accumulates
 constexpr int kUnroll = 4;       // ts slots a lane loads at once (bounds)

@@ -19,7 +19,7 @@ from repro_torch.kernels.ref import FUSED_FIELDS, check_fused_specs
 __all__ = ["fused_window_cuda", "spec_table", "launches"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 7 + (_I,) * 9 + (_P,) * 7 + (_P,)
+_ARGTYPES = (_P,) * 7 + (_I,) * 11 + (_P,) * 7 + (_P,)
 
 launches = 0
 
@@ -28,16 +28,13 @@ launches = 0
 def spec_table(spec_rows: Tuple[Optional[int], ...],
                spec_ranges: Tuple[Optional[float], ...],
                spec_fields: Tuple[Tuple[str, ...], ...]):
-    """A validated spec table as the launch takes it, built once per
+    """A validated spec table as the launches take it, built once per
     static table: ``(fields, present, any_range, specs)`` — the fields the
-    launch materialises (in ``FUSED_FIELDS`` order) and their bits,
-    whether a spec is a RANGE frame, and per spec the ``(rows, bits,
-    span)`` triple :func:`_build.device_table` packs (rows -1 for RANGE,
-    span 0.0 for ROWS)."""
+    call materialises (in ``FUSED_FIELDS`` order) and their bits, whether
+    a spec is a RANGE frame, and per spec the ``(rows, bits, span)``
+    triple :func:`_build.device_table` packs (rows -1 for RANGE, span 0.0
+    for ROWS)."""
     check_fused_specs(spec_rows, spec_ranges, spec_fields)
-    if len(spec_rows) > _build.MAX_SPECS:
-        raise ValueError(f"a fused launch takes at most {_build.MAX_SPECS} "
-                         f"specs, got {len(spec_rows)}")
     if any(r is not None and r < 0 for r in spec_rows):
         raise ValueError(f"ROWS frames must be >= 0, got {spec_rows}")
     fields = tuple(f for f in FUSED_FIELDS
@@ -61,8 +58,10 @@ def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
                       ) -> Dict[str, torch.Tensor]:
     """CUDA implementation of :func:`ref.fused_window_ref`.
 
-    Takes the tensors :func:`window_agg_cuda` takes; at most
-    ``_build.MAX_SPECS`` specs. Returns field -> (B, S, Vo), count -> (B, S).
+    Takes the tensors :func:`window_agg_cuda` takes. Returns field ->
+    (B, S, Vo), count -> (B, S). A table of more than ``_build.MAX_SPECS``
+    specs or ``_build.MAX_COLS`` columns takes one launch per slice
+    (:func:`_build.launch_slices`), each writing its part of the outputs.
     """
     global launches
     fields, present, any_range, specs = spec_table(
@@ -87,16 +86,23 @@ def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
         dev)
     if B == 0:
         return out
-    table = _build.device_table(cols, dev, specs)
     fn = _build.function("fused_window_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        code = fn(
-            values.data_ptr(), ts.data_ptr(), total.data_ptr(),
-            req_key.data_ptr(), req_ts.data_ptr(), _build.ptr(evt_mask),
-            table.data_ptr(), B, K, C, V, len(cols), S, int(any_range),
-            int(assume_latest), present,
-            *(_build.ptr(out.get(f)) for f in FUSED_FIELDS),
-            _build.stream_of(dev))
-    _build.check(code, "fused_window")
-    launches += 1
+    Vo = len(cols)
+    per_col = present & ~_build.field_bits(("count",))
+    for s0, s1, c0, c1 in _build.launch_slices(S, Vo if per_col else 0):
+        table = _build.device_table(cols[c0:c1], dev, specs[s0:s1])
+        # the counts come with the first column slice
+        bits = present if c0 == 0 else per_col
+        with torch.cuda.device(dev):
+            code = fn(
+                values.data_ptr(), ts.data_ptr(), total.data_ptr(),
+                req_key.data_ptr(), req_ts.data_ptr(), _build.ptr(evt_mask),
+                table.data_ptr(), B, K, C, V, c1 - c0, s1 - s0, S, Vo,
+                int(any_range and any(r < 0 for r, _, _ in specs[s0:s1])),
+                int(assume_latest), bits,
+                *(_build.ptr(out.get(f), s0 if f == "count"
+                             else s0 * Vo + c0) for f in FUSED_FIELDS),
+                _build.stream_of(dev))
+        _build.check(code, "fused_window")
+        launches += 1
     return out

@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 __all__ = ["last_join_cuda", "launches"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = ((_P,) * 5 + (_I,) * 4 + (_P, _I, _I) + (_P,) * 3 + (_P,))
+_ARGTYPES = (_P,) * 6 + (_I,) * 7 + (_P,) * 3 + (_P,)
 
 launches = 0
 
@@ -32,7 +32,8 @@ def last_join_cuda(values: torch.Tensor, ts: torch.Tensor,
 
     Ring tensors as for :func:`window_agg_cuda`. Returns
     ``(row (B, len(col_idx)) f32, matched (B,) bool)`` and, with
-    ``with_ts``, the selected row's timestamp ``(B,) f32``.
+    ``with_ts``, the selected row's timestamp ``(B,) f32``. More than
+    ``_build.MAX_COLS`` columns take one launch per slice.
     """
     global launches
     if not col_idx:
@@ -54,13 +55,19 @@ def last_join_cuda(values: torch.Tensor, ts: torch.Tensor,
               if with_ts else None)
     if B > 0:
         fn = _build.function("last_join_launch", _ARGTYPES)
-        with torch.cuda.device(dev):
-            code = fn(
-                _build.ptr(values), _build.ptr(ts), _build.ptr(total),
-                _build.ptr(req_key), _build.ptr(req_ts), B, K, C, V,
-                _build.int_array(cols), len(cols), int(assume_latest),
-                _build.ptr(row), _build.ptr(matched), _build.ptr(sel_ts),
-                _build.stream_of(dev))
-        _build.check(code, "last_join")
-        launches += 1
+        Vo = len(cols)
+        for _, _, c0, c1 in _build.launch_slices(1, Vo):
+            table = _build.device_table(cols[c0:c1], dev)
+            first = c0 == 0          # matched and the ts: first slice only
+            with torch.cuda.device(dev):
+                code = fn(
+                    values.data_ptr(), ts.data_ptr(), total.data_ptr(),
+                    req_key.data_ptr(), req_ts.data_ptr(), table.data_ptr(),
+                    B, K, C, V, c1 - c0, Vo, int(assume_latest),
+                    _build.ptr(row, c0),
+                    _build.ptr(matched) if first else None,
+                    _build.ptr(sel_ts) if first else None,
+                    _build.stream_of(dev))
+            _build.check(code, "last_join")
+            launches += 1
     return (row, matched, sel_ts) if with_ts else (row, matched)

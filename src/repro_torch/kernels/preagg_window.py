@@ -9,7 +9,6 @@ the kernel's paths a batch of requests takes (for its tests).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -21,17 +20,9 @@ __all__ = ["preagg_window_cuda", "launches", "window_split", "SHAPES"]
 
 _ALL_FIELDS = ("sum", "sumsq", "count", "min", "max")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 11 + (_I,) * 8 + (_F, _I, _I) + (_P,) * 5 + (_P,)
+_ARGTYPES = (_P,) * 11 + (_I,) * 9 + (_F, _I, _I) + (_P,) * 5 + (_P,)
 
 launches = 0
-
-
-@functools.lru_cache(maxsize=256)
-def _launch_fields(fields: Optional[Tuple[str, ...]]):
-    """The fields a launch materialises (in ``_ALL_FIELDS`` order) and
-    their bits, once per static request."""
-    fields = tuple(f for f in _ALL_FIELDS if f in (fields or _ALL_FIELDS))
-    return fields, _build.field_bits(fields)
 
 
 def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
@@ -50,6 +41,7 @@ def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
 
     Ring tensors as for :func:`window_agg_cuda`, plus the (K, NB, V) f32
     tiers and the (K, NB) f32 count tier, with ``NB · bucket_size == C``.
+    More than ``_build.MAX_COLS`` columns take one launch per slice.
     """
     global launches
     dev = _build.require_cuda(values, "preagg_window_cuda")
@@ -76,27 +68,33 @@ def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
     if rows_preceding is not None and rows_preceding < 0:
         raise ValueError(f"rows_preceding must be >= 0, got {rows_preceding}")
     cols = _build.check_cols(cols, V)
-    fields, bits = _launch_fields(None if fields is None else tuple(fields))
+    fields, bits = _build.launch_fields(
+        None if fields is None else tuple(fields), _ALL_FIELDS)
     out = _build.empty_outputs(
         {f: (B,) if f == "count" else (B, len(cols)) for f in fields}, dev)
     if B == 0:
         return out
-    table = _build.device_table(cols, dev)
     fn = _build.function("preagg_window_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        code = fn(
-            _build.ptr(values), _build.ptr(ts), _build.ptr(total),
-            _build.ptr(pa_sum), _build.ptr(pa_sumsq), _build.ptr(pa_min),
-            _build.ptr(pa_max), _build.ptr(pa_count), _build.ptr(req_key),
-            _build.ptr(req_ts), table.data_ptr(), B, K, C, V, NB,
-            int(bucket_size), len(cols),
-            -1 if rows_preceding is None else int(rows_preceding),
-            0.0 if range_preceding is None else float(range_preceding),
-            int(assume_latest), bits,
-            *(_build.ptr(out.get(f)) for f in _ALL_FIELDS),
-            _build.stream_of(dev))
-    _build.check(code, "preagg_window")
-    launches += 1
+    Vo = len(cols)
+    per_col = bits & ~_build.field_bits(("count",))
+    for _, _, c0, c1 in _build.launch_slices(1, Vo if per_col else 0):
+        table = _build.device_table(cols[c0:c1], dev)
+        with torch.cuda.device(dev):
+            code = fn(
+                _build.ptr(values), _build.ptr(ts), _build.ptr(total),
+                _build.ptr(pa_sum), _build.ptr(pa_sumsq), _build.ptr(pa_min),
+                _build.ptr(pa_max), _build.ptr(pa_count), _build.ptr(req_key),
+                _build.ptr(req_ts), table.data_ptr(), B, K, C, V, NB,
+                int(bucket_size), c1 - c0, Vo,
+                -1 if rows_preceding is None else int(rows_preceding),
+                0.0 if range_preceding is None else float(range_preceding),
+                int(assume_latest),
+                bits if c0 == 0 else per_col,     # counts: first slice only
+                *(_build.ptr(out.get(f), 0 if f == "count" else c0)
+                  for f in _ALL_FIELDS),
+                _build.stream_of(dev))
+        _build.check(code, "preagg_window")
+        launches += 1
     return out
 
 

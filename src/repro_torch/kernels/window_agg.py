@@ -17,8 +17,7 @@ __all__ = ["window_agg_cuda", "launches"]
 
 _ALL_FIELDS = ("sum", "sumsq", "count", "min", "max", "first", "last")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ((_P,) * 6 + (_I,) * 4 + (_P, _I, _I, _F, _I, _I)
-             + (_P,) * 7 + (_P,))
+_ARGTYPES = (_P,) * 7 + (_I,) * 7 + (_F, _I, _I) + (_P,) * 7 + (_P,)
 
 launches = 0
 
@@ -38,6 +37,8 @@ def window_agg_cuda(values: torch.Tensor, ts: torch.Tensor,
     values (K, C, V) f32, ts (K, C) f32, total (K,) i32, req_key (B,) i32,
     req_ts (B,) f32, evt_mask (K, C) bool, all contiguous on one CUDA
     device. A ``req_key`` outside ``[0, K)`` reads as a key with no events.
+    More than ``_build.MAX_COLS`` columns take one launch per slice
+    (:func:`_build.launch_slices`), each writing its part of the outputs.
     """
     global launches
     dev = _build.require_cuda(values, "window_agg_cuda")
@@ -58,22 +59,29 @@ def window_agg_cuda(values: torch.Tensor, ts: torch.Tensor,
     if rows_preceding is not None and rows_preceding < 0:
         raise ValueError(f"rows_preceding must be >= 0, got {rows_preceding}")
     cols = _build.check_cols(cols, V)
-    fields = tuple(f for f in _ALL_FIELDS if f in (fields or _ALL_FIELDS))
-    out = {f: torch.empty((B,) if f == "count" else (B, len(cols)),
-                          dtype=torch.float32, device=dev) for f in fields}
+    fields, bits = _build.launch_fields(
+        None if fields is None else tuple(fields), _ALL_FIELDS)
+    Vo = len(cols)
+    out = _build.empty_outputs(
+        {f: (B,) if f == "count" else (B, Vo) for f in fields}, dev)
     if B == 0:
         return out
     fn = _build.function("window_agg_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        code = fn(
-            _build.ptr(values), _build.ptr(ts), _build.ptr(total),
-            _build.ptr(req_key), _build.ptr(req_ts), _build.ptr(evt_mask),
-            B, K, C, V, _build.int_array(cols), len(cols),
-            -1 if rows_preceding is None else int(rows_preceding),
-            0.0 if range_preceding is None else float(range_preceding),
-            int(assume_latest), _build.field_bits(fields),
-            *(_build.ptr(out.get(f)) for f in _ALL_FIELDS),
-            _build.stream_of(dev))
-    _build.check(code, "window_agg")
-    launches += 1
+    per_col = bits & ~_build.field_bits(("count",))
+    for _, _, c0, c1 in _build.launch_slices(1, Vo if per_col else 0):
+        table = _build.device_table(cols[c0:c1], dev)
+        with torch.cuda.device(dev):
+            code = fn(
+                values.data_ptr(), ts.data_ptr(), total.data_ptr(),
+                req_key.data_ptr(), req_ts.data_ptr(), _build.ptr(evt_mask),
+                table.data_ptr(), B, K, C, V, c1 - c0, Vo,
+                -1 if rows_preceding is None else int(rows_preceding),
+                0.0 if range_preceding is None else float(range_preceding),
+                int(assume_latest),
+                bits if c0 == 0 else per_col,     # counts: first slice only
+                *(_build.ptr(out.get(f), 0 if f == "count" else c0)
+                  for f in _ALL_FIELDS),
+                _build.stream_of(dev))
+        _build.check(code, "window_agg")
+        launches += 1
     return out

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.data.synthetic import EventStreamConfig, generate_events
 from repro_torch.featurestore.table import Table, TableSchema
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import (_build, fused_window, last_join, ops,
+                                 preagg_window, ref, window_agg)
 from repro_torch.kernels.decode_attention import SPLIT
 from repro_torch.kernels.preagg_window import SHAPES, window_split
 
@@ -262,6 +263,173 @@ def test_preagg_window_kernel_wide_buckets(wide_table, B, point_in_time):
         most_raw = max(most_raw, int(split["raw"].max()))
     if B == 499:
         assert most_buckets > 32 if t.bucket_size == 16 else most_raw > 128
+
+
+# ---------------------------------------------------------------------------
+# window_agg and last_join (one warp per request) at their edges, and the
+# calls wider than one launch
+# ---------------------------------------------------------------------------
+
+def _wide_values(t, V, seed):
+    K, C = t.state.ts.shape
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(K, C, V)).astype(np.float32)).to(t.device)
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 499])
+@pytest.mark.parametrize("point_in_time", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("V", [68, 70])
+def test_window_agg_kernel_geometry(table, B, point_in_time, with_mask, V):
+    """Ragged blocks, out-of-range keys, the ROWS edges of a warp's walk
+    and RANGE frames; columns in aligned groups of four (V=68) or read
+    one by one (V=70, and scattered columns); every field, moments only,
+    and count/first/last alone (no walk without a mask)."""
+    key, plain_key, rts = _edge_requests(table, B, point_in_time)
+    st = table.state
+    wide = _wide_values(table, V, V + B)
+    mask = (wide[:, :, 0] > 0) if with_mask else None
+    frames = [dict(rows_preceding=r) for r in EDGE_ROWS]
+    frames += [dict(range_preceding=g) for g in (50.0, 400.0)]
+    for frame in frames:
+        for cols, fields in ((tuple(range(8)), None), ((1, 0), None),
+                             (tuple((7 * i) % V for i in range(9)),
+                              ("sum", "max", "min")),
+                             ((3, 66), ("count", "first", "last"))):
+            kw = dict(cols=cols, fields=fields, evt_mask=mask,
+                      assume_latest=not point_in_time, **frame)
+            _assert_same(
+                ops.window_agg(wide, st.ts, st.total, key, rts, **kw),
+                ref.window_agg_ref(wide, st.ts, st.total, plain_key, rts,
+                                   **kw))
+
+
+@pytest.mark.parametrize("B", [33, 499])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_window_agg_kernel_long_walks(wide_table, B, point_in_time):
+    """Windows of up to 1023 rows: walks of many groups of steps."""
+    t = wide_table
+    key, plain_key, rts = _edge_requests(t, B, point_in_time)
+    st = t.state
+    for frame in ([dict(rows_preceding=r) for r in (127, 300, 700, 1023)]
+                  + [dict(range_preceding=g) for g in (500.0, 5000.0)]):
+        for mask in (None, st.values[:, :, 1] > 0):
+            kw = dict(cols=(2, 0), evt_mask=mask,
+                      assume_latest=not point_in_time, **frame)
+            _assert_same(
+                ops.window_agg(st.values, st.ts, st.total, key, rts, **kw),
+                ref.window_agg_ref(st.values, st.ts, st.total, plain_key,
+                                   rts, **kw))
+
+
+@pytest.fixture(scope="module", params=[64, 1024])
+def join_table(request):
+    """A CUDA right table of capacity 64 or 1024 whose hot keys wrap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=40000, n_keys=24, n_features=3, seed=7))
+    t = Table(TableSchema("right", "k", "ts", ("a", "b", "c")),
+              max_keys=32, capacity=request.param, bucket_size=16,
+              device="cuda")
+    t.insert(keys.tolist(), ts.tolist(), rows)
+    assert int(t.state.total.max()) > 2 * t.capacity
+    return t
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 499])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_last_join_kernel_geometry(join_table, B, point_in_time):
+    """Ragged blocks, out-of-range and empty keys, requests before a key's
+    history (unmatched) and inside it, online and point in time."""
+    t = join_table
+    key, plain_key, rts = _edge_requests(t, B, point_in_time)
+    st = t.state
+    for cols in ((2, 0, 1), (1,), tuple(i % 3 for i in range(40))):
+        kw = dict(col_idx=cols, assume_latest=not point_in_time,
+                  with_ts=True)
+        got = ops.last_join(st.values, st.ts, st.total, key, rts, **kw)
+        want = ref.last_join_ref(st.values, st.ts, st.total, plain_key, rts,
+                                 **kw)
+        if B == 499:
+            assert not bool(want[1].all()) and bool(want[1].any())
+        _assert_same(got, want)
+
+
+@pytest.mark.parametrize("S", [17, 33])
+@pytest.mark.parametrize("point_in_time", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_fused_window_kernel_many_specs(table, S, point_in_time, with_mask):
+    """More specs than one launch takes: ⌈S/16⌉ launches over one set of
+    outputs."""
+    key, plain_key, rts = _edge_requests(table, 64, point_in_time)
+    st = table.state
+    rows = tuple(None if i % 4 == 3 else 7 * i for i in range(S))
+    kw = dict(spec_rows=rows,
+              spec_ranges=tuple(20.0 * (i + 1) if r is None else None
+                                for i, r in enumerate(rows)),
+              spec_fields=tuple(FIELDS[i % 7:] + FIELDS[:i % 3]
+                                for i in range(S)),
+              cols=(1, 2, 0),
+              evt_mask=(st.values[:, :, 0] > 0) if with_mask else None,
+              assume_latest=not point_in_time)
+    before = fused_window.launches
+    got = ops.fused_window(st.values, st.ts, st.total, key, rts, **kw)
+    assert fused_window.launches - before == -(-S // 16)
+    _assert_same(got, ref.fused_window_ref(st.values, st.ts, st.total,
+                                           plain_key, rts, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["window_agg", "fused_window",
+                                    "preagg_window", "last_join"])
+@pytest.mark.parametrize("n_cols", [65, 130])
+@pytest.mark.parametrize("point_in_time", [False, True])
+def test_kernels_take_wide_column_sets(table, kernel, n_cols, point_in_time):
+    """65 and 130 columns: ⌈V_out/64⌉ launches (times ⌈S/16⌉ for
+    fused_window at 17 specs), each writing its columns in place; V=68
+    with contiguous columns (aligned groups of four) and V=70 with
+    scattered ones."""
+    key, plain_key, rts = _edge_requests(table, 64, point_in_time)
+    st, pa = table.state, table.preagg
+    V = 68 if n_cols == 65 else 70
+    wide = _wide_values(table, V, n_cols)
+    cols = (tuple(range(n_cols)) if n_cols < V
+            else tuple((7 * i) % V for i in range(n_cols)))
+    ring = (wide, st.ts, st.total)
+    al = not point_in_time
+    if kernel == "window_agg":
+        kw = dict(cols=cols, rows_preceding=40, assume_latest=al,
+                  evt_mask=(wide[:, :, 0] > 0) if point_in_time else None)
+        call = lambda k, fn: fn(*ring, k, rts, **kw)
+        fns, n_launch = (ops.window_agg, ref.window_agg_ref), 1
+    elif kernel == "fused_window":
+        rows = tuple(None if i % 4 == 3 else 9 * i for i in range(17))
+        kw = dict(cols=cols, assume_latest=al, spec_rows=rows,
+                  spec_ranges=tuple(30.0 if r is None else None
+                                    for r in rows),
+                  spec_fields=tuple(FIELDS[i % 7:] for i in range(17)))
+        call = lambda k, fn: fn(*ring, k, rts, **kw)
+        fns, n_launch = (ops.fused_window, ref.fused_window_ref), 2
+    elif kernel == "preagg_window":
+        K, NB = pa.count.shape
+        g = np.random.default_rng(n_cols)
+        tiers = tuple(torch.from_numpy(g.normal(size=(K, NB, V)).astype(
+            np.float32)).to(table.device) for _ in range(4)) + (pa.count,)
+        kw = dict(cols=cols, bucket_size=table.bucket_size,
+                  range_preceding=150.0, assume_latest=al)
+        call = lambda k, fn: fn(*ring, *tiers, k, rts, **kw)
+        fns, n_launch = (ops.preagg_window, ref.preagg_window_ref), 1
+    else:
+        kw = dict(col_idx=cols, assume_latest=al, with_ts=True)
+        call = lambda k, fn: fn(*ring, k, rts, **kw)
+        fns, n_launch = (ops.last_join, ref.last_join_ref), 1
+    module = {"window_agg": window_agg, "fused_window": fused_window,
+              "preagg_window": preagg_window, "last_join": last_join}[kernel]
+    before = module.launches
+    got = call(key, fns[0])
+    assert module.launches - before == n_launch * len(
+        _build.launch_slices(1, n_cols))
+    _assert_same(got, call(plain_key, fns[1]))
 
 
 @pytest.mark.parametrize("point_in_time", [False, True])

@@ -191,6 +191,74 @@ def test_empty_batch(engines):
 
 
 # ---------------------------------------------------------------------------
+# a deployment wider than one kernel launch: 17 raw-scan windows over 65
+# value columns (the CUDA wrappers split it into 16-spec x 64-column
+# launches; the plan still counts one fused launch)
+# ---------------------------------------------------------------------------
+
+N_WIDE_COLS, N_WIDE_WINDOWS, N_WIDE_KEYS = 65, 17, 24
+WIDE_KEYS, WIDE_TS, WIDE_ROWS = generate_events(EventStreamConfig(
+    n_events=1200, n_keys=N_WIDE_KEYS, n_features=N_WIDE_COLS, rate_hz=2.0,
+    seed=8))
+_WIDE_AGGS = (("sum", "SUM"), ("max", "MAX"), ("min", "MIN"),
+              ("avg", "AVG"), ("cnt", "COUNT"), ("first", "FIRST"))
+WIDE_SQL = (
+    "SELECT\n  " + ",\n  ".join(
+        [f"{_WIDE_AGGS[j % 6][1]}(c{j}) OVER w{j % N_WIDE_WINDOWS} "
+         f"AS {_WIDE_AGGS[j % 6][0]}_{j}" for j in range(N_WIDE_COLS)]
+        # a LAST keeps every window off the pre-aggregate tier
+        + [f"LAST(c{i}) OVER w{i} AS last_{i}"
+           for i in range(N_WIDE_WINDOWS)])
+    + "\nFROM wide\nWINDOW " + ",\n  ".join(
+        f"w{i} AS (PARTITION BY user ORDER BY ts "
+        + (f"ROWS BETWEEN {1 + 6 * i}" if i % 2 == 0
+           else f"RANGE BETWEEN {15 * (i + 1)}")
+        + " PRECEDING AND CURRENT ROW)" for i in range(N_WIDE_WINDOWS)))
+
+
+@pytest.fixture(scope="module")
+def wide_engines():
+    engines = {}
+    kinds = {"jax": (JEngine, JFlags, JSchema, {}),
+             "port": (Engine, OptFlags, TableSchema, {"device": "cpu"})}
+    for tag, (E, F, S, kw) in kinds.items():
+        e = E(F(), **kw)
+        e.create_table(S("wide", "user", "ts", tuple(
+            f"c{j}" for j in range(N_WIDE_COLS))), max_keys=N_WIDE_KEYS,
+            capacity=64, bucket_size=8)
+        e.insert("wide", WIDE_KEYS.tolist(), WIDE_TS.tolist(), WIDE_ROWS)
+        h = e.deploy("wide17", WIDE_SQL)
+        assert h.phys.n_kernel_launches == 1      # one fused launch
+        assert len(h.phys.groups) == N_WIDE_WINDOWS
+        assert {g.impl for g in h.phys.groups} == {"fused"}
+        assert len({c for g in h.phys.groups
+                    for c in g.plain_cols}) == N_WIDE_COLS
+        engines[tag] = e
+    return engines
+
+
+@pytest.mark.parametrize("mode", ["online", "offline"])
+def test_wide_deployment_frames_equal(wide_engines, mode):
+    if mode == "online":
+        rng = np.random.default_rng(21)
+        B = 48
+        keys = rng.integers(0, N_WIDE_KEYS + 4, B)
+        ts = np.full(B, float(WIDE_TS.max()) + 1.0, np.float32) + np.arange(B)
+        rows = WIDE_ROWS[rng.integers(0, len(WIDE_ROWS), B)]
+        want, got = (wide_engines[k].request("wide17", keys.tolist(),
+                                             ts.tolist(), rows=rows)
+                     for k in ("jax", "port"))
+        np.testing.assert_array_equal(got.status, want.status)
+        assert got.n_unknown > 0
+    else:
+        want, got = (wide_engines[k].query_offline("wide17")
+                     for k in ("jax", "port"))
+        assert len(got["__key"]) == len(want["__key"]) > 600
+    assert len(want) >= N_WIDE_COLS + N_WIDE_WINDOWS
+    _assert_columns_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # rules of the port
 # ---------------------------------------------------------------------------
 

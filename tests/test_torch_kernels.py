@@ -11,6 +11,8 @@ summation order differs between the two frameworks.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import contextlib
+import ctypes
 import functools
 
 import numpy as np
@@ -20,11 +22,13 @@ import torch
 
 from conftest import make_table_with_events
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, ops, ref as tref
+from repro_torch.kernels import (_build, fused_window, last_join, ops,
+                                 preagg_window, ref as tref, window_agg)
 from repro_torch.kernels.fused_window import fused_window_cuda, spec_table
 from repro_torch.kernels.last_join import last_join_cuda
 from repro_torch.kernels.preagg_window import (SHAPES, preagg_window_cuda,
                                                window_split)
+from repro_torch.kernels.ref import FUSED_FIELDS
 from repro_torch.kernels.window_agg import window_agg_cuda
 
 torch.set_num_threads(1)
@@ -384,7 +388,6 @@ def test_fused_spec_table_packs_once_per_static_table():
 
 
 @pytest.mark.parametrize("rows,ranges,fields,match", [
-    ((1,) * 17, (None,) * 17, (("sum",),) * 17, "at most 16"),
     ((-1,), (None,), (("sum",),), ">= 0"),
     ((1,), (None,), (("median",),), "unknown fields"),
     ((1, 2), (None,), (("sum",), ("sum",)), "lengths must match"),
@@ -397,6 +400,263 @@ def test_fused_spec_table_rejects_bad_tables(rows, ranges, fields, match):
         fused_window_cuda(s["values"], s["ts"], s["total"], rk, rt,
                           spec_rows=rows, spec_ranges=ranges,
                           spec_fields=fields)
+
+
+# ---------------------------------------------------------------------------
+# wide calls: more specs or columns than one launch takes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 16, 17, 33])
+@pytest.mark.parametrize("V", [1, 64, 65, 130])
+def test_launch_slices_cover_specs_and_columns(S, V):
+    """⌈S/16⌉ × ⌈V/64⌉ launches, specs outer, each slice at most
+    MAX_SPECS × MAX_COLS, together covering every (spec, column) once."""
+    got = _build.launch_slices(S, V)
+    assert len(got) == -(-S // _build.MAX_SPECS) * -(-V // _build.MAX_COLS)
+    assert list(got) == sorted(got)
+    cover = np.zeros((S, V), np.int32)
+    for s0, s1, c0, c1 in got:
+        assert 0 < s1 - s0 <= _build.MAX_SPECS
+        assert 0 < c1 - c0 <= _build.MAX_COLS
+        cover[s0:s1, c0:c1] += 1
+    assert (cover == 1).all()
+    spec_cuts = sorted({(s0, s1) for s0, s1, _, _ in got})
+    assert _build.launch_slices(S, 0) == tuple((s0, s1, 0, 0)
+                                               for s0, s1 in spec_cuts)
+
+
+@pytest.mark.parametrize("what,n", [("specs", 17), ("specs", 33),
+                                    ("cols", 65), ("cols", 130)])
+def test_wide_calls_pass_validation(what, n):
+    """17+ specs and 65+ columns pass the checks that used to refuse
+    them; a CUDA wrapper given CPU tensors then stops only at the device."""
+    s, rk, rt = _small_ring()
+    V = s["values"].shape[2]
+    rows = (4,) * (n if what == "specs" else 2)
+    cols = tuple(i % V for i in range(n if what == "cols" else 3))
+    assert _build.check_cols(cols, V) == cols
+    assert len(spec_table(rows, (None,) * len(rows),
+                          (("sum",),) * len(rows))[3]) == len(rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_window_cuda(s["values"], s["ts"], s["total"], rk, rt,
+                          spec_rows=rows, spec_ranges=(None,) * len(rows),
+                          spec_fields=(("sum",),) * len(rows), cols=cols)
+
+
+def _as_floats(addr, shape, strides):
+    """A float32 numpy view of ``shape`` with element ``strides`` at a raw
+    address (what a kernel writes through its output pointer)."""
+    n = 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+    base = np.ctypeslib.as_array((ctypes.c_float * n).from_address(addr))
+    return np.lib.stride_tricks.as_strided(
+        base, shape, tuple(4 * st for st in strides))
+
+
+def _names(bits, order):
+    return tuple(f for f in order if bits & _build.field_bits((f,)))
+
+
+class _FakeCard:
+    """The kernels' launch contract modelled on the CPU: each launch
+    function computes its slice with the plain version, from the inputs
+    its pointers name and the columns and specs its device table holds,
+    and writes it through the output pointers and strides it is given."""
+
+    def __init__(self, tensors):
+        self.t = {x.data_ptr(): x for x in tensors}
+        self.calls = []
+
+    def table(self, addr, n_cols, n_specs):
+        words = np.ctypeslib.as_array((ctypes.c_int32 * (
+            _build.MAX_COLS + 3 * _build.MAX_SPECS)).from_address(addr))
+        c, s = _build.MAX_COLS, _build.MAX_SPECS
+        return (tuple(int(x) for x in words[:n_cols]),
+                tuple(int(x) for x in words[c:c + n_specs]),
+                tuple(int(x) for x in words[c + s:c + s + n_specs]),
+                tuple(float(x) for x in words[c + 2 * s:c + 2 * s + n_specs]
+                      .view(np.float32)))
+
+    def write(self, addr, got, shape, strides):
+        if addr is not None:
+            _as_floats(addr, shape, strides)[...] = got.numpy()
+
+    def window_agg_launch(self, values, ts, total, key, rts, mask, table, B,
+                          K, C, V, n, oC, rows, rng, al, bits, *outs):
+        cols = self.table(table, n, 0)[0]
+        order = ("sum", "sumsq", "count", "min", "max", "first", "last")
+        self.calls.append(("window_agg", cols, bits))
+        got = tref.window_agg_ref(
+            self.t[values], self.t[ts], self.t[total], self.t[key],
+            self.t[rts], cols=cols, evt_mask=self.t.get(mask),
+            rows_preceding=rows if rows >= 0 else None,
+            range_preceding=rng if rows < 0 else None, assume_latest=bool(al),
+            fields=_names(bits, order))
+        for f, addr in zip(order, outs):
+            if f in got:
+                self.write(addr, got[f], got[f].shape,
+                           (1,) if f == "count" else (oC, 1))
+        return 0
+
+    def preagg_window_launch(self, values, ts, total, ps, pq, pn, pm, pc,
+                             key, rts, table, B, K, C, V, NB, bsz, n, oC,
+                             rows, rng, al, bits, *outs):
+        cols = self.table(table, n, 0)[0]
+        order = ("sum", "sumsq", "count", "min", "max")
+        self.calls.append(("preagg_window", cols, bits))
+        got = tref.preagg_window_ref(
+            *(self.t[a] for a in (values, ts, total, ps, pq, pn, pm, pc, key,
+                                  rts)),
+            bucket_size=bsz, cols=cols, assume_latest=bool(al),
+            rows_preceding=rows if rows >= 0 else None,
+            range_preceding=rng if rows < 0 else None,
+            fields=_names(bits, order))
+        for f, addr in zip(order, outs):
+            if f in got:
+                self.write(addr, got[f], got[f].shape,
+                           (1,) if f == "count" else (oC, 1))
+        return 0
+
+    def fused_window_launch(self, values, ts, total, key, rts, mask, table,
+                            B, K, C, V, n, S, oS, oC, any_range, al, present,
+                            *outs):
+        cols, rows, fbits, spans = self.table(table, n, S)
+        self.calls.append(("fused_window", cols, present))
+        assert bool(any_range) == any(r < 0 for r in rows)
+        got = tref.fused_window_ref(
+            self.t[values], self.t[ts], self.t[total], self.t[key],
+            self.t[rts], cols=cols, evt_mask=self.t.get(mask),
+            spec_rows=tuple(r if r >= 0 else None for r in rows),
+            spec_ranges=tuple(g if r < 0 else None
+                              for r, g in zip(rows, spans)),
+            spec_fields=tuple(_names(b, FUSED_FIELDS) for b in fbits),
+            assume_latest=bool(al))
+        for f, addr in zip(FUSED_FIELDS, outs):
+            if present & _build.field_bits((f,)):
+                v = got.get(f, torch.zeros((B, S) if f == "count"
+                                           else (B, S, n)))
+                self.write(addr, v, v.shape,
+                           (oS, 1) if f == "count" else (oS * oC, oC, 1))
+        return 0
+
+    def last_join_launch(self, values, ts, total, key, rts, table, B, K, C,
+                         V, n, oC, al, row, matched, sel_ts, stream):
+        cols = self.table(table, n, 0)[0]
+        self.calls.append(("last_join", cols, matched is not None))
+        r, m, t = tref.last_join_ref(
+            self.t[values], self.t[ts], self.t[total], self.t[key],
+            self.t[rts], col_idx=cols, assume_latest=bool(al), with_ts=True)
+        self.write(row, r, r.shape, (oC, 1))
+        if matched is not None:
+            np.ctypeslib.as_array((ctypes.c_bool * B).from_address(
+                matched))[...] = m.numpy()
+        self.write(sel_ts, t, t.shape, (1,))
+        return 0
+
+
+def _wide_inputs(V=70, seed=3):
+    s, rk, rt = _small_ring()
+    K, C = s["ts"].shape
+    rng = np.random.default_rng(seed)
+    NB = C // 8
+    x = {"values": _t(rng.normal(size=(K, C, V)).astype(np.float32)),
+         "ts": s["ts"], "total": s["total"], "key": rk, "rts": rt,
+         "mask": _t(rng.uniform(size=(K, C)) < 0.7)}
+    for f in ("pa_sum", "pa_sumsq", "pa_min", "pa_max"):
+        x[f] = _t(rng.normal(size=(K, NB, V)).astype(np.float32))
+    x["pa_count"] = _t(rng.integers(0, 9, (K, NB)).astype(np.float32))
+    return x
+
+
+@pytest.mark.parametrize("kernel,S,n_cols,fields", [
+    ("window_agg", 1, 1, None), ("window_agg", 1, 65, None),
+    ("window_agg", 1, 130, ("sum", "count", "last")),
+    ("window_agg", 1, 130, ("count",)),
+    ("preagg_window", 1, 65, None), ("preagg_window", 1, 130, ("max",)),
+    ("preagg_window", 1, 130, ("count",)),
+    ("last_join", 1, 1, None), ("last_join", 1, 65, None),
+    ("last_join", 1, 130, None),
+    ("fused_window", 3, 1, None), ("fused_window", 17, 65, None),
+    ("fused_window", 33, 130, None), ("fused_window", 17, 130, "count"),
+])
+def test_wrappers_write_each_slice_in_place(monkeypatch, kernel, S, n_cols,
+                                            fields):
+    """A wide call launches once per slice of :func:`_build.launch_slices`
+    (once where only counts are asked for), each launch's device table
+    holds its slice's columns and specs, its output pointers and strides
+    put the slice in place in the one set of outputs, and the counts (and
+    LAST JOIN's matched and ts) come with the first column slice only.
+    Modelled on the CPU: every launch computes its slice with the plain
+    version, and the outputs start as NaN."""
+    x = _wide_inputs()
+    V = x["values"].shape[2]
+    cols = tuple((7 * i + 3) % V for i in range(n_cols))
+    fake = _FakeCard(list(x.values()))
+    empty = torch.empty
+
+    def poisoned(*a, **kw):
+        t = empty(*a, **kw)
+        return t.fill_(True if t.dtype == torch.bool else float("nan"))
+
+    monkeypatch.setattr(torch, "empty", poisoned)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: t.device)
+    monkeypatch.setattr(_build, "function",
+                        lambda name, argtypes: getattr(fake, name))
+    monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
+    ring = (x["values"], x["ts"], x["total"])
+    tiers = tuple(x[f] for f in ("pa_sum", "pa_sumsq", "pa_min", "pa_max",
+                                 "pa_count"))
+    req = (x["key"], x["rts"])
+    every = ("sum", "sumsq", "count", "min", "max", "first", "last")
+    if kernel == "fused_window":
+        kw = dict(spec_rows=tuple(None if i % 3 == 2 else 1 + 5 * i
+                                  for i in range(S)),
+                  spec_ranges=tuple(40.0 * (i + 1) if i % 3 == 2 else None
+                                    for i in range(S)),
+                  spec_fields=tuple(("count",) if fields == "count"
+                                    else every[i % 7:] + every[:i % 2]
+                                    for i in range(S)),
+                  cols=cols, evt_mask=x["mask"], assume_latest=False)
+        call, plain = (lambda: fused_window_cuda(*ring, *req, **kw),
+                       lambda: tref.fused_window_ref(*ring, *req, **kw))
+    elif kernel == "window_agg":
+        kw = dict(cols=cols, rows_preceding=9, evt_mask=x["mask"],
+                  fields=fields)
+        call, plain = (lambda: window_agg_cuda(*ring, *req, **kw),
+                       lambda: tref.window_agg_ref(*ring, *req, **kw))
+    elif kernel == "preagg_window":
+        kw = dict(cols=cols, bucket_size=8, range_preceding=300.0,
+                  fields=fields)
+        call, plain = (
+            lambda: preagg_window_cuda(*ring, *tiers, *req, **kw),
+            lambda: tref.preagg_window_ref(*ring, *tiers, *req, **kw))
+    else:
+        kw = dict(col_idx=cols, with_ts=True)
+        call, plain = (lambda: last_join_cuda(*ring, *req, **kw),
+                       lambda: tref.last_join_ref(*ring, *req, **kw))
+    module = {"window_agg": window_agg, "fused_window": fused_window,
+              "preagg_window": preagg_window, "last_join": last_join}[kernel]
+    before = module.launches
+    got, want = call(), plain()
+    only_counts = fields in ("count", ("count",))
+    slices = _build.launch_slices(S, 0 if only_counts else n_cols)
+    assert module.launches - before == len(fake.calls) == len(slices)
+    counted = fields is None or "count" in fields
+    for (s0, s1, c0, c1), (_, tcols, flag) in zip(slices, fake.calls):
+        assert tcols == cols[c0:c1]
+        first = (flag if kernel == "last_join"
+                 else bool(flag & _build.field_bits(("count",))))
+        assert first == (c0 == 0 and counted)
+    if not isinstance(got, dict):
+        got = dict(enumerate(got))
+        want = dict(enumerate(want))
+    assert set(got) == set(want)
+    for f in want:
+        if f in EXACT or isinstance(f, int):
+            assert torch.equal(got[f], want[f]), f
+        else:
+            torch.testing.assert_close(got[f], want[f], rtol=2e-4, atol=2e-4)
 
 
 def test_empty_outputs_are_views_of_one_allocation():

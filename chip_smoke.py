@@ -31,22 +31,42 @@ then:
    the same 20,000 events: ``request`` (B=64) and ``query_offline`` give
    equal FeatureFrames; the same for a deployment of 17 raw-scan windows
    over 65 columns;
-6. drives the feature main path: 200 batches of 100 and 200 of 500
+6. the live path at that size, card against CPU: both engines take the
+   same disordered stream through ``attach_stream`` (0.5 reorder window,
+   20 ms flushes of up to 2048 events, a TTL that compacts), then
+   redeploy serve_features with a 5-row w1, canary the original at 0.5,
+   promote and roll back, and serve every deployment batched, pooled (4
+   workers) and per row; asserts the same version sequence, equal frames
+   between the engines and between the modes, ``online_offline_consistency``
+   and ``verify_preagg`` after the compaction;
+7. drives the feature main path: 200 batches of 100 and 200 of 500
    requests on each deployment, asserting OK status, finite outputs and
    that every kernel's launch counter rose, and prints requests/s and
    batch p50/p99;
-7. holds the two attention kernels against their plain versions, bf16 and
+8. at full size on the same engine: the execution modes (batched, pooled,
+   per row; B=100) with their batch p50/p99; a hot swap of serve_features
+   under a serving thread (build+warm ms, the first new batch against the
+   p50, no mixed versions, no plan-cache miss); a stream attached to the
+   21 GiB table replayed off, at 1,000 events/s and unpaced while
+   serve_features and fraud_scored take 200 batches of 500 (batch p50/p99,
+   events made visible, flushes, flush ms, peak device memory; three
+   copy-on-write inserts time one flush's copy first); and
+   ``FeatureServer`` with 6, then 12 client threads of single-row requests
+   while ``FeatureServer.ingest`` streams events (per-request p50/p99, QPS,
+   mean batch). Each of these paths resets the launch counters before it
+   runs and asserts after it that its kernels launched;
+9. holds the two attention kernels against their plain versions, bf16 and
    f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
    lengths, query counts around the 64-row tiles; decode in prefix mode
    with and without a window, at lengths around its split edges, past
    the cache, and in ring mode past the window): ``rtol = atol = 2e-2``
    in bf16, ``2e-5`` in f32;
-8. holds ``ModelServer`` for qwen2-1.5b on the card against the same
+10. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
    ``1e-4`` with equal greedy tokens, bf16 logits within a relative L2 of
    ``2e-2``;
-9. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
+11. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
    width and depth (bf16, random seeded weights), 16 slots, a 1024-long
    cache: 8 prompts of 512, 32 decode steps, 8 prompts of 384, 128 decode
    steps; asserts finite logits and that both attention kernels' launch
@@ -54,7 +74,7 @@ then:
    tokens/s, peak device memory and the device-busy share of one decode
    step; then times each attention kernel, its plain version and
    ``scaled_dot_product_attention`` on the main path's arguments;
-10. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
+12. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -62,10 +82,12 @@ without a CUDA card it exits non-zero before doing anything.
 
     python3 chip_smoke.py --calls
 
-runs only step 3 and the timing of step 4 (every main-path call at B=500
+runs only step 3, the timing of step 4 (every main-path call at B=500
 and B=100, and the point-in-time calls of ``query_offline``'s first
-batch), and prints the card and ``{"calls": [...]}``: the quick way to
-time two trees of the kernels against each other in one run.
+batch) and the serve phase of step 7 on an engine with the default
+flags, and prints the card and ``{"calls": [...], "serve": {...}}``: the
+quick way to time two trees of the kernels and of the request path
+against each other in one run.
 """
 from __future__ import annotations
 
@@ -155,6 +177,16 @@ class Sizes:
     n_batches: int = 200
     timing_batch: int = 500
     reps: int = 30
+    mode_batch: int = 100        # execution modes at full size
+    mode_batches: int = 50       # batched and pooled
+    row_batches: int = 20        # per-row
+    swap_batches: int = 50       # hot swap: batches before and after
+    stream_events: int = 300_000  # streamed past the table's newest event
+    stream_window_s: float = 3.0  # serving window per ingest rate
+    stream_batches: int = 200    # per ingest rate, at least
+    server_events: int = 20_000  # of those, for FeatureServer.ingest
+    server_clients: tuple = (6, 12)   # the paper's 6-12 parallel requests
+    server_requests: int = 200   # per client
 
 
 def log(msg: str) -> None:
@@ -173,11 +205,25 @@ def card_line() -> str:
 # engines
 # ---------------------------------------------------------------------------
 
-def make_engine(device, sz: Sizes, keys: int):
+# the paper's execution modes (Fig. 2 axes) are engine flags; an engine
+# made by make_engine with workers=4 owns a pool of 4 workers and serves
+# batched until set_mode selects another mode
+MODES = {"batched": dict(parallel_workers=1, vectorized=True),
+         "pooled": dict(parallel_workers=4, vectorized=True),
+         "per_row": dict(parallel_workers=1, vectorized=False)}
+
+
+def set_mode(eng, mode: str) -> None:
+    eng.flags = dataclasses.replace(eng.flags, **MODES[mode])
+
+
+def make_engine(device, sz: Sizes, keys: int, workers: int = 1):
     from repro_torch.core.engine import Engine
     from repro_torch.core.optimizer import OptFlags
     from repro_torch.featurestore.table import TableSchema
-    eng = Engine(OptFlags(), device=device)
+    eng = Engine(OptFlags(parallel_workers=workers), device=device)
+    if workers > 1:
+        set_mode(eng, "batched")
     eng.create_table(TableSchema("events", key_col="user", ts_col="ts",
                                  value_cols=("amount", "lat", "lon",
                                              "merchant")),
@@ -225,6 +271,15 @@ def scorer_params(rows: np.ndarray, device):
                     np.float32)
     return to_tensors((mu, sd, rng.normal(0, 1, F).astype(np.float32),
                        np.float32(rng.normal())), device)
+
+
+def score_atol(rows: np.ndarray, std_atol: float) -> float:
+    """The PREDICT score's tolerance: the STD feature's, through the
+    scorer (standardised by its sd, a sigmoid of slope at most 0.25);
+    every other input is exact or within the score's own rtol."""
+    _, sd, w, _ = scorer_params(rows, "cpu")
+    i = FRAUD_FEATURES.index("amt_std_10")
+    return 0.25 * abs(float(w[i])) / float(sd[i]) * std_atol
 
 
 # ---------------------------------------------------------------------------
@@ -794,6 +849,7 @@ def cuda_vs_cpu(sz: Sizes, device) -> None:
     rrows = rows[rng.integers(0, len(rows), B)]
     # STD cancels to ~0 on constant windows: allow sqrt(4·eps)·|mean|
     std_atol = 4e-4 * float(np.abs(rows[:, 0]).max())
+    sc_atol = score_atol(rows, std_atol)
     for name in DEPLOYMENTS:
         a = engines[device].request(name, rk.tolist(), rts.tolist(),
                                     rows=rrows)
@@ -801,10 +857,10 @@ def cuda_vs_cpu(sz: Sizes, device) -> None:
                                    rows=rrows)
         if not np.array_equal(a.status, b.status) or a.all_ok:
             raise AssertionError(f"{name}: status differs or no unknown key")
-        compare_frames(a, b, f"{name} online", std_atol, std_atol)
+        compare_frames(a, b, f"{name} online", std_atol, sc_atol)
         oa = engines[device].query_offline(name)
         ob = engines["cpu"].query_offline(name)
-        compare_frames(oa, ob, f"{name} offline", std_atol, std_atol)
+        compare_frames(oa, ob, f"{name} offline", std_atol, sc_atol)
         log(f"cuda==cpu {name}: online B={B} ({a.n_unknown} unknown keys), "
             f"offline {len(oa['__key'])} rows")
     for eng in engines.values():
@@ -836,11 +892,13 @@ def reset_launch_counts() -> None:
         m.launches = 0
 
 
-def request_batches(keys, ts, rows, B: int, n: int, seed: int):
+def request_batches(keys, ts, rows, B: int, n: int, seed: int,
+                    t0: float = None):
     """Batches of in-flight transactions: a sampled event's key and row,
-    at a fresh request time (the online path runs with assume_latest)."""
+    at a fresh request time (the online path runs with assume_latest):
+    after ``t0``, by default after every event of ``ts``."""
     rng = np.random.default_rng(seed)
-    t_max = float(ts.max())
+    t_max = float(ts.max()) if t0 is None else t0
     for i in range(n):
         idx = rng.integers(0, len(keys), B)
         yield (keys[idx], np.full(B, t_max + 1.0 + i, np.float32),
@@ -912,11 +970,527 @@ def device_busy(eng, keys, ts, rows, sz: Sizes, report: Dict[str, dict]
     return out
 
 
-def setup(device, sz: Sizes):
+# ---------------------------------------------------------------------------
+# the live-serving path: streaming ingest, versions, modes, FeatureServer
+# ---------------------------------------------------------------------------
+
+# the pipeline of benchmarks/bench_stream_interference.py: a 0.5 reorder
+# window, 20 ms amortisation, flushes of up to 2048 events
+LIVE_CFG = dict(lateness=0.5, flush_interval_s=0.02, max_flush_batch=2048)
+MODERATE_RATE = 1_000.0        # events/s, that benchmark's MODERATE_RATE
+
+
+def check_frame(fr, name: str, B: int) -> None:
+    """OK status for every (known) key, finite columns of length B."""
+    if not fr.all_ok:
+        raise AssertionError(f"{name}: a known key came back with status "
+                             f"!= OK")
+    for c, v in fr.items():
+        v = np.asarray(v).reshape(-1)
+        if v.shape[0] != B or not np.isfinite(v).all():
+            raise AssertionError(f"{name}: column {c} is not finite of "
+                                 f"length {B}")
+
+
+def require_launches(kernels, what: str) -> Dict[str, int]:
+    """The launch counts since the last reset; raises unless every kernel
+    of ``kernels`` launched."""
+    counts = launch_counts()
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}")
+    return {k: counts[k] for k in KERNELS}
+
+
+def _pcts(lat_s) -> Dict[str, float]:
+    ms = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _sync_card() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+SHORT_W1 = ("ROWS BETWEEN 10 PRECEDING AND CURRENT ROW",
+            "ROWS BETWEEN 5 PRECEDING AND CURRENT ROW")
+
+
+def lifecycle(eng, rk, rts, rrows) -> List[list]:
+    """Redeploy serve_features with a 5-row w1, canary the original at
+    0.5 (four batches), promote, roll back. Returns per step the live
+    version, the canary's and the versions that served the batches."""
+    name = "serve_features"
+    steps = []
+
+    def step(label, n=1):
+        served = [eng.request(name, rk, rts, rows=rrows).version
+                  for _ in range(n)]
+        live = eng.handle(name)
+        steps.append([label, live.version,
+                      live._canary[0].version if live._canary else None,
+                      served])
+
+    eng.deploy(name, DEPLOYMENTS[name].replace(*SHORT_W1))
+    step("redeploy")
+    eng.deploy(name, DEPLOYMENTS[name], canary=0.5)
+    step("canary", 4)
+    eng.promote(name)
+    step("promote")
+    eng.rollback(name)
+    step("rollback")
+    return steps
+
+
+def live_path(sz: Sizes, device) -> Dict[str, object]:
+    """The live path on a card engine and a CPU engine fed the same
+    disordered stream through ``attach_stream`` (with a TTL that compacts):
+    equal tables' features, the same version sequence, pooled and per-row
+    frames equal to batched, online == offline and a valid pre-aggregate
+    tier after the compaction."""
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    from repro_torch.featurestore.preagg import verify_preagg
+    from repro_torch.streaming import (PipelineConfig, RetentionPolicy,
+                                       StreamSource,
+                                       online_offline_consistency)
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=sz.check_events, n_keys=sz.check_keys, n_features=4))
+    src = StreamSource(keys, ts, rows).with_disorder(jitter=0.4, seed=6)
+    # an eighth of the stream's span: every key keeps fewer events than
+    # its ring holds, and every flush compacts
+    cfg = PipelineConfig(retention=RetentionPolicy(
+        ttl=float(ts.max() - ts.min()) / 8, every_n_flushes=1), **LIVE_CFG)
+    std_atol = 4e-4 * float(np.abs(rows[:, 0]).max())
+    sc_atol = score_atol(rows, std_atol)
+    rng = np.random.default_rng(12)
+    B = 64
+    rk = rng.integers(0, sz.check_keys + 8, B)           # some unknown
+    rts = (float(ts.max()) + 1.0 + np.arange(B)).astype(np.float32)
+    rrows = rows[rng.integers(0, len(rows), B)]
+    out: Dict[str, dict] = {}
+    frames: Dict[str, dict] = {}
+    reset_launch_counts()
+    for dev in (device, "cpu"):
+        eng = make_engine(dev, sz, sz.check_keys, workers=4)
+        fill_merchants(eng, ts, sz)
+        pipe = eng.attach_stream("events", cfg)
+        src.replay(pipe, batch_size=256)
+        pipe.flush()
+        check_pipe(pipe, f"live stream on {dev}")
+        m = pipe.metrics()
+        if (m["events_flushed"] != len(src) or m["dropped_late"]
+                or m["ttl_compactions"] < 1):
+            raise AssertionError(f"live stream on {dev}: {m}")
+        snap = eng.tables["events"].snapshot()
+        ok, err = verify_preagg(snap.state, snap.preagg,
+                                bucket_size=sz.bucket)
+        del snap
+        if not ok:
+            raise AssertionError(f"verify_preagg on {dev}: max err {err}")
+        deploy_all(eng, scorer_params(rows, dev))
+        ok, errs = online_offline_consistency(eng, "serve_features")
+        if not ok:
+            raise AssertionError(f"online != offline on {dev}: {errs}")
+        steps = lifecycle(eng, rk[:16], rts[:16], rrows[:16])
+        frames[dev] = {}
+        for mode in MODES:
+            set_mode(eng, mode)
+            frames[dev][mode] = {n: eng.request(n, rk, rts, rows=rrows)
+                                 for n in DEPLOYMENTS}
+        set_mode(eng, "batched")
+        for mode in ("pooled", "per_row"):
+            for n in DEPLOYMENTS:
+                compare_frames(frames[dev][mode][n], frames[dev]["batched"][n],
+                               f"{n} {mode} vs batched on {dev}", std_atol,
+                               sc_atol)
+        out[str(dev)] = {"versions": steps, "flushes": m["flushes"],
+                         "ttl_compactions": m["ttl_compactions"],
+                         "ttl_dropped": m["ttl_dropped"],
+                         "reordered": m["reordered"],
+                         "verify_preagg_err": err,
+                         "consistency_max_err": max(errs.values())}
+        eng.close()
+        if dev == device:
+            launches = require_launches(KERNELS, "the live path")
+    if out[str(device)]["versions"] != out["cpu"]["versions"]:
+        raise AssertionError(f"version sequences differ: {out}")
+    for n in DEPLOYMENTS:
+        a, b = frames[device]["batched"][n], frames["cpu"]["batched"][n]
+        if not np.array_equal(a.status, b.status) or a.all_ok:
+            raise AssertionError(f"{n}: status differs or no unknown key")
+        compare_frames(a, b, f"live {n} cuda vs cpu", std_atol, sc_atol)
+    log(f"live path (card == cpu, {len(src)} disordered events, "
+        f"{sz.check_keys} keys): versions {out['cpu']['versions']}; "
+        f"card {out[str(device)]}; launches {launches}")
+    out["launches"] = launches
+    return out
+
+
+def execution_modes(eng, keys, ts, rows, sz: Sizes) -> Dict[str, dict]:
+    """The paper's Fig. 2 axes at full size: batched, pooled (4 workers)
+    and per-row, B = ``sz.mode_batch``; the first batch of each mode is
+    held against batched."""
+    report: Dict[str, dict] = {}
+    first: Dict[tuple, object] = {}
+    std_atol = 4e-4 * float(np.abs(rows[:, 0]).max())
+    sc_atol = score_atol(rows, std_atol)
+    B = sz.mode_batch
+    reset_launch_counts()
+    for mode in MODES:
+        set_mode(eng, mode)
+        n = sz.row_batches if mode == "per_row" else sz.mode_batches
+        for name in ("serve_features", "fraud_scored"):
+            lat = []
+            for rk, rts, rr in request_batches(keys, ts, rows, B, n,
+                                               seed=31):
+                t1 = time.perf_counter()
+                fr = eng.request(name, rk, rts, rows=rr)
+                lat.append(time.perf_counter() - t1)
+                check_frame(fr, name, B)
+                first.setdefault((mode, name), fr)
+            report[f"{name}/{mode}"] = dict(_pcts(lat), batches=n, B=B)
+            log(f"mode {mode} {name} B={B}: batch p50 "
+                f"{report[f'{name}/{mode}']['p50_ms']:.4f} ms, p99 "
+                f"{report[f'{name}/{mode}']['p99_ms']:.4f} ms ({n} batches)")
+    set_mode(eng, "batched")
+    for (mode, name), fr in first.items():
+        compare_frames(fr, first["batched", name],
+                       f"{name} {mode} vs batched", std_atol, sc_atol)
+    report["launches"] = require_launches(
+        ("window_agg", "preagg_window", "last_join"), "the execution modes")
+    return report
+
+
+def hot_swap(eng, keys, ts, rows, sz: Sizes) -> Dict[str, object]:
+    """One thread serves serve_features (B=500) while this thread
+    redeploys it with a 5-row w1: build+warm ms, the first post-swap
+    batch against the p50, no version mixed in a response, and no
+    plan-cache miss on the new version."""
+    import threading
+    name = "serve_features"
+    old = eng.handle(name)
+    frames: List[tuple] = []
+    errors: List[Exception] = []
+    stop, warmed, done = (threading.Event(), threading.Event(),
+                          threading.Event())
+    B = sz.timing_batch
+
+    def serve():
+        try:
+            for rk, rts, rr in request_batches(keys, ts, rows, B, 1 << 30,
+                                               seed=41):
+                if stop.is_set():
+                    return
+                t1 = time.perf_counter()
+                fr = eng.request(name, rk, rts, rows=rr)
+                dt = time.perf_counter() - t1
+                check_frame(fr, name, B)
+                frames.append((fr.version, dt,
+                               float(np.max(fr["txn_cnt_10"]))))
+                if len(frames) == sz.swap_batches:
+                    warmed.set()
+                if sum(v != old.version for v, _, _ in frames) >= \
+                        sz.swap_batches:
+                    done.set()
+        except Exception as e:         # raised again by the caller
+            errors.append(e)
+            warmed.set()
+            done.set()
+
+    reset_launch_counts()
+    th = threading.Thread(target=serve, name="swap-serve")
+    th.start()
+    try:
+        if not warmed.wait(300.0):
+            raise AssertionError("hot swap: the serving thread stalled")
+        t0 = time.perf_counter()
+        new = eng.deploy(name, DEPLOYMENTS[name].replace(*SHORT_W1))
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        misses = eng.cache.stats.misses
+        if not done.wait(300.0):
+            raise AssertionError("hot swap: no batches on the new version")
+    finally:
+        stop.set()
+        th.join(300.0)
+    if errors:
+        raise errors[0]
+    if th.is_alive():
+        raise AssertionError("hot swap: the serving thread did not stop")
+    if eng.cache.stats.misses != misses:
+        raise AssertionError("hot swap: the new version missed the plan "
+                             "cache on the serving path")
+    versions = [v for v, _, _ in frames]
+    i_new = versions.index(new.version)
+    if any(v != new.version for v in versions[i_new:]) or \
+            set(versions[:i_new]) != {old.version}:
+        raise AssertionError(f"hot swap: versions out of order {versions}")
+    for v, _, cnt in frames:           # the window each response used
+        if cnt > (10 if v == old.version else 5):
+            raise AssertionError(f"hot swap: v{v} response with a window "
+                                 f"of {cnt} rows")
+    old_lat = [dt for v, dt, _ in frames[:i_new]]
+    rep = {"build_warm_ms": swap_ms,
+           "first_new_batch_ms": frames[i_new][1] * 1e3,
+           "old_batch_p50_ms": _pcts(old_lat)["p50_ms"],
+           "new_batch_p50_ms": _pcts([dt for _, dt, _ in
+                                      frames[i_new:]])["p50_ms"],
+           "batches_old": i_new, "batches_new": len(frames) - i_new,
+           "versions": [old.version, new.version],
+           "launches": require_launches(("window_agg", "preagg_window"),
+                                        "the hot swap")}
+    log(f"hot swap {name} v{old.version}->v{new.version} under load (B={B}): "
+        f"build+warm {swap_ms:.3f} ms; first v{new.version} batch "
+        f"{rep['first_new_batch_ms']:.4f} ms against the v{old.version} "
+        f"p50 {rep['old_batch_p50_ms']:.4f} ms; {rep}")
+    return rep
+
+
+def check_pipe(pipe, what: str) -> None:
+    """Raise if a flush ever failed: the flusher catches an error, counts
+    it, restages the events and retries, so nothing else would show it."""
+    if pipe.last_error is not None:
+        raise AssertionError(f"{what}: a flush failed ({pipe.stats['errors']}"
+                             f" errors)") from pipe.last_error
+    if pipe.stats["errors"]:
+        raise AssertionError(f"{what}: {pipe.stats['errors']} flush errors")
+
+
+def visible_events(table) -> int:
+    """Events in the published table version: what a request can see."""
+    return int(table.state.total.sum())
+
+
+def stream_interference(eng, keys, rows, sz: Sizes):
+    """A stream attached to the full-size events table, replayed off, at
+    MODERATE_RATE and unpaced, each for a window of ``sz.stream_window_s``
+    (and at least ``sz.stream_batches`` batches) in which serve_features
+    and fraud_scored take B=500 batches. Events visible count only what
+    the table published inside the window; the unpaced replay must still
+    have a backlog when the window ends. Before the stream attaches,
+    three copy-on-write inserts of 1024 events time one flush's copy on
+    the card. Returns the report, the pipeline, the request time and the
+    events left for the FeatureServer phase."""
+    import threading
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    from repro_torch.streaming import PipelineConfig, StreamSource
+    table = eng.tables["events"]
+    skeys, sts, srows = generate_events(EventStreamConfig(
+        n_events=sz.stream_events, n_keys=sz.keys, n_features=4, seed=1))
+    sts = (sts + np.float32(table.watermark + 1.0)).astype(np.float32)
+    t_req = float(sts.max()) + 1.0      # requests stay ahead of the stream
+    probe_ms = []
+    n_probe = min(1024, sz.capacity)
+    for i in range(3):
+        sl = slice(i * n_probe, (i + 1) * n_probe)
+        _sync_card()
+        t0 = time.perf_counter()
+        table.insert(skeys[sl].tolist(), sts[sl], srows[sl], donate=False)
+        _sync_card()
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"copy-on-write insert of {n_probe} events into the "
+        f"{table.memory_bytes()} byte table: {probe_ms} ms")
+    rest = StreamSource(skeys[3 * n_probe:], sts[3 * n_probe:],
+                        srows[3 * n_probe:]).with_disorder(jitter=0.4,
+                                                           seed=8)
+    # moderate: twice what its window takes; the FeatureServer phase gets
+    # the last sz.server_events; unpaced gets the rest, more than the
+    # flusher can publish in one window
+    cuts = (0, int(2 * MODERATE_RATE * sz.stream_window_s),
+            len(rest) - sz.server_events, len(rest))
+    segs = [StreamSource(rest.keys[a:b], rest.ts[a:b], rest.rows[a:b])
+            for a, b in zip(cuts[:-1], cuts[1:])]
+    pipe = eng.attach_stream("events", PipelineConfig(**LIVE_CFG))
+    pipe.warm()
+    report: Dict[str, object] = {"cow_insert_ms": probe_ms,
+                                 "table_bytes": table.memory_bytes(),
+                                 "window_s": sz.stream_window_s}
+    names = ("serve_features", "fraud_scored")
+    B = sz.timing_batch
+    reset_launch_counts()
+    for (label, rate), seg in zip((("off", 0.0), ("moderate", MODERATE_RATE),
+                                   ("saturating", None)), (None,) + tuple(
+                                       segs[:2])):
+        _sync_card()
+        v0, m0, e0 = table.version, pipe.metrics(), visible_events(table)
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        stop = threading.Event()
+        th = None
+        if seg is not None:
+            th = threading.Thread(target=seg.replay, args=(pipe,), kwargs=dict(
+                batch_size=256, rate=rate, stop_event=stop), name="replay")
+            th.start()
+        lat = []
+        t0 = time.perf_counter()
+        for i, (rk, rts, rr) in enumerate(request_batches(
+                keys, None, rows, B, 1 << 30, seed=51, t0=t_req)):
+            if (i >= sz.stream_batches
+                    and time.perf_counter() - t0 >= sz.stream_window_s):
+                break
+            name = names[i % 2]
+            t1 = time.perf_counter()
+            fr = eng.request(name, rk, rts, rows=rr)
+            lat.append(time.perf_counter() - t1)
+            check_frame(fr, name, B)
+        wall = time.perf_counter() - t0
+        m_end = pipe.metrics()
+        visible = visible_events(table) - e0     # published in the window
+        inserts = m_end["table_version"] - v0
+        backlog = m_end["accepted"] - m0["accepted"] - visible
+        stop.set()
+        t_end = time.perf_counter()
+        if th is not None:
+            th.join(600.0)
+            if th.is_alive():
+                raise AssertionError(f"stream {label}: replay did not stop")
+        if not pipe.wait_idle(timeout=600.0):
+            raise AssertionError(f"stream {label}: the flusher never idled")
+        drain_s = time.perf_counter() - t_end
+        check_pipe(pipe, f"stream {label}")
+        m1 = pipe.metrics()
+        flushes = m1["flushes"] - m0["flushes"]
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.cuda.is_available() else 0)
+        if seg is not None and (inserts <= 0 or visible <= 0):
+            raise AssertionError(f"stream {label}: nothing was published "
+                                 f"inside the window")
+        if rate is None and backlog <= 0:
+            raise AssertionError(f"stream {label}: the replay ran dry inside "
+                                 f"the window (visible {visible})")
+        report[label] = dict(
+            _pcts(lat), max_ms=float(np.max(lat)) * 1e3,
+            requests_per_s=B * len(lat) / wall, window_s=wall,
+            events_visible=visible, visible_per_s=visible / wall,
+            inserts_in_window=inserts, backlog_at_end=backlog,
+            drain_s=drain_s, flushes=flushes,
+            mean_flush_ms=(m1["flush_s"] - m0["flush_s"]) / flushes * 1e3
+            if flushes else None,
+            dropped_late=m1["dropped_late"] - m0["dropped_late"],
+            peak_bytes=peak, batches=len(lat))
+        r = report[label]
+        log(f"stream {label}: {len(lat)} batches in {wall:.3f} s, batch p50 "
+            f"{r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms, max "
+            f"{r['max_ms']:.4f} ms, {r['requests_per_s']:.1f} req/s; "
+            f"{visible} events visible in the window ({r['visible_per_s']:.1f}"
+            f"/s, {inserts} inserts), backlog {backlog}, drained in "
+            f"{drain_s:.3f} s; {flushes} flushes (mean {r['mean_flush_ms']} "
+            f"ms host); peak device memory {peak} bytes")
+    report["launches"] = require_launches(
+        ("window_agg", "preagg_window", "last_join"), "the stream phase")
+    return report, pipe, t_req, segs[2]
+
+
+def feature_server(eng, pipe, keys, sz: Sizes, t_req: float, ingest_src
+                   ) -> Dict[str, dict]:
+    """FeatureServer over serve_features at full size: 6, then 12 client
+    threads of single-row requests while ``FeatureServer.ingest`` streams
+    events at MODERATE_RATE; each round must publish what it ingested."""
+    import threading
+    from repro_torch.serving import BatcherConfig, FeatureServer, ServerConfig
+    name = "serve_features"
+    table = eng.tables["events"]
+    report: Dict[str, dict] = {}
+    srv = FeatureServer(eng, name, ServerConfig(BatcherConfig(
+        max_batch=64, max_delay_s=0.002)))
+    pos = 0
+    reset_launch_counts()
+    try:
+        for n_clients in sz.server_clients:
+            lat: List[float] = []
+            errors: List[BaseException] = []
+            stop = threading.Event()
+            barrier = threading.Barrier(n_clients + 1)
+            ingested = [0, 0]                  # pushed, accepted
+            b0, v0 = dict(srv.batcher.stats), table.version
+            e0 = visible_events(table)
+
+            def ingest(start):
+                try:
+                    t0 = time.perf_counter()
+                    i = start
+                    while not stop.is_set() and i < len(ingest_src):
+                        lag = (i - start) / MODERATE_RATE - (
+                            time.perf_counter() - t0)
+                        if lag > 0:
+                            time.sleep(lag)
+                        ingested[1] += srv.ingest(int(ingest_src.keys[i]),
+                                                  float(ingest_src.ts[i]),
+                                                  ingest_src.rows[i])
+                        i += 1
+                        ingested[0] = i - start
+                except BaseException as e:  # raised again below
+                    errors.append(e)
+
+            def client(c):
+                rng = np.random.default_rng(100 + c)
+                try:
+                    barrier.wait(300.0)
+                    for j in range(sz.server_requests):
+                        k = int(keys[rng.integers(0, len(keys))])
+                        t1 = time.perf_counter()
+                        fr = srv.request(k, t_req + j, timeout=300.0)
+                        lat.append(time.perf_counter() - t1)
+                        check_frame(fr, name, 1)
+                except BaseException as e:  # raised again below
+                    errors.append(e)
+
+            feeder = threading.Thread(target=ingest, args=(pos,))
+            clients = [threading.Thread(target=client, args=(c,))
+                       for c in range(n_clients)]
+            for t in clients:
+                t.start()
+            feeder.start()
+            barrier.wait(300.0)
+            t0 = time.perf_counter()
+            for t in clients:
+                t.join(600.0)
+            wall = time.perf_counter() - t0
+            stop.set()
+            feeder.join(600.0)
+            pos += ingested[0]
+            if errors:
+                raise errors[0]
+            if any(t.is_alive() for t in clients + [feeder]):
+                raise AssertionError("FeatureServer: a thread did not stop")
+            # the reorder window holds the newest 0.5 of event time back:
+            # flush what is releasable, then everything must be published
+            if not pipe.wait_idle(timeout=600.0):
+                raise AssertionError("FeatureServer: the flusher never idled")
+            check_pipe(pipe, f"FeatureServer {n_clients} clients")
+            published = visible_events(table) - e0
+            if ingested[1] <= 0 or published <= 0 or table.version <= v0:
+                raise AssertionError(
+                    f"FeatureServer {n_clients} clients: ingested "
+                    f"{ingested}, published {published}, table version "
+                    f"{v0} -> {table.version}")
+            st = srv.batcher.stats
+            nb = st["batches"] - b0["batches"]
+            report[f"clients={n_clients}"] = dict(
+                _pcts(lat), qps=len(lat) / wall, requests=len(lat),
+                mean_batch=(st["sum_batch"] - b0["sum_batch"]) / nb,
+                events_ingested=ingested[0], events_accepted=ingested[1],
+                events_published=published,
+                table_versions=table.version - v0)
+            r = report[f"clients={n_clients}"]
+            log(f"FeatureServer {n_clients} clients: per-request p50 "
+                f"{r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms, "
+                f"{r['qps']:.1f} req/s, mean batch {r['mean_batch']:.3f}; "
+                f"{ingested[0]} events ingested meanwhile ({ingested[1]} "
+                f"accepted), {published} published in "
+                f"{r['table_versions']} table versions")
+    finally:
+        srv.close()
+    report["launches"] = require_launches(("window_agg", "preagg_window"),
+                                          "the FeatureServer phase")
+    return report
+
+
+def setup(device, sz: Sizes, workers: int = 1):
     """One node at production key space: the engine with its tables
     filled and the three deployments, and the events it ingested."""
     from repro_torch.data.synthetic import EventStreamConfig, generate_events
-    eng = make_engine(device, sz, sz.keys)
+    eng = make_engine(device, sz, sz.keys, workers)
     keys, ts, rows = generate_events(EventStreamConfig(
         n_events=sz.events, n_keys=sz.keys, n_features=4, seed=0))
     t0 = time.perf_counter()
@@ -937,13 +1511,14 @@ def setup(device, sz: Sizes):
 
 def run(device, sz: Sizes) -> Dict[str, object]:
     """All phases on ``device``; raises on any failure."""
-    eng, (keys, ts, rows), ingest_s = setup(device, sz)
+    eng, (keys, ts, rows), ingest_s = setup(device, sz, workers=4)
     table = eng.tables["events"]
 
     # ---- kernels against their plain versions -----------------------------
-    snap = table.snapshot()
-    errs = kernel_cases(snap.state, snap.preagg,
-                        eng.tables["merchants"].snapshot().state, sz,
+    # (no snapshot outlives this call: under the stream phase below every
+    # version a caller holds is a 21 GiB table on the card)
+    errs = kernel_cases(table.state, table.preagg,
+                        eng.tables["merchants"].state, sz,
                         table.n_keys, float(ts.max()), device)
     log(f"kernel checks passed; max abs diff per kernel: {errs}")
     calls = main_path_calls(eng, keys, ts, rows, sz, device)
@@ -953,6 +1528,7 @@ def run(device, sz: Sizes) -> Dict[str, object]:
 
     # ---- the CUDA engine against the CPU engine ---------------------------
     cuda_vs_cpu(sz, device)
+    live = live_path(sz, device)
 
     # ---- the main path ----------------------------------------------------
     if device != "cpu":
@@ -970,7 +1546,16 @@ def run(device, sz: Sizes) -> Dict[str, object]:
         f"engine stats over the serve phase: {stats}")
     busy = device_busy(eng, keys, ts, rows, sz, report) \
         if device != "cpu" else {}
-    eng.close()
+
+    # ---- the live path: modes, hot swap, stream, FeatureServer ------------
+    modes = execution_modes(eng, keys, ts, rows, sz)
+    swap = hot_swap(eng, keys, ts, rows, sz)
+    stream, pipe, t_req, rest = stream_interference(eng, keys, rows, sz)
+    server = feature_server(eng, pipe, keys, sz, t_req, rest)
+    log(f"stream after the FeatureServer phase: {pipe.metrics()}")
+    eng.close()                       # drains the stream
+    check_pipe(pipe, "the stream's final drain")
+    log(f"stream after the final drain: {pipe.metrics()}")
     kernels = [{
         "name": k, "route": "cuda", "source": KERNELS[k][0],
         "replaces": KERNELS[k][1], "launches": launches[k],
@@ -981,7 +1566,8 @@ def run(device, sz: Sizes) -> Dict[str, object]:
         "plain_call_ms": timing[k]["plain_call_ms"]} for k in KERNELS]
     return {"kernels": kernels, "serve": report, "ingest_s": ingest_s,
             "peak_bytes": peak, "engine_stats": stats, "busy": busy,
-            "calls": calls}
+            "calls": calls, "live": live, "modes": modes, "swap": swap,
+            "stream": stream, "server": server}
 
 
 # ---------------------------------------------------------------------------
@@ -1486,14 +2072,17 @@ def main() -> int:
     if calls_only:
         eng, (keys, ts, rows), _ = setup("cuda", Sizes())
         calls = main_path_calls(eng, keys, ts, rows, Sizes(), "cuda")
+        report = serve(eng, keys, ts, rows, Sizes(), "cuda")
         log(card)
-        log(json.dumps({"calls": calls}))
+        log(json.dumps({"calls": calls, "serve": report}))
         return 0
     res = run("cuda", Sizes())
     torch.cuda.empty_cache()
     mres = run_model("cuda", ModelSizes())
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
+    log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
+                                        "server")}))
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))
     log(card)

@@ -4,6 +4,8 @@ OpenMLDB caches LLVM-JIT'd plans per deployed query; the port caches the
 executor built for a plan, keyed by ``(plan fingerprint, flags, model)``.
 PyTorch runs eagerly, so nothing is traced or padded to a batch bucket; the
 cache still owns executor construction and the hit/miss accounting.
+``bucket_batch`` rounds batch sizes to the power-of-two buckets a
+deployment records as served and warms before a hot swap.
 Entries are LRU-evicted under a bounded count (resource management, O5).
 
 Deployment lifecycle hooks (DESIGN.md §6):
@@ -28,7 +30,19 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 
-__all__ = ["PlanCache", "CacheStats", "TagStats"]
+__all__ = ["PlanCache", "CacheStats", "TagStats", "bucket_batch"]
+
+_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def bucket_batch(n: int) -> int:
+    """Round a request-batch size up to its power-of-two bucket (the
+    shapes a deployment warms before it goes live)."""
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return ((n + 4095) // 4096) * 4096
+
 
 @dataclass
 class CacheStats:

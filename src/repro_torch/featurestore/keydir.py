@@ -139,8 +139,11 @@ class KeyDirectory:
                 s = np.asarray(pend, np.int64)
                 tkeys, tvals = self._dev
                 si = torch.from_numpy(s).to(self.device)
-                tkeys[si] = torch.from_numpy(self._hkeys[s]).to(self.device)
+                # values before keys, as on the host: a probe queued by
+                # another thread between the two writes must not see a
+                # new key beside its old value
                 tvals[si] = torch.from_numpy(self._hvals[s]).to(self.device)
+                tkeys[si] = torch.from_numpy(self._hkeys[s]).to(self.device)
             tkeys, tvals = self._dev
             probe = self.max_probe
         q = torch.from_numpy(np.asarray(keys, np.int64)).to(self.device)

@@ -368,6 +368,13 @@ class Table:
         self.publish(state, preagg)
         self._last_ts.update(pending)
 
+    def warm_ingest(self, *, max_batch: Optional[int] = None) -> int:
+        """The streaming pipeline's pre-flush warm-up. Ingest here is a
+        handful of eager PyTorch scatters with nothing to compile for any
+        batch size, so there is no device work to do: returns 0 (the
+        number of ingest shapes compiled)."""
+        return 0
+
     # -- introspection -----------------------------------------------------
     def memory_bytes(self) -> int:
         st, pa = self.state, self.preagg

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
@@ -27,8 +28,8 @@ import torch
 __all__ = ["library", "function", "check", "build_seconds", "build_log",
            "require", "ptr", "stream_of", "field_bits", "launch_fields",
            "require_cuda", "check_cols", "empty_outputs", "device_table",
-           "launch_slices", "MAX_COLS", "MAX_SPECS", "BUILD_ROOT",
-           "NVCC_FLAGS"]
+           "launch_slices", "count_launch", "MAX_COLS", "MAX_SPECS",
+           "BUILD_ROOT", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -85,17 +86,30 @@ def _build(out: Path) -> None:
         os.replace(lib_tmp, out)       # atomic: no half-written library
 
 
-@functools.lru_cache(maxsize=None)
+_lib: Optional[ctypes.CDLL] = None
+# host threads that launch their first kernel together (a worker pool, the
+# stream flusher, the batcher) must not each run nvcc: the first one
+# builds and loads under this lock, the others wait for it
+_lib_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its digest is new."""
-    files = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-    out = BUILD_ROOT / _digest(files) / _LIB_NAME
-    if not out.exists():
-        _build(out)
-    lib = ctypes.CDLL(str(out))
-    lib.rt_error_string.argtypes = [ctypes.c_int]
-    lib.rt_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded kernel library, built first if its digest is new; built
+    and loaded once per process, whichever thread asks first."""
+    global _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                files = (sorted(CSRC.glob("*.cu"))
+                         + sorted(CSRC.glob("*.cuh")))
+                out = BUILD_ROOT / _digest(files) / _LIB_NAME
+                if not out.exists():
+                    _build(out)
+                lib = ctypes.CDLL(str(out))
+                lib.rt_error_string.argtypes = [ctypes.c_int]
+                lib.rt_error_string.restype = ctypes.c_char_p
+                _lib = lib
+    return _lib
 
 
 def build_seconds() -> float:
@@ -215,7 +229,10 @@ def device_table(cols: Tuple[int, ...], device: torch.device,
     MAX_COLS words, then MAX_SPECS words each of the specs' ROWS lengths
     (-1 for RANGE), field bits and RANGE spans (float32 bits), from one
     ``(rows, bits, span)`` triple per spec. Copied to the device once per
-    table; the cache keeps it."""
+    table; the cache keeps it. Two threads that miss the cache at once
+    both build the table and the cache keeps one of the two equal tensors,
+    so filling it concurrently is safe (as for ``launch_fields``,
+    ``launch_slices`` and ``fused_window.spec_table``)."""
     def pad(xs, n):
         return list(xs) + [0] * (n - len(xs))
 
@@ -239,6 +256,17 @@ def empty_outputs(shapes: Dict[str, Tuple[int, ...]],
 def ptr(t: Optional[torch.Tensor], offset: int = 0) -> Optional[int]:
     """The address of element ``offset`` of ``t`` (None for no tensor)."""
     return None if t is None else t.data_ptr() + offset * t.element_size()
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(module) -> None:
+    """Add one to a wrapper module's ``launches`` counter atomically:
+    ``launches += 1`` is a read and a write, which concurrent launching
+    threads would interleave and lose counts."""
+    with _count_lock:
+        module.launches += 1
 
 
 def stream_of(device: torch.device) -> int:

@@ -10,6 +10,7 @@ kernel; each call is two device launches (the split pass over
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional
 
 import torch
@@ -46,7 +47,6 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     floats allocated here; the launch depends only on the shapes, never
     on the lengths.
     """
-    global launches
     dev = _build.require_cuda(q, "decode_attention_cuda")
     D = check_query(q, 3, "decode_attention_cuda")
     B, Hq, _ = q.shape
@@ -83,5 +83,5 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                   0 if window is None else int(window), int(ring), SPLIT,
                   scale, _build.stream_of(dev))
     _build.check(code, "decode_attention")
-    launches += 1
+    _build.count_launch(sys.modules[__name__])
     return out

@@ -8,6 +8,7 @@ counts the kernel launches this process made.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional
 
 import torch
@@ -59,7 +60,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor cores and rounds the probabilities to bf16 before PV, as the
     plain version does; f32 stays in full f32 on the FMA units.
     """
-    global launches
     dev = _build.require_cuda(q, "flash_attention_cuda")
     D = check_query(q, 4, "flash_attention_cuda")
     B, Sq, Hq, _ = q.shape
@@ -88,5 +88,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   int(causal), 0 if window is None else int(window), scale,
                   _build.stream_of(dev))
     _build.check(code, "flash_attention")
-    launches += 1
+    _build.count_launch(sys.modules[__name__])
     return out

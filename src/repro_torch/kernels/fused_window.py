@@ -8,6 +8,7 @@ kernel launches this process made.
 from __future__ import annotations
 
 import ctypes
+import sys
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -63,7 +64,6 @@ def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
     specs or ``_build.MAX_COLS`` columns takes one launch per slice
     (:func:`_build.launch_slices`), each writing its part of the outputs.
     """
-    global launches
     fields, present, any_range, specs = spec_table(
         tuple(spec_rows), tuple(spec_ranges),
         tuple(tuple(sf) for sf in spec_fields))
@@ -104,5 +104,5 @@ def fused_window_cuda(values: torch.Tensor, ts: torch.Tensor,
                              else s0 * Vo + c0) for f in FUSED_FIELDS),
                 _build.stream_of(dev))
         _build.check(code, "fused_window")
-        launches += 1
+        _build.count_launch(sys.modules[__name__])
     return out

@@ -8,6 +8,7 @@ kernel launches this process made.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Tuple
 
 import torch
@@ -35,7 +36,6 @@ def last_join_cuda(values: torch.Tensor, ts: torch.Tensor,
     ``with_ts``, the selected row's timestamp ``(B,) f32``. More than
     ``_build.MAX_COLS`` columns take one launch per slice.
     """
-    global launches
     if not col_idx:
         raise ValueError("last_join needs at least one value column")
     dev = _build.require_cuda(values, "last_join_cuda")
@@ -69,5 +69,5 @@ def last_join_cuda(values: torch.Tensor, ts: torch.Tensor,
                     _build.ptr(sel_ts) if first else None,
                     _build.stream_of(dev))
             _build.check(code, "last_join")
-            launches += 1
+            _build.count_launch(sys.modules[__name__])
     return (row, matched, sel_ts) if with_ts else (row, matched)

@@ -9,6 +9,7 @@ the kernel's paths a batch of requests takes (for its tests).
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +44,6 @@ def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
     tiers and the (K, NB) f32 count tier, with ``NB · bucket_size == C``.
     More than ``_build.MAX_COLS`` columns take one launch per slice.
     """
-    global launches
     dev = _build.require_cuda(values, "preagg_window_cuda")
     if values.dim() != 3 or pa_count.dim() != 2:
         raise ValueError("values must be (K, C, V) and pa_count (K, NB)")
@@ -94,7 +94,7 @@ def preagg_window_cuda(values: torch.Tensor, ts: torch.Tensor,
                   for f in _ALL_FIELDS),
                 _build.stream_of(dev))
         _build.check(code, "preagg_window")
-        launches += 1
+        _build.count_launch(sys.modules[__name__])
     return out
 
 

@@ -7,6 +7,7 @@ kernel launches this process made.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -40,7 +41,6 @@ def window_agg_cuda(values: torch.Tensor, ts: torch.Tensor,
     More than ``_build.MAX_COLS`` columns take one launch per slice
     (:func:`_build.launch_slices`), each writing its part of the outputs.
     """
-    global launches
     dev = _build.require_cuda(values, "window_agg_cuda")
     if values.dim() != 3:
         raise ValueError(f"values must be (K, C, V), got {tuple(values.shape)}")
@@ -83,5 +83,5 @@ def window_agg_cuda(values: torch.Tensor, ts: torch.Tensor,
                   for f in _ALL_FIELDS),
                 _build.stream_of(dev))
         _build.check(code, "window_agg")
-        launches += 1
+        _build.count_launch(sys.modules[__name__])
     return out

@@ -1,21 +1,136 @@
-"""Serving runtime of the model tier: ``ModelServer`` (features or tokens
--> model decode steps; the second half of the paper's Figure 5 pipeline,
-"SQL features -> ML model") and ``hedged`` (straggler re-dispatch).
+"""Serving runtime: the feature engine and the model decode steps behind
+the serving front ends — the paper's online mode as a deployable server.
 
-The JAX package's ``FeatureServer`` needs the dynamic batcher and comes
-with the serving slice (ROADMAP Queue 1 item 7).
+* ``FeatureServer`` — OpenMLDB's role: per-request real-time feature
+  vectors from deployed SQL window queries (engine hot path), with the
+  dynamic batcher providing deadline/size batching and admission control,
+  and the table's streaming pipeline as its write path.
+* ``ModelServer`` — features (or tokens) -> model decode steps (the
+  second half of the paper's Figure 5 pipeline, "SQL features -> ML
+  model").
+* ``hedged`` — straggler re-dispatch: a request re-issued after a
+  deadline, so one slow attempt does not set the tail latency.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Any, Callable, Dict, List, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import DeploymentHandle, Engine
+from repro_torch.core.results import FeatureFrame, RequestContext
 from repro_torch.models.tree import tree_leaves
+from repro_torch.obs.trace import new_trace_id
+from repro_torch.serving.batcher import BatcherConfig, DynamicBatcher
 
-__all__ = ["ModelServer", "hedged"]
+__all__ = ["ServerConfig", "FeatureServer", "ModelServer", "hedged"]
+
+
+@dataclass(frozen=True)
+class ServerConfig:
+    batcher: BatcherConfig = BatcherConfig()
+    # batch buckets to warm at server construction (off the serving path)
+    warm_buckets: tuple = ()
+
+
+class FeatureServer:
+    """Online feature serving session over a deployed engine query.
+
+    Each dispatched batch resolves the deployment handle ONCE — together
+    with the batcher's version-pin grouping this guarantees a batch is
+    served end-to-end by a single deployment version, even while a
+    hot-swap redeploy publishes a new one mid-flight. A request may pin a
+    version explicitly via ``RequestContext(version_pin=...)`` (retired
+    versions keep serving pinned traffic, e.g. shadow replay).
+
+    When the deployment's table has a streaming pipeline attached (see
+    ``Engine.attach_stream``), the server also exposes the **write path**:
+    ``ingest`` stages an event into the watermark buffer and returns
+    immediately — it never blocks a concurrent ``request``, whose reads
+    come from atomically-published table snapshots.
+
+    The server uses only ``engine.handle(name, version=)``,
+    ``engine.streams``, ``engine.cache`` and the handle's ``request``, so
+    any engine with that surface can stand behind it."""
+
+    def __init__(self, engine: Engine, deployment: str,
+                 cfg: ServerConfig = ServerConfig()):
+        self.engine = engine
+        self.deployment = deployment
+        self.cfg = cfg
+        self._closed = False
+
+        def serve_batch(keys, ts, payloads, ctx=None):
+            handle = self._resolve(ctx)
+            return handle.request(keys, ts, payloads, ctx=ctx)
+
+        if cfg.warm_buckets and engine.cache.enabled:
+            engine.handle(deployment).warm(cfg.warm_buckets)
+        self.batcher = DynamicBatcher(serve_batch, cfg.batcher)
+
+    def _resolve(self, ctx: Optional[RequestContext]) -> DeploymentHandle:
+        """One handle per batch — the no-version-mixing pivot."""
+        if ctx is not None and ctx.version_pin is not None:
+            return self.engine.handle(self.deployment,
+                                      version=ctx.version_pin)
+        return self.engine.handle(self.deployment)
+
+    @property
+    def handle(self) -> DeploymentHandle:
+        """The currently-live deployment handle."""
+        return self.engine.handle(self.deployment)
+
+    @property
+    def pipeline(self):
+        """The table's attached IngestPipeline, or None."""
+        table = self.engine.handle(self.deployment).table
+        return self.engine.streams.get(table.schema.name)
+
+    def request(self, key, ts: float,
+                row: Optional[np.ndarray] = None,
+                timeout: float = 30.0,
+                ctx: Optional[RequestContext] = None) -> FeatureFrame:
+        # timeout is the client's give-up bound; per-request serving
+        # deadlines belong in ctx, which the batcher enforces
+        if ctx is None:
+            ctx = RequestContext()
+        if ctx.trace_id is None:
+            # every request is traceable: the id is generated at the
+            # serving edge when the caller didn't bring one
+            ctx = dataclasses.replace(ctx, trace_id=new_trace_id())
+        res = self.batcher(key, ts, row, timeout=timeout, ctx=ctx)
+        if isinstance(res, FeatureFrame):
+            res.trace_id = ctx.trace_id
+        return res
+
+    def ingest(self, key, ts: float, row: np.ndarray) -> bool:
+        """Non-blocking event ingestion (requires an attached stream).
+        Returns False iff the event was beyond the watermark (dropped)."""
+        pipe = self.pipeline
+        if pipe is None:
+            raise RuntimeError(
+                f"no stream attached to deployment {self.deployment!r}'s "
+                f"table; call Engine.attach_stream first")
+        return pipe.push(key, ts, row)
+
+    def close(self) -> None:
+        """Idempotent: closing via the context manager AND explicitly
+        neither leaks nor double-joins the dispatcher threads."""
+        if self._closed:
+            return
+        self._closed = True
+        self.batcher.close()
+
+    def __enter__(self) -> "FeatureServer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False
 
 
 class ModelServer:

@@ -1,4 +1,8 @@
-"""CUDA kernels against their plain PyTorch versions, on the card.
+"""CUDA kernels against their plain PyTorch versions, on the card, and
+the live-serving path on the card against the CPU (a streamed load, the
+execution modes, a hot swap under a request thread, the chunked
+pre-aggregate rebuild and compaction, first launches from several
+threads).
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 there is none. The file imports no JAX, so it runs on a GPU machine that
@@ -601,3 +605,237 @@ def test_attention_wrappers_reject_bad_inputs(card):
         ops.decode_attention(q[:, 0].contiguous(), k, k, lengths.long())
     with pytest.raises(ValueError, match="is on cpu"):
         ops.decode_attention(q[:, 0].contiguous(), k, k, lengths.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the live-serving path on the card: streamed ingest, hot swap, execution
+# modes, retention, and the kernels under several host threads
+# ---------------------------------------------------------------------------
+
+LIVE_SQL = """
+SELECT SUM(a) OVER w1 AS s1, MAX(b) OVER w1 AS mx1, LAST(c) OVER w1 AS l1,
+       COUNT(a) OVER w2 AS c2, AVG(b) OVER w2 AS a2, STD(a) OVER w1 AS sd1
+FROM events
+WINDOW w1 AS (PARTITION BY k ORDER BY ts
+              ROWS BETWEEN 10 PRECEDING AND CURRENT ROW),
+       w2 AS (PARTITION BY k ORDER BY ts
+              ROWS BETWEEN 40 PRECEDING AND CURRENT ROW)
+"""
+LIVE_EXACT = ("mx1", "l1", "c2")
+
+
+@pytest.fixture(scope="module")
+def live_source():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.streaming import StreamSource
+    src = StreamSource.from_config(EventStreamConfig(
+        n_events=3000, n_keys=48, n_features=3, seed=12))
+    return src.with_disorder(jitter=0.5, seed=2)
+
+
+def _live_engine(device, src, flags=None):
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.optimizer import OptFlags
+    from repro_torch.streaming import PipelineConfig
+    eng = Engine(flags or OptFlags(), device=device)
+    eng.create_table(TableSchema("events", "k", "ts", ("a", "b", "c")),
+                     max_keys=64, capacity=64, bucket_size=8)
+    pipe = eng.attach_stream("events", PipelineConfig(
+        lateness=0.5, flush_interval_s=0.001, max_flush_batch=512))
+    src.replay(pipe, batch_size=128)
+    pipe.flush()
+    assert pipe.last_error is None
+    eng.deploy("f", LIVE_SQL)
+    return eng
+
+
+def _live_requests(src, B=40, seed=3):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 52, B)                  # 48..51 unknown
+    ts = float(src.ts.max()) + 1.0 + np.arange(B, dtype=np.float32)
+    return keys.tolist(), ts.tolist()
+
+
+def _assert_frames(got, want, std_atol):
+    np.testing.assert_array_equal(got.status, want.status)
+    for c in want:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if c in LIVE_EXACT:
+            np.testing.assert_array_equal(g, w, err_msg=c)
+        else:
+            np.testing.assert_allclose(g, w, rtol=2e-4,
+                                       atol=std_atol if "sd" in c else 1e-4,
+                                       err_msg=c)
+
+
+def test_streamed_load_card_equals_cpu(live_source):
+    engines = {d: _live_engine(d, live_source) for d in ("cuda", "cpu")}
+    std_atol = 4e-4 * float(np.abs(live_source.rows[:, 0]).max())
+    a, b = (engines[d].tables["events"] for d in ("cuda", "cpu"))
+    assert sorted(a.key_to_idx) == sorted(b.key_to_idx)
+    # the flushes may differ in batching, so dense indices may differ
+    ia = torch.tensor([a.key_to_idx[k] for k in sorted(a.key_to_idx)])
+    ib = torch.tensor([b.key_to_idx[k] for k in sorted(b.key_to_idx)])
+    for f in ("values", "ts", "total"):
+        assert torch.equal(getattr(a.state, f).cpu()[ia],
+                           getattr(b.state, f)[ib]), f
+    keys, ts = _live_requests(live_source)
+    got, want = (engines[d].request("f", keys, ts) for d in ("cuda", "cpu"))
+    assert got.n_unknown > 0
+    _assert_frames(got, want, std_atol)
+    got, want = (engines[d].query_offline("f", batch_size=500)
+                 for d in ("cuda", "cpu"))
+    order = []
+    for res, t in ((got, a), (want, b)):
+        rev = {i: k for k, i in t.key_to_idx.items()}
+        orig = np.asarray([rev[int(i)] for i in res["__key"]])
+        order.append(np.lexsort((res["__ts"], orig)))
+    _assert_frames(_as_frame(got, order[0]), _as_frame(want, order[1]),
+                   std_atol)
+    for e in engines.values():
+        e.close()
+
+
+def _as_frame(d, order):
+    """An offline result as a frame, rows in ``order``."""
+    from repro_torch.core.results import FeatureFrame
+    return FeatureFrame({k: v[order] for k, v in d.items()
+                         if k == "__ts" or not k.startswith("__")},
+                        status=np.zeros(len(order), np.int8))
+
+
+def test_execution_modes_on_the_card_equal_batched(live_source):
+    from repro_torch.core.optimizer import OptFlags
+    std_atol = 4e-4 * float(np.abs(live_source.rows[:, 0]).max())
+    keys, ts = _live_requests(live_source, B=37)
+    base = _live_engine("cuda", live_source)
+    want = base.request("f", keys, ts)
+    base.close()
+    for flags in (OptFlags(parallel_workers=4), OptFlags(vectorized=False)):
+        eng = _live_engine("cuda", live_source, flags)
+        _assert_frames(eng.request("f", keys, ts), want, std_atol)
+        eng.close()
+
+
+def test_hot_swap_under_a_request_thread_mixes_no_versions(live_source):
+    import threading
+    eng = _live_engine("cuda", live_source)
+    keys, ts = _live_requests(live_source, B=16)
+    v1 = eng.request("f", keys, ts)
+    short = LIVE_SQL.replace("10 PRECEDING", "3 PRECEDING")
+    frames, errs = [], []
+    stop, running, got_v2 = (threading.Event(), threading.Event(),
+                             threading.Event())
+
+    def serve():
+        while not stop.is_set():
+            try:
+                fr = eng.request("f", keys, ts)
+            except Exception as e:                 # pragma: no cover
+                errs.append(e)
+                return
+            frames.append(fr)
+            running.set()
+            if fr.version == 2:
+                got_v2.set()
+
+    th = threading.Thread(target=serve)
+    th.start()
+    assert running.wait(60.0)
+    misses = eng.cache.stats.misses
+    eng.deploy("f", short)
+    assert got_v2.wait(60.0)
+    stop.set()
+    th.join(60.0)
+    assert not th.is_alive() and not errs
+    # the redeploy built one executor; serving v2 added no miss
+    assert eng.cache.stats.misses == misses + 1
+    v2 = eng.request("f", keys, ts)
+    for fr in frames:
+        want = v1 if fr.version == 1 else v2
+        assert fr.version in (1, 2)
+        for c in ("s1", "mx1", "l1"):
+            np.testing.assert_array_equal(fr[c], want[c], err_msg=c)
+    eng.close()
+
+
+def test_chunked_preagg_and_device_compaction_equal_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.featurestore import preagg
+    from repro_torch.streaming import compact_expired
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=20000, n_keys=300, n_features=3, seed=4))
+    tabs = {}
+    for d in ("cuda", "cpu"):
+        tabs[d] = Table(TableSchema("events", "k", "ts", ("a", "b", "c")),
+                        max_keys=320, capacity=64, bucket_size=8, device=d)
+        tabs[d].insert(keys.tolist(), ts.tolist(), rows)
+    chunk = 7 * 64 * 3                             # 7 keys a chunk: 46 chunks
+    g = preagg.rebuild_preagg(tabs["cuda"].state, bucket_size=8,
+                              chunk_elems=chunk)
+    w = preagg.rebuild_preagg(tabs["cpu"].state, bucket_size=8)
+    for f in ("min", "max", "count"):
+        assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
+    for f in ("sum", "sumsq"):
+        torch.testing.assert_close(getattr(g, f).cpu(), getattr(w, f),
+                                   rtol=2e-4, atol=2e-4)
+    ok, err = preagg.verify_preagg(tabs["cuda"].state, tabs["cuda"].preagg,
+                                   bucket_size=8, chunk_elems=chunk)
+    assert ok, err
+    cutoff = float(np.quantile(ts, 0.9))
+    gs, gp, gd = compact_expired(tabs["cuda"].state, cutoff=cutoff,
+                                 bucket_size=8, chunk_elems=chunk)
+    ws, wp, wd = compact_expired(tabs["cpu"].state, cutoff=cutoff,
+                                 bucket_size=8)
+    assert gd == wd > 0
+    for f in ("values", "ts", "total"):
+        assert torch.equal(getattr(gs, f).cpu(), getattr(ws, f)), f
+    for f in ("min", "max", "count"):
+        assert torch.equal(getattr(gp, f).cpu(), getattr(wp, f)), f
+    ok, err = preagg.verify_preagg(gs, gp, bucket_size=8)
+    assert ok, err
+
+
+def test_concurrent_first_launches_build_once_and_count_all(table,
+                                                            monkeypatch):
+    import threading
+    digests = []
+    real_digest = _build._digest
+
+    def counting_digest(files):
+        digests.append(1)
+        return real_digest(files)
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_digest", counting_digest)
+    _build.function.cache_clear()      # the launch functions look it up
+    key, rts = _requests(table, 64, False)
+    st = table.state
+    before = window_agg.launches
+    barrier = threading.Barrier(4)
+    outs, errs = [], []
+
+    def launch():
+        barrier.wait(60.0)
+        try:
+            for _ in range(50):
+                outs.append(ops.window_agg(st.values, st.ts, st.total, key,
+                                           rts, rows_preceding=5))
+        except Exception as e:                     # pragma: no cover
+            errs.append(e)
+
+    threads = [threading.Thread(target=launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    torch.cuda.synchronize()
+    assert not errs and len(outs) == 200
+    assert len(digests) == 1                       # one build-and-load
+    assert window_agg.launches == before + 200
+    want = ref.window_agg_ref(st.values, st.ts, st.total, key, rts,
+                              rows_preceding=5)
+    for out in outs[::17]:
+        _assert_same(out, want)

@@ -289,10 +289,3 @@ def test_cuda_engine_raises_without_cuda(monkeypatch):
         Engine(OptFlags())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(OptFlags(), device="cuda:0")
-
-
-def test_unported_execution_modes_raise():
-    with pytest.raises(NotImplementedError):
-        Engine(OptFlags(parallel_workers=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(OptFlags(vectorized=False), device="cpu")

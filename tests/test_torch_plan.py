@@ -122,13 +122,6 @@ def test_main_path_window_impls_and_launches(name):
     assert f"kernel launches/batch: {launches}" in t.explain(name)
 
 
-def test_redeploy_is_refused():
-    t = _engine(Engine, OptFlags, TableSchema, {}, device="cpu")
-    t.deploy("f", SERVE_FEATURES)
-    with pytest.raises(ValueError, match="not ported"):
-        t.deploy("f", SERVE_FEATURES)
-
-
 _ARGS = {"x": np.asarray([-2.5, -0.5, 0.0, 0.25, 3.0], np.float32),
          "y": np.asarray([1.0, 0.0, 2.0, -1.0, 0.5], np.float32),
          "z": np.asarray([0.0, 3.0, 1.0, 4.0, 2.0], np.float32)}

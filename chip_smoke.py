@@ -55,18 +55,33 @@ then:
    while ``FeatureServer.ingest`` streams events (per-request p50/p99, QPS,
    mean batch). Each of these paths resets the launch counters before it
    runs and asserts after it that its kernels launched;
-9. holds the two attention kernels against their plain versions, bf16 and
+9. with that engine closed, the same node on four shards of the card
+   (``repro_torch.shard.ShardedEngine``; ``merchants`` replicated): the
+   same events through ``ShardedEngine.insert`` (load seconds and its
+   copy-on-write clones), frames of fixed B=100 and B=500 request sets
+   bit-identical to the unsharded engine's (captured right after step
+   7) and ``query_offline`` equal after sorting by (key, ts); batch
+   p50/p99 at B=100 and B=500 beside the unsharded ones, launches per
+   batch (= dispatches x the plan's launches), the shard engines' own
+   serve and exec ms, the coalescing wait's share and the device's busy
+   share; ``add_shard`` then ``remove_shard(0)`` under a serving thread
+   (every batch wholly served or wholly shed, never raised; served rows
+   of keys that never wrapped their rings bit-identical to the
+   reference, the rest within the port's tolerances, during the reshard
+   and after it); a FeatureServer round of 6
+   clients; peak device memory;
+10. holds the two attention kernels against their plain versions, bf16 and
    f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
    lengths, query counts around the 64-row tiles; decode in prefix mode
    with and without a window, at lengths around its split edges, past
    the cache, and in ring mode past the window): ``rtol = atol = 2e-2``
    in bf16, ``2e-5`` in f32;
-10. holds ``ModelServer`` for qwen2-1.5b on the card against the same
+11. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
    ``1e-4`` with equal greedy tokens, bf16 logits within a relative L2 of
    ``2e-2``;
-11. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
+12. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
    width and depth (bf16, random seeded weights), 16 slots, a 1024-long
    cache: 8 prompts of 512, 32 decode steps, 8 prompts of 384, 128 decode
    steps; asserts finite logits and that both attention kernels' launch
@@ -74,7 +89,7 @@ then:
    tokens/s, peak device memory and the device-busy share of one decode
    step; then times each attention kernel, its plain version and
    ``scaled_dot_product_attention`` on the main path's arguments;
-12. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
+13. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -187,6 +202,9 @@ class Sizes:
     server_events: int = 20_000  # of those, for FeatureServer.ingest
     server_clients: tuple = (6, 12)   # the paper's 6-12 parallel requests
     server_requests: int = 200   # per client
+    shards: int = 4              # the sharded fraud node
+    shard_batches: int = 100     # per deployment and batch size
+    shard_server_requests: int = 100   # per client, 6 clients
 
 
 def log(msg: str) -> None:
@@ -250,10 +268,18 @@ def fill_merchants(eng, ts: np.ndarray, sz: Sizes) -> None:
 
 def deploy_all(eng, model_params) -> None:
     """The three deployments; PREDICT is a logistic scorer over
-    standardised features with seeded random weights."""
+    standardised features with seeded random weights. Its dot product is
+    summed column by column, so a row's score does not depend on the
+    batch it came in: a matrix product's rounding does (the BLAS picks
+    its blocking by shape), and a sharded node serves each row in a
+    sub-batch of another size than the unsharded one."""
     def scorer(p, feats):
         mu, sd, w, b = p
-        return torch.sigmoid(((feats - mu) / sd) @ w + b)
+        z = (feats - mu) / sd * w
+        acc = b + z[:, 0]
+        for j in range(1, z.shape[1]):
+            acc = acc + z[:, j]
+        return torch.sigmoid(acc)
 
     eng.register_model("fraud", scorer, model_params)
     for name, sql in DEPLOYMENTS.items():
@@ -1486,6 +1512,392 @@ def feature_server(eng, pipe, keys, sz: Sizes, t_req: float, ingest_src
     return report
 
 
+# ---------------------------------------------------------------------------
+# the sharded fraud node: repro_torch.shard at the node's full size
+# ---------------------------------------------------------------------------
+
+def _np_frame(fr) -> Dict[str, np.ndarray]:
+    cols = {c: np.asarray(v).copy() for c, v in fr.items()}
+    cols["__status"] = np.asarray(fr.status).copy()
+    return cols
+
+
+def _sorted_offline(res: Dict[str, np.ndarray], names
+                    ) -> Dict[str, np.ndarray]:
+    """An offline result with real keys, rows ordered by (key, ts)."""
+    order = np.lexsort((res["__ts"], res["__key"]))
+    return {c: np.asarray(res[c])[order] for c in
+            list(names) + ["__key", "__ts"]}
+
+
+def shard_reference(eng, keys, ts, rows, sz: Sizes) -> Dict[str, object]:
+    """What the sharded node is held to, captured from the unsharded card
+    engine before anything changes its tables or deployments: the frames
+    of fixed B=100 and B=500 request sets of each deployment, each
+    deployment's ``query_offline`` with real keys, and which keys had
+    wrapped their rings. Kept as numpy, so the unsharded engine can be
+    freed before the shards are built."""
+    table = eng.tables["events"]
+    sets, frames, offline = {}, {}, {}
+    for name in DEPLOYMENTS:
+        for B in sz.batches:
+            req = next(request_batches(keys, ts, rows, B, 1, seed=300 + B))
+            sets[(name, B)] = req
+            frames[(name, B)] = _np_frame(eng.request(name, req[0], req[1],
+                                                      rows=req[2]))
+    inv = np.empty(table.n_keys, np.int64)
+    for k, i in table.key_to_idx.items():
+        inv[i] = k
+    t0 = time.perf_counter()
+    for name in DEPLOYMENTS:
+        res = eng.query_offline(name)
+        res["__key"] = inv[np.asarray(res["__key"])]
+        offline[name] = _sorted_offline(
+            res, eng.handle(name).phys.feature_names)
+    offline_s = time.perf_counter() - t0
+    totals = table.snapshot().state.total.cpu().numpy()[:table.n_keys]
+    wrapped = set(inv[totals > sz.capacity].tolist())
+    log(f"shard reference: {len(sets)} request sets, offline "
+        f"{[len(o['__key']) for o in offline.values()]} rows in "
+        f"{offline_s:.3f} s; {len(wrapped)} keys wrapped their rings")
+    return {"sets": sets, "frames": frames, "offline": offline,
+            "wrapped": wrapped, "offline_s": offline_s}
+
+
+def _check_sharded(fr, want, what: str, std_atol: float,
+                   sc_atol: float) -> float:
+    """A sharded frame against the unsharded reference: the same status,
+    every row of a key that never wrapped its ring bit for bit, and the
+    rows of wrapped keys exact for counts/min/max/last/joins and within
+    the port's tolerances for sums (a reshard moves a wrapped key to
+    other ring positions, so its buckets group other events). Returns
+    the largest difference on wrapped keys' rows."""
+    st = np.asarray(fr.status)
+    if not np.array_equal(st, want["__status"]):
+        raise AssertionError(f"{what}: status differs")
+    got = {c: np.asarray(v) for c, v in fr.items()}
+    cols = [c for c in want if c not in ("__status", "__wrapped")]
+    if sorted(got) != sorted(cols):
+        raise AssertionError(f"{what}: columns {sorted(got)} != {cols}")
+    w_rows = want["__wrapped"]
+    exact = ~w_rows
+    for c in cols:
+        if not np.array_equal(got[c][exact], want[c][exact]):
+            raise AssertionError(f"{what}: column {c} differs on a key "
+                                 f"that never wrapped its ring")
+    if not w_rows.any():
+        return 0.0
+    compare_frames({c: got[c][w_rows] for c in cols},
+                   {c: want[c][w_rows] for c in cols}, what, std_atol,
+                   sc_atol)
+    return max(float(np.abs(got[c][w_rows].astype(np.float64)
+                            - want[c][w_rows]).max()) for c in cols)
+
+
+def sharded_node(ref: Dict[str, object], unsharded: Dict[str, dict],
+                 sz: Sizes, device) -> Dict[str, object]:
+    """The fraud node on ``sz.shards`` shards of one card
+    (``repro_torch.shard.ShardedEngine``) at its full size: the same
+    2,000,000 events through ``ShardedEngine.insert`` (copy-on-write:
+    one clone of a shard's table per ``capacity`` events), the three
+    deployments, frames and ``query_offline`` equal to the unsharded
+    engine's; batch p50/p99 at B=100 and B=500 beside the unsharded
+    ones, launches per batch and the device's busy share; ``add_shard``
+    then ``remove_shard(0)`` under a serving thread; a FeatureServer
+    round of 6 clients. Raises on any failure."""
+    import threading
+    from repro_torch.core.results import STATUS_SHED
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    from repro_torch.featurestore.table import TableSchema
+    from repro_torch.serving import BatcherConfig, FeatureServer, ServerConfig
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    _sync_card()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    out: Dict[str, object] = {}
+    se = ShardedEngine(ShardConfig(n_shards=sz.shards), device=device)
+    se.create_table(TableSchema("events", key_col="user", ts_col="ts",
+                                value_cols=("amount", "lat", "lon",
+                                            "merchant")),
+                    max_keys=sz.keys, capacity=sz.capacity,
+                    bucket_size=sz.bucket)
+    se.create_table(TableSchema("merchants", key_col="merchant",
+                                ts_col="mts", value_cols=("risk", "volume")),
+                    max_keys=sz.merchants, capacity=64, bucket_size=8,
+                    replicate=True)
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=sz.events, n_keys=sz.keys, n_features=4, seed=0))
+    per_shard = np.bincount(se.owners_of(keys), minlength=sz.shards)
+    clones = int(sum(-(-int(n) // sz.capacity) for n in per_shard))
+    shard_bytes = se.tables_of("events")[0].memory_bytes()
+    _sync_card()
+    t0 = time.perf_counter()
+    se.insert("events", keys, ts, rows)
+    _sync_card()
+    load_s = time.perf_counter() - t0
+    fill_merchants(se, ts, sz)
+    deploy_all(se, scorer_params(rows, device))
+    tabs = se.tables_of("events")
+    out["load"] = {
+        "seconds": load_s, "events_per_s": sz.events / load_s,
+        "events_per_shard": per_shard.tolist(), "clones": clones,
+        "shard_table_bytes": shard_bytes,
+        "clone_bytes_moved": 2 * clones * shard_bytes,
+        "clone_bound_s": 2 * clones * shard_bytes / HBM_BYTES_PER_S,
+        "keys_per_shard": [t.n_keys for t in tabs],
+        "per_shard_max_keys": tabs[0].max_keys}
+    log(f"sharded load: {sz.events} events into {sz.shards} shards in "
+        f"{load_s:.3f} s ({sz.events / load_s:.1f} events/s); {clones} "
+        f"copy-on-write clones of {shard_bytes} bytes (bound "
+        f"{out['load']['clone_bound_s']:.3f} s at the data sheet's rate); "
+        f"{out['load']}")
+    log(se.explain("fraud_scored"))
+    std_atol = 4e-4 * float(np.abs(rows[:, 0]).max())
+    sc_atol = score_atol(rows, std_atol)
+    wrapped = ref["wrapped"]
+    for (name, B), want in ref["frames"].items():
+        want["__wrapped"] = np.isin(ref["sets"][(name, B)][0],
+                                    list(wrapped))
+
+    def check_all(what: str) -> float:
+        worst = 0.0
+        for (name, B), (rk, rts, rr) in ref["sets"].items():
+            fr = se.request(name, rk, rts, rows=rr)
+            worst = max(worst, _check_sharded(
+                fr, ref["frames"][(name, B)], f"{what} {name} B={B}",
+                std_atol, sc_atol))
+        return worst
+
+    # ---- equal to the unsharded card engine: online, bit for bit --------
+    for (name, B), (rk, rts, rr) in ref["sets"].items():
+        fr = se.request(name, rk, rts, rows=rr)
+        want = ref["frames"][(name, B)]
+        if len(fr.version_vector) != sz.shards:
+            raise AssertionError(f"sharded {name}: version vector "
+                                 f"{fr.version_vector}")
+        for c in want:
+            got = (np.asarray(fr.status) if c == "__status" else
+                   None if c == "__wrapped" else np.asarray(fr[c]))
+            if got is not None and not np.array_equal(got, want[c]):
+                raise AssertionError(f"sharded {name} B={B}: {c} differs "
+                                     f"from the unsharded card engine")
+    log(f"sharded == unsharded, bit for bit: {len(ref['sets'])} request "
+        f"sets (B={list(sz.batches)})")
+    # ---- offline ----------------------------------------------------------
+    t0 = time.perf_counter()
+    for name in DEPLOYMENTS:
+        res = se.query_offline(name)
+        vv = res["__version_vector"]
+        got = _sorted_offline(res, se.handle(name).phys.feature_names)
+        want = ref["offline"][name]
+        for c in want:
+            if not np.array_equal(got[c], want[c]):
+                raise AssertionError(f"sharded offline {name}: {c} differs")
+        if len(vv) != sz.shards:
+            raise AssertionError(f"sharded offline {name}: version vector "
+                                 f"{vv}")
+    out["offline_s"] = time.perf_counter() - t0
+    log(f"sharded query_offline == unsharded (sorted by key, ts), three "
+        f"deployments in {out['offline_s']:.3f} s (unsharded "
+        f"{ref['offline_s']:.3f} s); version vector {vv.tolist()}")
+    # ---- serving ----------------------------------------------------------
+    plan = {}
+    for name in DEPLOYMENTS:       # one shard-level executor call each
+        reset_launch_counts()
+        rk, rts, rr = ref["sets"][(name, sz.batches[0])]
+        se.shards[0].handle(name).request(rk[:4], rts[:4], rows=rr[:4])
+        plan[name] = {k: v for k, v in launch_counts().items() if v}
+    report: Dict[str, dict] = {}
+    reset_launch_counts()
+    for name in DEPLOYMENTS:
+        for B in sz.batches:
+            lat: List[float] = []
+            d0 = se.router.stats()["dispatches"]
+            c0 = launch_counts()
+            e0 = [e.stats.snapshot() for e in se.shards]
+            reached = 0
+            t0 = time.perf_counter()
+            for rk, rts, rr in request_batches(keys, ts, rows, B,
+                                               sz.shard_batches, seed=B):
+                reached += len(np.unique(se.owners_of(rk)))
+                t1 = time.perf_counter()
+                fr = se.request(name, rk, rts, rows=rr)
+                lat.append(time.perf_counter() - t1)
+                check_frame(fr, name, B)
+            wall = time.perf_counter() - t0
+            # the shard engines' own clocks: serve (request to frame) and
+            # exec (executor to device sync), summed over a batch's
+            # sub-batches; the rest of the batch is the router's
+            e1 = [e.stats.snapshot() for e in se.shards]
+            eng_ms = {f: sum(b[f] - a[f] for a, b in zip(e0, e1))
+                      / sz.shard_batches * 1e3 for f in ("serve_s",
+                                                         "exec_s")}
+            disp = se.router.stats()["dispatches"] - d0
+            got = {k: v - c0[k] for k, v in launch_counts().items()}
+            want = {k: disp * n for k, n in plan[name].items()}
+            # a lane dispatches each shard's sub-batch (more than one
+            # when a sub-batch outgrows dispatch_rows), and each dispatch
+            # launches the plan's kernels once
+            if disp < reached or any(got[k] != want[k] for k in want):
+                raise AssertionError(
+                    f"sharded {name} B={B}: {disp} dispatches for "
+                    f"{reached} shard sub-batches, launches {got} != "
+                    f"{want}")
+            ms = np.asarray(lat) * 1e3
+            key = f"{name}/B={B}"
+            report[key] = {
+                "requests_per_s": B * sz.shard_batches / wall,
+                "batch_p50_ms": float(np.percentile(ms, 50)),
+                "batch_p99_ms": float(np.percentile(ms, 99)),
+                "unsharded_p50_ms": unsharded[key]["batch_p50_ms"],
+                "unsharded_p99_ms": unsharded[key]["batch_p99_ms"],
+                "shards_reached_per_batch": reached / sz.shard_batches,
+                "dispatches_per_batch": disp / sz.shard_batches,
+                "shard_serve_ms_per_batch": eng_ms["serve_s"],
+                "shard_exec_ms_per_batch": eng_ms["exec_s"],
+                "launches_per_batch": {k: v / sz.shard_batches
+                                       for k, v in want.items()}}
+            log(f"sharded serve {key}: batch p50 "
+                f"{report[key]['batch_p50_ms']:.4f} ms, p99 "
+                f"{report[key]['batch_p99_ms']:.4f} ms (unsharded "
+                f"{report[key]['unsharded_p50_ms']:.4f} / "
+                f"{report[key]['unsharded_p99_ms']:.4f}); "
+                f"{report[key]['requests_per_s']:.1f} req/s; shard "
+                f"engines' serve {eng_ms['serve_s']:.4f} ms and exec "
+                f"{eng_ms['exec_s']:.4f} ms per batch; shards "
+                f"reached per batch {reached / sz.shard_batches:.2f}, "
+                f"launches per batch {report[key]['launches_per_batch']}")
+    out["launches"] = require_launches(KERNELS, "the sharded serve phase")
+    # the lanes' coalescing wait: the same batches without it
+    prev = se.router.set_coalesce_delay(0.0)
+    for name in ("serve_features",):
+        B = sz.batches[-1]
+        lat = []
+        for rk, rts, rr in request_batches(keys, ts, rows, B,
+                                           sz.shard_batches, seed=B):
+            t1 = time.perf_counter()
+            check_frame(se.request(name, rk, rts, rows=rr), name, B)
+            lat.append(time.perf_counter() - t1)
+        report[f"{name}/B={B}"]["no_coalesce_wait"] = _pcts(lat)
+        log(f"sharded serve {name}/B={B} with coalesce_delay_s=0: "
+            f"{_pcts(lat)}")
+    se.router.set_coalesce_delay(prev)
+    out["serve"] = report
+    out["busy"] = (device_busy(se, keys, ts, rows, sz, report)
+                   if device != "cpu" else {})
+    # ---- elastic reshard under a serving thread -----------------------------
+    stop, errors = threading.Event(), []
+    seen = {"ok": 0, "shed": 0, "worst_wrapped_diff": 0.0}
+    started = threading.Event()
+    small = [(n, B) for (n, B) in ref["sets"] if B == min(sz.batches)]
+
+    def serve():
+        i = 0
+        try:
+            while not stop.is_set():
+                name, B = small[i % len(small)]
+                i += 1
+                rk, rts, rr = ref["sets"][(name, B)]
+                fr = se.request(name, rk, rts, rows=rr)
+                st = np.asarray(fr.status)
+                if (st == STATUS_SHED).all():
+                    seen["shed"] += 1
+                elif (st == STATUS_SHED).any():
+                    raise AssertionError(f"reshard: a mixed batch {st}")
+                else:
+                    d = _check_sharded(fr, ref["frames"][(name, B)],
+                                       f"reshard {name}", std_atol,
+                                       sc_atol)
+                    seen["worst_wrapped_diff"] = max(
+                        seen["worst_wrapped_diff"], d)
+                    seen["ok"] += 1
+                started.set()
+        except BaseException as e:          # raised again below
+            errors.append(e)
+            started.set()
+
+    th = threading.Thread(target=serve, name="reshard-serve")
+    th.start()
+    try:
+        if not started.wait(300.0):
+            raise AssertionError("reshard: the serving thread stalled")
+        t0 = time.perf_counter()
+        s_new = se.add_shard()
+        add_ms = (time.perf_counter() - t0) * 1e3
+        counts = se._routing.shard_counts()
+        t0 = time.perf_counter()
+        moved = se.remove_shard(0)
+        remove_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        stop.set()
+        th.join(600.0)
+    if errors:
+        raise errors[0]
+    if th.is_alive() or seen["ok"] == 0:
+        raise AssertionError(f"reshard: serving thread {seen}")
+    after = check_all("after the reshard")
+    out["reshard"] = {
+        "add_shard_ms": add_ms, "remove_shard_ms": remove_ms,
+        "new_shard": s_new, "arcs_after_add": counts,
+        "events_moved_by_remove": moved, "n_shards": se.n_shards,
+        "batches_ok": seen["ok"], "batches_shed": seen["shed"],
+        "worst_wrapped_diff_during": seen["worst_wrapped_diff"],
+        "worst_wrapped_diff_after": after,
+        "keys_per_shard": [t.n_keys for t in se.tables_of("events")]}
+    log(f"reshard under a serving thread: add_shard {add_ms:.3f} ms "
+        f"(arcs {counts}), remove_shard(0) {remove_ms:.3f} ms ({moved} "
+        f"events moved); {seen['ok']} batches checked, {seen['shed']} "
+        f"shed; largest difference on wrapped keys' rows "
+        f"{seen['worst_wrapped_diff']} during, {after} after")
+    # ---- FeatureServer over the sharded engine ------------------------------
+    srv = FeatureServer(se, "serve_features", ServerConfig(BatcherConfig(
+        max_batch=64, max_delay_s=0.002)))
+    lat: List[float] = []
+    errs: List[BaseException] = []
+    n_clients = 6
+    barrier = threading.Barrier(n_clients + 1)
+    t_req = float(ts.max()) + 1.0
+
+    def client(c):
+        rng = np.random.default_rng(500 + c)
+        try:
+            barrier.wait(300.0)
+            for j in range(sz.shard_server_requests):
+                k = int(keys[rng.integers(0, len(keys))])
+                t1 = time.perf_counter()
+                fr = srv.request(k, t_req + j, timeout=300.0)
+                lat.append(time.perf_counter() - t1)
+                check_frame(fr, "sharded FeatureServer", 1)
+        except BaseException as e:        # raised again below
+            errs.append(e)
+
+    b0 = dict(srv.batcher.stats)
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for t in clients:
+        t.start()
+    barrier.wait(300.0)
+    t0 = time.perf_counter()
+    for t in clients:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    srv.close()
+    if errs:
+        raise errs[0]
+    st = srv.batcher.stats
+    nb = st["batches"] - b0["batches"]
+    out["server"] = dict(_pcts(lat), qps=len(lat) / wall,
+                         requests=len(lat), clients=n_clients,
+                         mean_batch=(st["sum_batch"] - b0["sum_batch"])
+                         / max(nb, 1))
+    log(f"sharded FeatureServer {n_clients} clients: {out['server']}")
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if device != "cpu" else 0)
+    log(f"sharded phase peak device memory {out['peak_bytes']} bytes")
+    se.close()
+    return out
+
+
 def setup(device, sz: Sizes, workers: int = 1):
     """One node at production key space: the engine with its tables
     filled and the three deployments, and the events it ingested."""
@@ -1546,6 +1958,9 @@ def run(device, sz: Sizes) -> Dict[str, object]:
         f"engine stats over the serve phase: {stats}")
     busy = device_busy(eng, keys, ts, rows, sz, report) \
         if device != "cpu" else {}
+    # before the hot swap redeploys serve_features and the stream adds
+    # events: what the sharded node must equal
+    shard_ref = shard_reference(eng, keys, ts, rows, sz)
 
     # ---- the live path: modes, hot swap, stream, FeatureServer ------------
     modes = execution_modes(eng, keys, ts, rows, sz)
@@ -1567,7 +1982,7 @@ def run(device, sz: Sizes) -> Dict[str, object]:
     return {"kernels": kernels, "serve": report, "ingest_s": ingest_s,
             "peak_bytes": peak, "engine_stats": stats, "busy": busy,
             "calls": calls, "live": live, "modes": modes, "swap": swap,
-            "stream": stream, "server": server}
+            "stream": stream, "server": server, "shard_ref": shard_ref}
 
 
 # ---------------------------------------------------------------------------
@@ -2078,11 +2493,14 @@ def main() -> int:
         return 0
     res = run("cuda", Sizes())
     torch.cuda.empty_cache()
+    shard = sharded_node(res.pop("shard_ref"), res["serve"], Sizes(), "cuda")
+    torch.cuda.empty_cache()
     mres = run_model("cuda", ModelSizes())
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
                                         "server")}))
+    log(json.dumps({"sharded": shard}))
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))
     log(card)

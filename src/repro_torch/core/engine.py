@@ -324,8 +324,17 @@ class DeploymentHandle:
     # --------------------------------------------------------------- serve
     def request(self, keys: Sequence, ts: Sequence[float],
                 rows: Optional[np.ndarray] = None,
-                ctx: Optional[RequestContext] = None) -> FeatureFrame:
-        """Serve a batch of online feature requests on THIS version."""
+                ctx: Optional[RequestContext] = None,
+                n_live: Optional[int] = None) -> FeatureFrame:
+        """Serve a batch of online feature requests on THIS version.
+
+        ``n_live`` marks how many leading rows are real when the caller
+        edge-padded the batch to a shape bucket (the shard lanes repeat
+        the last row). Every row is served as usual; only the frame's
+        ``feature_age`` reads the live rows alone. (In the JAX package
+        it also trims the freshness, drift and flight observations,
+        which come to the port with its observability, ROADMAP Queue 1
+        item 6.)"""
         if ctx is not None and ctx.expired:
             raise DeadlineExceeded(
                 f"deadline expired before serving {self.tag}")
@@ -343,12 +352,12 @@ class DeploymentHandle:
             if int(n * frac) > int((n - 1) * frac):
                 cand = cand_handle
         if cand is None:
-            return self._serve(keys, ts, rows, ctx)
+            return self._serve(keys, ts, rows, ctx, n_live=n_live)
         # canary slice: the new version serves the batch; the incumbent
         # computes the same batch as reference and the divergence is
         # recorded on the candidate (promote/rollback evidence)
-        base = self._serve(keys, ts, rows, ctx)
-        new = cand._serve(keys, ts, rows, ctx)
+        base = self._serve(keys, ts, rows, ctx, n_live=n_live)
+        new = cand._serve(keys, ts, rows, ctx, n_live=n_live)
         diff = 0.0
         for nme, v in new.columns.items():
             ref = base.columns.get(nme)
@@ -371,10 +380,12 @@ class DeploymentHandle:
 
     def _serve(self, keys: Sequence, ts: Sequence[float],
                rows: Optional[np.ndarray],
-               ctx: Optional[RequestContext] = None) -> FeatureFrame:
+               ctx: Optional[RequestContext] = None,
+               n_live: Optional[int] = None) -> FeatureFrame:
         eng = self.engine
         table = self.table
         B = len(keys)
+        nl = B if n_live is None else max(0, min(int(n_live), B))
         trace = ctx.trace_id if ctx is not None else None
         if B == 0:
             return FeatureFrame(
@@ -455,8 +466,8 @@ class DeploymentHandle:
         eng.stats.add(serve_s=wall,
                       host_s=max(wall - exec_dt - plan_dt, 0.0))
         wm = snap.watermark
-        batch_age = (float((ts_arr.astype(np.float64) - wm).max())
-                     if np.isfinite(wm) else None)
+        batch_age = (float((ts_arr[:nl].astype(np.float64) - wm).max())
+                     if nl and np.isfinite(wm) else None)
         return FeatureFrame(
             out, status=status, deployment=self.name, version=self.version,
             table_version=snap.version,

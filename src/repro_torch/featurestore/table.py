@@ -149,6 +149,64 @@ def _batch_seq_numbers(key_idx: torch.Tensor) -> torch.Tensor:
     return (same & lower).sum(1)
 
 
+def _to_host(t: torch.Tensor):
+    """A device tensor's copy into pinned host memory, queued on the
+    current stream (read it after the stream is synchronized); a CPU
+    tensor as it is."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, copied from pinned memory without
+    blocking the host on the card."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _fold_sums(preagg: PreAggState, kl: torch.Tensor, bslot: torch.Tensor,
+               vals: torch.Tensor) -> None:
+    """Add each row into its bucket's sum and sumsq, the rows of one
+    bucket slot in arrival order: ``((s + v1) + v2) + ...``.
+
+    A single ``index_put_(accumulate=True)`` folds duplicate indices in
+    order on the CPU but not on the card, where a bucket's sum would then
+    depend on how its events were split into insert batches (a sharded
+    table splits them differently from an unsharded one). Here the
+    touched slots' sums and the rows come to the host in one synchronized
+    copy, numpy adds the rows to them one rank per pass (float32, so each
+    step rounds as the device would), and the results go back in one
+    write. The tier is then a function of each key's events alone, on
+    both devices. The one wait for the device lets another host thread
+    run once per insert, not once per copy."""
+    K, nb, V = preagg.sum.shape
+    s, q = preagg.sum.view(K * nb, V), preagg.sumsq.view(K * nb, V)
+    flat = kl * nb + bslot
+    host = [_to_host(t) for t in (flat, vals, s[flat], q[flat])]
+    if flat.device.type == "cuda":
+        torch.cuda.current_stream(flat.device).synchronize()
+    f, v, cur_s, cur_q = (t.numpy() for t in host)
+    slots, first, inv = np.unique(f, return_index=True, return_inverse=True)
+    out_s, out_q = cur_s[first], cur_q[first]
+    vq = v * v
+    order = np.argsort(inv, kind="stable")
+    start = np.searchsorted(inv[order], np.arange(len(slots)))
+    rank = np.empty(len(f), np.int64)
+    rank[order] = np.arange(len(f)) - start[inv[order]]
+    for r in range(int(rank.max()) + 1 if len(f) else 0):
+        rows = np.flatnonzero(rank == r)
+        out_s[inv[rows]] += v[rows]
+        out_q[inv[rows]] += vq[rows]
+    idx = _to_device(slots, s.device)
+    s[idx] = _to_device(out_s, s.device)
+    q[idx] = _to_device(out_q, q.device)
+
+
 def ingest(state: TableState, preagg: Optional[PreAggState],
            key_idx: torch.Tensor, ts: torch.Tensor, vals: torch.Tensor,
            *, bucket_size: int = 0) -> None:
@@ -159,8 +217,8 @@ def ingest(state: TableState, preagg: Optional[PreAggState],
 
     Maintains the raw ring buffer and (if ``preagg`` given) the bucketed
     pre-aggregate tier. Several events of one key in a batch take
-    consecutive positions; the tiers accumulate them with duplicate-index
-    adds, mins and maxes.
+    consecutive positions; the tier folds them into their buckets in
+    arrival order (``_fold_sums``) and takes mins and maxes.
     """
     C, K = state.capacity, state.max_keys
     kl = key_idx.long()
@@ -184,8 +242,7 @@ def ingest(state: TableState, preagg: Optional[PreAggState],
     preagg.min[rk, rb] = POS_INF
     preagg.max[rk, rb] = NEG_INF
     preagg.count[rk, rb] = 0.0
-    preagg.sum.index_put_((kl, bslot), vals, accumulate=True)
-    preagg.sumsq.index_put_((kl, bslot), vals * vals, accumulate=True)
+    _fold_sums(preagg, kl, bslot, vals)
     preagg.count.index_put_((kl, bslot),
                             torch.ones_like(ts), accumulate=True)
     flat = (kl * nb + bslot)[:, None].expand_as(vals)

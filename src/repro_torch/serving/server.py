@@ -33,6 +33,9 @@ __all__ = ["ServerConfig", "FeatureServer", "ModelServer", "hedged"]
 @dataclass(frozen=True)
 class ServerConfig:
     batcher: BatcherConfig = BatcherConfig()
+    # straggler re-dispatch: re-issue a request that has not returned
+    # after this many seconds and take the first answer (``hedged``)
+    hedge_after_s: Optional[float] = None
     # batch buckets to warm at server construction (off the serving path)
     warm_buckets: tuple = ()
 
@@ -55,7 +58,10 @@ class FeatureServer:
 
     The server uses only ``engine.handle(name, version=)``,
     ``engine.streams``, ``engine.cache`` and the handle's ``request``, so
-    any engine with that surface can stand behind it."""
+    any engine with that surface can stand behind it: a
+    ``repro_torch.shard.ShardedEngine`` too, whose handle admits and
+    scatters each batch across the shards and whose stream facade routes
+    ``ingest`` to the owning shard's pipeline."""
 
     def __init__(self, engine: Engine, deployment: str,
                  cfg: ServerConfig = ServerConfig()):
@@ -102,7 +108,11 @@ class FeatureServer:
             # every request is traceable: the id is generated at the
             # serving edge when the caller didn't bring one
             ctx = dataclasses.replace(ctx, trace_id=new_trace_id())
-        res = self.batcher(key, ts, row, timeout=timeout, ctx=ctx)
+        call = lambda: self.batcher(key, ts, row, timeout=timeout, ctx=ctx)
+        if self.cfg.hedge_after_s is not None:
+            res = hedged(call, self.cfg.hedge_after_s)
+        else:
+            res = call()
         if isinstance(res, FeatureFrame):
             res.trace_id = ctx.trace_id
         return res

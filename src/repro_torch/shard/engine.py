@@ -1,0 +1,1233 @@
+"""ShardedEngine: horizontal scale-out behind the single-engine API.
+
+DESIGN.md §9/§11. N key-hash-partitioned **shard engines** — each a full
+:class:`repro_torch.core.engine.Engine` with its own tables, key
+directory, plan cache and (when streams are attached) ingest pipeline
+with its own watermarks — behind the familiar ``create_table / insert /
+attach_stream / deploy / request / query_offline`` surface.
+
+The shard engines live in this process. Every shard's tables sit on the
+device the caller asks for (``ShardedEngine(device=...)``, ``"cuda"`` by
+default, raising where CUDA is absent); with ``ShardConfig.pin_devices``
+and more than one CUDA device, shard ``s`` sits on ``cuda:{s % D}``
+(:func:`shard_device`). One execution lane serves each device in use, so
+on one card the shards' sub-batches run one after another. The process
+backend (one subprocess per shard) is not part of this package yet.
+
+* **Routing** (``shard/ring.py``): a consistent-hash ring (virtual
+  nodes) replaces the bare ``hash % N`` partitioner, so the shard count
+  can grow/shrink under live traffic — ``add_shard``/``remove_shard``
+  migrate only the key ranges adjacent to the moved virtual nodes,
+  interval by interval, while reads keep routing consistently (the old
+  owner retains a stale copy until its range flips; readers are never
+  sent to a shard that does not yet hold the data).
+  ``ShardConfig(partitioner="modulo")`` keeps the pure modulo routing
+  as an escape hatch (it cannot reshard).
+* **Deployments**: ``deploy`` builds one version per shard
+  (``Engine.build_version``) and then publishes the whole set under ONE
+  :class:`ShardedDeploymentHandle` — hot swap, counter-based canary and
+  rollback operate on the set atomically; a batch is always served by a
+  single (version, shard-set).
+* **Tables**: partitioned by default; ``replicate=True`` broadcasts a
+  table to every shard (dimension tables — LAST JOIN probes then
+  resolve through the owning shard's local replica, no cross-shard
+  hop).
+* **Transactional ingest**: a multi-shard ``insert`` into a
+  stream-attached table is all-or-nothing — phase 1 ``prepare``s the
+  per-shard slices against every involved stream buffer (validating
+  frontiers), phase 2 ``commit``s them (the buffers hold their
+  watermarks so a prepared slice can never become late in between);
+  any reject aborts every prepared slice with nothing staged.
+* **Offline parity**: ``query_offline`` runs per shard against pinned
+  snapshots and stamps the result with the cross-shard **version
+  vector**; rows are filtered by CURRENT ring ownership so stale
+  migration copies never surface, keeping outputs equal to the
+  unsharded engine before/during/after a reshard.
+* **Admission control** (``shard/resource.py``): per-deployment
+  in-flight and queue-depth bounds plus deadline shedding; a retired
+  shard sheds with an explicit ``worker_down`` reason instead of
+  hanging gathers, and the stale tier answers its keys DEGRADED where it
+  can.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, \
+    Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import dsl
+from repro_torch.core.engine import DeploymentHandle, Engine
+from repro_torch.core.logical import Query
+from repro_torch.core.optimizer import CostModel, OptFlags
+from repro_torch.core.results import (STATUS_DEGRADED, STATUS_OK,
+                                      STATUS_SHED, FeatureFrame,
+                                      RequestContext)
+from repro_torch.featurestore.table import TableSchema
+from repro_torch.obs.sketch import QuantileSketch
+from repro_torch.shard import migrate as _migrate
+from repro_torch.shard.resource import AdmissionConfig, ResourceManager
+from repro_torch.shard.ring import HashRing, ModuloRouting, RouteTable, \
+    key_hashes
+from repro_torch.shard.router import ShardRouter
+from repro_torch.streaming.wal import WalConfig, \
+    resolve_shard as wal_resolve_shard
+
+__all__ = ["ShardConfig", "ShardedEngine", "ShardedDeploymentHandle",
+           "ShardedPipeline", "ShardedHandleMetrics", "shard_device"]
+
+_PROCESS_TODO = ("the process shard backend (one subprocess per shard) is "
+                 "not ported yet: ROADMAP Queue 1 item 5, the process "
+                 "runtime; use the in-process backend")
+
+
+def shard_device(base, shard: int, pin_devices: bool,
+                 n_devices: int) -> torch.device:
+    """The device shard ``shard`` lives on: ``cuda:{shard % n_devices}``
+    when ``pin_devices`` is set, ``base`` is a CUDA device and there is
+    more than one; ``base`` otherwise."""
+    base = torch.device(base)
+    if pin_devices and base.type == "cuda" and n_devices > 1:
+        return torch.device("cuda", shard % n_devices)
+    return base
+
+
+@dataclass(frozen=True)
+class ShardConfig:
+    n_shards: int = 2
+    dispatch_rows: int = 256          # coalesced rows per shard dispatch
+    # max wait for a lane to fill one dispatch chunk (batcher-style
+    # deadline policy; 0 disables waiting)
+    coalesce_delay_s: float = 0.002
+    # execution lanes (worker threads). None = one per distinct device in
+    # use (more execution threads than devices just contend)
+    n_lanes: Optional[int] = None
+    admission: AdmissionConfig = AdmissionConfig()
+    # pin shard s to cuda:{s % D} when more than one CUDA device exists;
+    # False keeps every shard on the engine's device
+    pin_devices: bool = True
+    # "inprocess"; None resolves REPRO_SHARD_BACKEND, then "inprocess".
+    # "process" is not ported yet and raises NotImplementedError
+    backend: Optional[str] = None
+    # "ring" (consistent hash, elastic) | "modulo" (pure hash % N,
+    # cannot reshard)
+    partitioner: str = "ring"
+    vnodes: int = 64                  # ring points per shard
+    migrate_batch_arcs: int = 8       # arcs copied per migration step
+    # base directory for per-shard write-ahead ingest logs; None disables.
+    # Partitioned stream-attached tables get a WAL at
+    # ``<wal_dir>/shard-<s>/<table>/`` injected into their PipelineConfig
+    wal_dir: Optional[str] = None
+    # stale-tier cache: last served feature row per key, used to answer
+    # STATUS_DEGRADED while a shard cannot serve (0 disables)
+    degraded_cache_keys: int = 4096
+
+
+@dataclass
+class ShardedHandleMetrics:
+    requests: int = 0
+    batches: int = 0
+    shed_requests: int = 0
+    shed_batches: int = 0
+    degraded_requests: int = 0     # rows answered from the stale tier
+    degraded_batches: int = 0      # batches with >= 1 DEGRADED row
+    serve_s: float = 0.0
+    canary_batches: int = 0
+    canary_max_abs_diff: float = 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        """JSON-serializable copy."""
+        return {
+            "requests": self.requests, "batches": self.batches,
+            "shed_requests": self.shed_requests,
+            "shed_batches": self.shed_batches,
+            "degraded_requests": self.degraded_requests,
+            "degraded_batches": self.degraded_batches,
+            "serve_s": self.serve_s,
+            "canary_batches": self.canary_batches,
+            "canary_max_abs_diff": self.canary_max_abs_diff,
+        }
+
+
+@dataclass
+class _TableSpec:
+    schema: TableSchema
+    replicated: bool
+    # resolved per-shard creation kwargs, replayed when a shard is added
+    create_kw: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+
+class ShardedDeploymentHandle:
+    """One version of a deployment across every shard — the sharded
+    serving endpoint. Owns the per-shard :class:`DeploymentHandle`s; the
+    router dispatches against THESE handles directly, so a mid-redeploy
+    inner-engine state is invisible to in-flight batches (same
+    handle-owned-executor argument as the single-engine swap).
+
+    ``handles[s]`` may be ``None`` for shard slots retired before this
+    version was deployed — routing never selects a retired slot."""
+
+    def __init__(self, engine: "ShardedEngine", name: str, version: int,
+                 handles: Sequence[Optional[DeploymentHandle]]):
+        self.engine = engine
+        self.name = name
+        self.version = version
+        self.handles: Tuple[Optional[DeploymentHandle], ...] = \
+            tuple(handles)
+        self.state = DeploymentHandle.WARMING
+        self.metrics = ShardedHandleMetrics()
+        # the deploy-time inputs, kept so a newly added shard can rebuild
+        # this exact version
+        self.query: Optional[Query] = None
+        self.warm_buckets: Optional[Tuple[int, ...]] = None
+        self._canary: Optional[Tuple["ShardedDeploymentHandle", float]] = \
+            None
+        self._canary_counter = 0
+        self._lock = threading.Lock()
+        # stale tier (degradation ladder OK→DEGRADED→SHED): the last
+        # feature row served per key, LRU-bounded. While a shard cannot
+        # serve, its keys answer from here with STATUS_DEGRADED instead of
+        # shedding the whole batch — possibly stale, never wrong-key
+        self._stale: "collections.OrderedDict" = collections.OrderedDict()
+        self._stale_cap = int(engine.cfg.degraded_cache_keys)
+
+    # ------------------------------------------------------------ identity
+    @property
+    def tag(self) -> str:
+        return f"{self.name}@v{self.version}x{len(self.handles)}"
+
+    @property
+    def live(self) -> bool:
+        return self.state == DeploymentHandle.LIVE
+
+    def _first(self) -> DeploymentHandle:
+        return next(h for h in self.handles if h is not None)
+
+    @property
+    def plan(self):
+        return self._first().plan
+
+    @property
+    def phys(self):
+        return self._first().phys
+
+    @property
+    def table(self):
+        """A live shard's table — schema/introspection only; mutation
+        must go through the sharded engine (routing)."""
+        return self._first().table
+
+    def __repr__(self) -> str:
+        return (f"ShardedDeploymentHandle({self.name!r} v{self.version} "
+                f"[{self.state}] x{len(self.handles)} shards)")
+
+    # ------------------------------------------------------------ warm etc
+    def warm(self, buckets: Sequence[int]) -> int:
+        return sum(h.warm(buckets) for h in self.handles
+                   if h is not None)
+
+    def version_vector(self) -> Tuple[int, ...]:
+        """Per-shard table versions (shard order, active slots) now."""
+        return tuple(h.table.version for h in self.handles
+                     if h is not None)
+
+    def join_staleness(self) -> Dict[str, Dict[str, float]]:
+        """Cross-shard rollup of the per-shard staleness metrics. Age
+        percentiles come from the EXACT merge of per-shard sketches —
+        the merged p99 is what one engine observing the union would
+        report, not a worst-shard max."""
+        out: Dict[str, Dict[str, float]] = {}
+        sketches: Dict[str, list] = {}
+        for h in self.handles:
+            if h is None:
+                continue
+            for t, st in h.join_staleness().items():
+                agg = out.setdefault(t, {"probes": 0, "matches": 0,
+                                         "age_samples": 0})
+                agg["probes"] += st["probes"]
+                agg["matches"] += st["matches"]
+                agg["age_samples"] += st["age_samples"]
+                sk = st.get("age_sketch")
+                if sk is not None:
+                    sketches.setdefault(t, []).append(sk)
+        for t, agg in out.items():
+            agg["match_rate"] = (agg["matches"] / agg["probes"]
+                                 if agg["probes"] else 0.0)
+            merged = QuantileSketch.merged(sketches.get(t, ()))
+            agg["age_p50"] = merged.percentile(50)
+            agg["age_p99"] = merged.percentile(99)
+            agg["age_sketch"] = merged.to_dict()
+        return out
+
+    # --------------------------------------------------------------- serve
+    def request(self, keys: Sequence, ts: Sequence[float],
+                rows: Optional[np.ndarray] = None,
+                ctx: Optional[RequestContext] = None) -> FeatureFrame:
+        """Serve one batch: admit -> (canary pick) -> scatter -> gather.
+
+        Shedding is all-or-nothing: an expired deadline (at admission or
+        while queued on any shard) returns a frame whose EVERY row is
+        ``STATUS_SHED`` — never a mix of shed and computed rows."""
+        eng = self.engine
+        B = len(keys)
+        trace = ctx.trace_id if ctx is not None else None
+        if B == 0:
+            return FeatureFrame(
+                {n: np.zeros((0,), np.float32)
+                 for n in self.phys.feature_names},
+                status=np.zeros((0,), np.int8), deployment=self.name,
+                version=self.version, trace_id=trace,
+                version_vector=self.version_vector())
+        if rows is None and self.plan.joins:
+            raise ValueError(
+                f"deployment {self.name!r} has {len(self.plan.joins)} "
+                f"LAST JOIN(s); online requests must pass rows= — the "
+                f"join probes read the request row's join-key column(s)")
+        adm = eng.resources.admit(self.name, ctx,
+                                  queue_depths=eng.router.queue_depths)
+        if adm.shed:
+            return self._shed_frame(B, trace)
+        try:
+            cand = None
+            pinned = ctx is not None and ctx.version_pin is not None
+            canary = None if pinned else self._canary
+            if canary is not None:
+                cand_handle, frac = canary
+                with self._lock:
+                    self._canary_counter += 1
+                    n = self._canary_counter
+                if int(n * frac) > int((n - 1) * frac):
+                    cand = cand_handle
+            if cand is None:
+                return self._scatter_gather(keys, ts, rows, ctx, trace)
+            # canary slice: candidate serves; incumbent recomputes as the
+            # reference and the divergence lands on the candidate
+            base = self._scatter_gather(keys, ts, rows, ctx, trace)
+            new = cand._scatter_gather(keys, ts, rows, ctx, trace)
+            diff = 0.0
+            for nme, v in new.columns.items():
+                ref = base.columns.get(nme)
+                if ref is not None and np.size(v):
+                    diff = max(diff, float(np.max(np.abs(
+                        np.asarray(v, np.float64)
+                        - np.asarray(ref, np.float64)))))
+            with cand._lock:
+                cand.metrics.canary_batches += 1
+                cand.metrics.canary_max_abs_diff = max(
+                    cand.metrics.canary_max_abs_diff, diff)
+            return new
+        finally:
+            adm.release()
+
+    def _scatter_gather(self, keys, ts, rows, ctx, trace) -> FeatureFrame:
+        eng = self.engine
+        t0 = time.perf_counter()
+        karr = np.asarray(keys)
+        ts_arr = np.asarray(ts, np.float32)
+        row_arr = (np.asarray(rows, np.float32) if rows is not None
+                   else None)
+        B = len(karr)
+        parts = eng.router.scatter(self.handles, karr, ts_arr, row_arr,
+                                   ctx=ctx, owners=eng.owners_of(karr))
+        columns, status, _tvers, any_shed = eng.router.gather(parts, B)
+        if any_shed:
+            reasons = {it.shed_reason for _, it in parts if it.shed}
+            if reasons == {"worker_down"} and self._stale_cap > 0:
+                # degradation ladder: ONLY the retired shard's rows went
+                # missing — try the stale tier before giving up on the
+                # whole batch
+                deg = self._degraded_frame(parts, B, trace)
+                if deg is not None:
+                    eng.resources.record_degraded(int(deg.n_degraded))
+                    return deg
+            shed_kind = ("worker_down" if "worker_down" in reasons
+                         else "deadline")
+            eng.resources.record_shed(kind=shed_kind)
+            return self._shed_frame(B, trace)
+        self._remember(karr, columns, status)
+        wall = time.perf_counter() - t0
+        with self._lock:
+            m = self.metrics
+            m.requests += B
+            m.batches += 1
+            m.serve_s += wall
+        # freshness stamp across touched shards: MIN watermark (the
+        # slowest shard bounds the batch) / MAX feature age
+        wm = age = None
+        for _, it in parts:
+            if it.watermark is not None:
+                wm = it.watermark if wm is None \
+                    else min(wm, it.watermark)
+            if it.feature_age is not None:
+                age = it.feature_age if age is None \
+                    else max(age, it.feature_age)
+        return FeatureFrame(
+            columns, status=status, deployment=self.name,
+            version=self.version, trace_id=trace,
+            table_version=max((h.table.version for h in self.handles
+                               if h is not None), default=-1),
+            latency={"serve_s": wall},
+            version_vector=self.version_vector(), watermark=wm,
+            feature_age=age)
+
+    # ------------------------------------------------------ stale tier
+    @staticmethod
+    def _ckey(key):
+        return key.item() if isinstance(key, np.generic) else key
+
+    def _remember(self, karr, columns, status) -> None:
+        """Refresh the stale tier from a fully-computed batch: every
+        STATUS_OK row's features, keyed by request key, LRU-evicted."""
+        if self._stale_cap <= 0:
+            return
+        names = self.phys.feature_names
+        mat = np.stack([np.asarray(columns[n], np.float32)
+                        for n in names], axis=1)
+        st = np.asarray(status)
+        with self._lock:
+            cache = self._stale
+            for i in np.flatnonzero(st == STATUS_OK):
+                k = self._ckey(karr[int(i)])
+                cache[k] = mat[int(i)]
+                cache.move_to_end(k)
+            while len(cache) > self._stale_cap:
+                cache.popitem(last=False)
+
+    def _degraded_frame(self, parts, B: int, trace
+                        ) -> Optional[FeatureFrame]:
+        """Assemble a mixed frame: completed sub-batches keep their
+        fresh rows/statuses; worker_down sub-batches answer from the
+        stale tier with STATUS_DEGRADED. Returns ``None`` — meaning
+        fall back to a whole-batch shed — if ANY down-shard key has no
+        cached row (a partially-degradable batch would otherwise need
+        per-row shed statuses, which the shed contract forbids)."""
+        names = self.phys.feature_names
+        columns = {n: np.zeros((B,), np.float32) for n in names}
+        status = np.zeros(B, np.int8)
+        n_deg = 0
+        with self._lock:
+            for idx, it in parts:
+                if not it.shed:
+                    for kname, v in it.columns.items():
+                        if kname in columns:
+                            columns[kname][idx] = np.asarray(v, np.float32)
+                    status[idx] = it.status
+                    continue
+                for j, key in zip(idx, it.keys):
+                    row = self._stale.get(self._ckey(key))
+                    if row is None:
+                        return None
+                    for fi, n in enumerate(names):
+                        columns[n][int(j)] = row[fi]
+                    status[int(j)] = STATUS_DEGRADED
+                    n_deg += 1
+            self.metrics.degraded_requests += n_deg
+            self.metrics.degraded_batches += 1
+        return FeatureFrame(
+            columns, status=status, deployment=self.name,
+            version=self.version, trace_id=trace,
+            table_version=max((h.table.version for h in self.handles
+                               if h is not None), default=-1),
+            version_vector=self.version_vector())
+
+    def _shed_frame(self, B: int, trace) -> FeatureFrame:
+        with self._lock:
+            self.metrics.shed_requests += B
+            self.metrics.shed_batches += 1
+        return FeatureFrame(
+            {n: np.zeros((B,), np.float32)
+             for n in self.phys.feature_names},
+            status=np.full(B, STATUS_SHED, np.int8),
+            deployment=self.name, version=self.version, trace_id=trace,
+            version_vector=self.version_vector())
+
+    def rollback(self) -> "ShardedDeploymentHandle":
+        return self.engine.rollback(self.name)
+
+
+class ShardedPipeline:
+    """Streaming facade: one IngestPipeline per shard, each with its own
+    watermarks/frontiers — routing by the engine's ring, so an event's
+    reorder repair happens on the shard that stores it. Ownership is
+    read UNDER the engine's route lock: an event must not land in a
+    source shard's buffer after that shard's key range was extracted by
+    an in-flight migration step."""
+
+    def __init__(self, engine: "ShardedEngine", table: str,
+                 pipes: Sequence, replicated: bool):
+        self.engine = engine
+        self.table = table
+        self.pipes: List = list(pipes)   # grows under add_shard
+        self.replicated = replicated
+
+    def _active(self) -> List[Tuple[int, object]]:
+        retired = self.engine._retired
+        return [(s, p) for s, p in enumerate(self.pipes)
+                if s not in retired]
+
+    def push(self, key, ts: float, row: np.ndarray) -> bool:
+        eng = self.engine
+        if self.replicated:
+            ok = True
+            for _s, p in self._active():
+                ok = p.push(key, ts, row) and ok
+            return ok
+        with eng._route_lock:
+            return self.pipes[eng._routing.owner(key)].push(key, ts, row)
+
+    def push_batch(self, keys: Sequence, ts: Sequence[float],
+                   rows: np.ndarray, *, all_or_nothing: bool = False
+                   ) -> int:
+        keys = np.asarray(keys)
+        ts = np.asarray(ts, np.float32)
+        rows = np.asarray(rows, np.float32)
+        eng = self.engine
+        if self.replicated:
+            return min(p.push_batch(keys, ts, rows,
+                                    all_or_nothing=all_or_nothing)
+                       for _s, p in self._active())
+        with eng._route_lock:
+            sid = eng._routing.owners_of(keys)
+            n = 0
+            for s in np.unique(sid):
+                idx = np.flatnonzero(sid == s)
+                n += self.pipes[s].push_batch(
+                    keys[idx], ts[idx], rows[idx],
+                    all_or_nothing=all_or_nothing)
+            return n
+
+    def flush(self, *, flush_all: bool = True) -> None:
+        for _s, p in self._active():
+            p.flush(flush_all=flush_all)
+
+    def wait_idle(self, timeout: float = 30.0) -> bool:
+        return all(p.wait_idle(timeout) for _s, p in self._active())
+
+    def warm(self) -> int:
+        return sum(p.warm() for _s, p in self._active())
+
+    def version_vector(self) -> Tuple[int, ...]:
+        return tuple(p.table.version for _s, p in self._active())
+
+    def metrics(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for _s, p in self._active():
+            for k, v in p.metrics().items():
+                out[k] = out.get(k, 0) + v
+        out["n_shards"] = len(self._active())
+        return out
+
+    def close(self, *, drain: bool = True) -> None:
+        for _s, p in self._active():
+            p.close(drain=drain)
+
+
+class ShardedEngine:
+    """N hash-partitioned shard engines behind the Engine API."""
+
+    def __init__(self, cfg: ShardConfig = ShardConfig(), *,
+                 backend: Optional[str] = None,
+                 flags: OptFlags = OptFlags(), device="cuda",
+                 **engine_kw):
+        self.cfg = cfg
+        self.flags = flags
+        self._engine_kw = dict(engine_kw)
+        S = cfg.n_shards
+        kind = (backend or cfg.backend
+                or os.environ.get("REPRO_SHARD_BACKEND") or "inprocess")
+        if kind == "process":
+            raise NotImplementedError(_PROCESS_TODO)
+        if kind != "inprocess":
+            raise ValueError(f"unknown shard backend {kind!r}; expected "
+                             f"'inprocess' or 'process'")
+        self.backend_kind = kind
+        self.device = torch.device(device)
+        self.devices: Tuple[torch.device, ...] = tuple(
+            self._device_of(s) for s in range(S))
+        self.shards: List[Engine] = [
+            Engine(flags, device=d, **engine_kw) for d in self.devices]
+        n_lanes = (cfg.n_lanes if cfg.n_lanes is not None
+                   else len(set(self.devices)))
+        self.router = ShardRouter(S, dispatch_rows=cfg.dispatch_rows,
+                                  coalesce_delay_s=cfg.coalesce_delay_s,
+                                  n_lanes=n_lanes)
+        self.resources = ResourceManager(cfg.admission)
+        # ring routing state: readers (scatter, query_offline) read the
+        # route table lock-free — a reader racing a range flip sees either
+        # the old owner (which retains a stale copy: correct) or the new
+        # owner (which already finished copying: correct). WRITERS must
+        # hold _route_lock across owner-compute + staging so no event
+        # lands in a source buffer after its range was extracted.
+        self._route_lock = threading.RLock()
+        if cfg.partitioner == "modulo":
+            self._ring: Optional[HashRing] = None
+            self._routing = ModuloRouting(S)
+        elif cfg.partitioner == "ring":
+            self._ring = HashRing(range(S), vnodes=cfg.vnodes)
+            self._routing = RouteTable(self._ring)
+        else:
+            raise ValueError(f"unknown partitioner {cfg.partitioner!r}")
+        self._retired: Set[int] = set()
+        self.specs: Dict[str, _TableSpec] = {}
+        self.streams: Dict[str, ShardedPipeline] = {}
+        self._stream_cfgs: Dict[str, object] = {}
+        self._models: Dict[str, Tuple[Callable, object]] = {}
+        self.deployments: Dict[str, ShardedDeploymentHandle] = {}
+        self._versions: Dict[str, Dict[int, ShardedDeploymentHandle]] = {}
+        self._history: Dict[str, List[ShardedDeploymentHandle]] = {}
+        self._deploy_lock = threading.RLock()
+        # serializes reshard operations; taken OUTSIDE _deploy_lock
+        self._reshard_lock = threading.Lock()
+        self._closed = False
+
+    def _device_of(self, s: int) -> torch.device:
+        n = (torch.cuda.device_count() if self.device.type == "cuda"
+             and torch.cuda.is_available() else 1)
+        return shard_device(self.device, s, self.cfg.pin_devices, n)
+
+    # ------------------------------------------------------------ identity
+    @property
+    def n_shards(self) -> int:
+        """ACTIVE shard count (grows/shrinks with add/remove_shard)."""
+        return len(self.shards) - len(self._retired)
+
+    def _active_ids(self) -> List[int]:
+        return [s for s in range(len(self.shards))
+                if s not in self._retired]
+
+    def _primary(self) -> Engine:
+        return self.shards[self._active_ids()[0]]
+
+    @property
+    def cache(self):
+        """A live shard's plan cache (FeatureServer warm-gating)."""
+        return self._primary().cache
+
+    def shard_of(self, key) -> int:
+        """Current owning shard of ``key`` under the ring (or modulo)."""
+        return self._routing.owner(key)
+
+    def owners_of(self, keys: np.ndarray) -> np.ndarray:
+        return self._routing.owners_of(np.asarray(keys))
+
+    # ------------------------------------------------------------------ DDL
+    def create_table(self, schema: TableSchema, *, max_keys: int = 1024,
+                     capacity: int = 1024, bucket_size: int = 64,
+                     join_keys: Sequence[str] = (),
+                     replicate: bool = False,
+                     per_shard_max_keys: Optional[int] = None) -> None:
+        """Create the table on every shard.
+
+        Partitioned (default): each shard holds the keys that hash to it;
+        ``max_keys`` is the TOTAL key budget and each shard provisions
+        ``max_keys/S`` plus 30% hash-skew headroom (override with
+        ``per_shard_max_keys``). Replicated: every shard holds a full
+        copy — required for LAST JOIN right tables, whose probes must
+        resolve on the probing shard.
+        """
+        S = self.n_shards
+        if replicate or per_shard_max_keys is None:
+            per_shard = max_keys if replicate else max(
+                16, int(1.3 * max_keys / S) + 8)
+        else:
+            per_shard = per_shard_max_keys
+        create_kw = dict(max_keys=per_shard, capacity=capacity,
+                         bucket_size=bucket_size,
+                         join_keys=tuple(join_keys))
+        for s in self._active_ids():
+            self.shards[s].create_table(schema, **create_kw)
+        self.specs[schema.name] = _TableSpec(schema=schema,
+                                             replicated=replicate,
+                                             create_kw=create_kw)
+
+    def tables_of(self, name: str) -> Tuple:
+        """The per-shard Table objects for ``name`` (shard order)."""
+        return tuple(self.shards[s].tables[name]
+                     for s in self._active_ids())
+
+    def insert(self, table: str, keys: Sequence, ts: Sequence[float],
+               rows: np.ndarray) -> None:
+        """Bulk insert, routed to owning shards (replicated tables fan
+        out to all). For stream-attached partitioned tables the
+        multi-shard write is TRANSACTIONAL: every involved shard prepares
+        its slice, then all commit — or any reject aborts them all with
+        nothing staged (matching ``Engine.insert``'s atomic contract, but
+        across shards).
+
+        Every shard insert is copy-on-write (``donate=False``): the shard
+        engines are live, their lanes serve off table snapshots while
+        this writes, so each insert of up to ``capacity`` events clones
+        the shard's table."""
+        spec = self._spec(table)
+        keys = np.asarray(keys)
+        ts = np.asarray(ts, np.float32)
+        rows = np.asarray(rows, np.float32)
+        if spec.replicated:
+            for s in self._active_ids():
+                self.shards[s].insert(table, keys.tolist(), ts.tolist(),
+                                      rows, donate=False)
+            return
+        facade = self.streams.get(table)
+        if facade is not None:
+            self._insert_txn(table, facade, keys, ts, rows)
+            return
+        with self._route_lock:
+            sid = self._routing.owners_of(keys)
+            for s in np.unique(sid):
+                idx = np.flatnonzero(sid == s)
+                self.shards[s].insert(table, keys[idx].tolist(),
+                                      ts[idx].tolist(), rows[idx],
+                                      donate=False)
+
+    def _insert_txn(self, table: str, facade: ShardedPipeline,
+                    keys: np.ndarray, ts: np.ndarray, rows: np.ndarray
+                    ) -> None:
+        """Cross-shard 2-phase ingest over the per-shard stream buffers.
+        ``prepare`` validates each slice against its shard's released
+        frontier and parks it; the buffers then HOLD their watermarks at
+        the prepared timestamps, so phase 2 ``commit`` cannot fail. Any
+        reject aborts every parked slice."""
+        with self._route_lock:
+            sid = self._routing.owners_of(keys)
+            txns: List[Tuple[int, int]] = []
+            try:
+                for s in np.unique(sid):
+                    idx = np.flatnonzero(sid == s)
+                    txn = facade.pipes[s].prepare(
+                        keys[idx].tolist(), ts[idx].tolist(), rows[idx])
+                    if txn is None:
+                        raise ValueError(
+                            f"insert on table {table!r} rejected "
+                            f"atomically: the batch contains event(s) "
+                            f"beyond a shard's released frontier "
+                            f"(unrepairably late) or with non-finite "
+                            f"timestamps; nothing was staged on any "
+                            f"shard")
+                    txns.append((int(s), txn))
+            except BaseException:
+                for s, txn in txns:
+                    facade.pipes[s].abort_txn(txn)
+                raise
+            for s, txn in txns:
+                facade.pipes[s].commit_txn(txn)
+        # barrier (outside the route lock — flushing does device work):
+        # everything committed becomes queryable, surfacing flush errors
+        # exactly like Engine.insert's single-shard barrier
+        for s, _txn in txns:
+            pipe = facade.pipes[s]
+            errs_before = pipe.stats["errors"]
+            pipe.flush(flush_all=True)
+            if (pipe.stats["errors"] > errs_before
+                    and pipe.buffer.n_staged > 0):
+                raise pipe.last_error
+
+    def _spec(self, table: str) -> _TableSpec:
+        spec = self.specs.get(table)
+        if spec is None:
+            raise KeyError(f"unknown table {table!r}; create_table first; "
+                           f"known: {sorted(self.specs)}")
+        return spec
+
+    # ------------------------------------------------------------ streaming
+    def attach_stream(self, table: str, cfg=None, **cfg_kw
+                      ) -> ShardedPipeline:
+        """One ingest pipeline per shard (per-shard watermarks); events
+        route to the owning shard's pipeline."""
+        from repro_torch.streaming.pipeline import PipelineConfig
+        spec = self._spec(table)
+        if table in self.streams:
+            raise ValueError(f"table {table!r} already has a stream")
+        if cfg is None and cfg_kw:
+            cfg = PipelineConfig(**cfg_kw)
+        elif cfg is not None and cfg_kw:
+            raise ValueError("pass cfg or keywords, not both")
+        if (self.cfg.wal_dir is not None and not spec.replicated
+                and getattr(cfg, "wal", None) is None):
+            # durability: every partitioned stream shard gets its own WAL
+            # under <wal_dir>/shard-{shard}/<table>; the template keeps
+            # the `{shard}` placeholder and each shard resolves its own
+            # id (an added shard resolves to its new slot)
+            cfg = dataclasses.replace(
+                cfg if cfg is not None else PipelineConfig(),
+                wal=WalConfig(dir=os.path.join(
+                    self.cfg.wal_dir, "shard-{shard}", table)))
+        pipes = [self.shards[s].attach_stream(table,
+                                              wal_resolve_shard(cfg, s))
+                 for s in self._active_ids()]
+        facade = ShardedPipeline(self, table, pipes, spec.replicated)
+        self.streams[table] = facade
+        self._stream_cfgs[table] = cfg
+        return facade
+
+    def create_stream(self, schema: TableSchema, *, max_keys: int = 1024,
+                      capacity: int = 1024, bucket_size: int = 64,
+                      replicate: bool = False, **cfg_kw):
+        self.create_table(schema, max_keys=max_keys, capacity=capacity,
+                          bucket_size=bucket_size, replicate=replicate)
+        facade = self.attach_stream(schema.name, **cfg_kw)
+        return self.tables_of(schema.name), facade
+
+    def register_model(self, name: str, fn: Callable,
+                       params: object = None) -> None:
+        """``params`` (tensors) go to every shard as given; a shard on
+        another device than the parameters is the caller's to feed."""
+        for s in self._active_ids():
+            self.shards[s].register_model(name, fn, params)
+        self._models[name] = (fn, params)
+
+    def set_cost_model(self, model: CostModel) -> CostModel:
+        """Install calibrated optimizer constants on EVERY shard (all
+        shards must compile the same plan — a per-shard cost model would
+        break the one-plan-per-version invariant ``deploy`` relies on).
+        Takes effect on the next ``deploy``; returns the previous model."""
+        with self._deploy_lock:
+            prev = self._primary().cost_model
+            for s in self._active_ids():
+                self.shards[s].set_cost_model(model)
+            return prev
+
+    @property
+    def cost_model(self) -> CostModel:
+        return self._primary().cost_model
+
+    # --------------------------------------------------------------- deploy
+    def deploy(self, name: str,
+               query: Union[str, Query, dsl.QueryBuilder], *,
+               warm_buckets: Optional[Sequence[int]] = None,
+               canary: float = 0.0) -> ShardedDeploymentHandle:
+        """Build one version per shard, then publish the whole set
+        atomically under one handle. Joined right tables must be
+        replicated (probes resolve through the probing shard's local
+        replica)."""
+        if canary and not (0.0 < canary <= 1.0):
+            raise ValueError(
+                f"canary fraction must be in (0, 1], got {canary}")
+        if isinstance(query, str):
+            query = dsl.parse_sql(query)
+        elif isinstance(query, dsl.QueryBuilder):
+            query = query.build()
+        with self._deploy_lock:
+            prev = self.deployments.get(name)
+            if canary > 0.0 and prev is None:
+                raise ValueError(
+                    f"canary deploy of {name!r} requires an existing live "
+                    f"deployment; deploy without canary= first")
+            # build EVERY shard's version before any publish: a failed
+            # shard build must leave the live set untouched AND not leak
+            # the versions already built on earlier shards
+            handles: List[Optional[DeploymentHandle]] = \
+                [None] * len(self.shards)
+            built: List[Tuple[int, DeploymentHandle]] = []
+            try:
+                for s in self._active_ids():
+                    h = self.shards[s].build_version(
+                        name, query, warm_buckets=warm_buckets)
+                    handles[s] = h
+                    built.append((s, h))
+            except BaseException:
+                self._discard_built(built)
+                raise
+            first = next(h for h in handles if h is not None)
+            for j in first.plan.joins:
+                if not self._spec(j.table).replicated:
+                    self._discard_built(built)
+                    raise ValueError(
+                        f"LAST JOIN right table {j.table!r} is hash-"
+                        f"partitioned; a probing shard could not resolve "
+                        f"keys owned by other shards — create it with "
+                        f"replicate=True (broadcast dimension table)")
+            version = first.version
+            sh = ShardedDeploymentHandle(self, name, version, handles)
+            sh.query = query
+            sh.warm_buckets = (tuple(warm_buckets) if warm_buckets
+                               else None)
+            self._versions.setdefault(name, {})[version] = sh
+            if canary > 0.0:
+                displaced = prev._canary[0] if prev._canary else None
+                sh.state = DeploymentHandle.CANARY
+                prev._canary = (sh, float(canary))
+                if displaced is not None:
+                    self._discard(displaced)
+            else:
+                self._swap(name, sh, prev)
+            return sh
+
+    def _discard_built(self, built: List[Tuple[int, DeploymentHandle]]
+                       ) -> None:
+        for s, h in built:
+            self.shards[s].discard_version(h)
+
+    def _swap(self, name: str,
+              new: ShardedDeploymentHandle,
+              prev: Optional[ShardedDeploymentHandle]) -> None:
+        for s in self._active_ids():
+            if new.handles[s] is not None:
+                self.shards[s].publish_version(new.handles[s])
+        new._canary = None
+        new.state = DeploymentHandle.LIVE
+        self.deployments[name] = new       # the atomic publish
+        if prev is not None:
+            if prev._canary is not None and prev._canary[0] is not new:
+                self._discard(prev._canary[0])
+            prev._canary = None
+            prev.state = DeploymentHandle.RETIRED
+            hist = self._history.setdefault(name, [])
+            hist.append(prev)
+            # mirror the inner engines' retention bound: beyond it the
+            # inner handles released their executors anyway, so the
+            # sharded wrapper is unpinnable too
+            while len(hist) > self._primary().max_retained_versions:
+                dropped = hist.pop(0)
+                self._versions.get(name, {}).pop(dropped.version, None)
+
+    def _discard(self, cand: ShardedDeploymentHandle) -> None:
+        cand.state = DeploymentHandle.RETIRED
+        self._discard_built([(s, cand.handles[s])
+                             for s in self._active_ids()
+                             if cand.handles[s] is not None])
+        self._versions.get(cand.name, {}).pop(cand.version, None)
+
+    def handle(self, name: str, version: Optional[int] = None
+               ) -> ShardedDeploymentHandle:
+        if version is None:
+            dep = self.deployments.get(name)
+            if dep is None:
+                raise KeyError(f"unknown deployment {name!r}; deployed: "
+                               f"{sorted(self.deployments)}")
+            return dep
+        try:
+            return self._versions[name][version]
+        except KeyError:
+            raise KeyError(
+                f"deployment {name!r} has no version {version}; known: "
+                f"{sorted(self._versions.get(name, {}))}") from None
+
+    def promote(self, name: str) -> ShardedDeploymentHandle:
+        with self._deploy_lock:
+            live = self.handle(name)
+            if live._canary is None:
+                raise ValueError(
+                    f"deployment {name!r} has no active canary")
+            cand, _ = live._canary
+            live._canary = None
+            self._swap(name, cand, live)
+            return cand
+
+    def rollback(self, name: str) -> ShardedDeploymentHandle:
+        with self._deploy_lock:
+            live = self.deployments.get(name)
+            if live is not None and live._canary is not None:
+                self._discard(live._canary[0])
+                live._canary = None
+                return live
+            hist = self._history.get(name)
+            if not hist:
+                raise ValueError(
+                    f"no prior version of {name!r} to roll back to")
+            prev = hist.pop()
+            self._swap(name, prev, live)
+            return prev
+
+    # -------------------------------------------------------------- elastic
+    def add_shard(self) -> int:
+        """Grow the shard set by one under live traffic: bring up a shard
+        engine on its device, replay the catalog (tables, streams,
+        models, cost model), seed replicated tables, build + publish
+        every retained deployment version, add a router queue — and only
+        THEN flip ring ownership, interval by interval, migrating each
+        key range before its flip. Requests keep flowing the whole time
+        (routing always answers with a shard that holds the data).
+        Returns the new shard id."""
+        if self._ring is None:
+            raise RuntimeError(
+                "partitioner='modulo' cannot reshard; use the default "
+                "consistent-hash ring")
+        with self._deploy_lock:
+            s = len(self.shards)
+            # 1) runtime + catalog
+            dev = self._device_of(s)
+            eng = Engine(self.flags, device=dev, **self._engine_kw)
+            for spec in self.specs.values():
+                eng.create_table(spec.schema, **spec.create_kw)
+            for name, (fn, params) in self._models.items():
+                eng.register_model(name, fn, params)
+            eng.set_cost_model(self.cost_model)
+            for tname, scfg in self._stream_cfgs.items():
+                eng.attach_stream(tname, wal_resolve_shard(scfg, s))
+            self.shards.append(eng)
+            self.devices = self.devices + (dev,)
+            # 2) streaming facades gain the new shard's pipe
+            for tname, facade in self.streams.items():
+                facade.pipes.append(eng.streams[tname])
+            # 3) replicated dimension tables: full copy from a donor
+            self._seed_replicas(s)
+            # 4) every retained deployment version exists on the new
+            #    shard BEFORE any traffic can route there
+            for name, versions in self._versions.items():
+                live = self.deployments.get(name)
+                for v in sorted(versions):
+                    sh = versions[v]
+                    h = eng.build_version(name, sh.query,
+                                          warm_buckets=sh.warm_buckets)
+                    sh.handles = sh.handles + (h,)
+                    if live is sh:
+                        eng.publish_version(h)
+            # 5) routing: the new queue now, the range migration after
+            self.router.add_queue()
+        with self._reshard_lock:
+            self._reshard(self._ring.with_shard(s))
+        return s
+
+    def remove_shard(self, s: int) -> int:
+        """Shrink the shard set: migrate every key range owned by ``s``
+        to the surviving shards (interval by interval, under live
+        traffic), then retire and close the shard engine. The slot id is
+        never reused. Returns the number of events migrated."""
+        if self._ring is None:
+            raise RuntimeError(
+                "partitioner='modulo' cannot reshard; use the default "
+                "consistent-hash ring")
+        with self._deploy_lock:
+            if s in self._retired or not 0 <= s < len(self.shards):
+                raise ValueError(f"shard {s} is not active")
+            if self.n_shards <= 1:
+                raise ValueError("cannot remove the last active shard")
+        with self._reshard_lock:
+            moved = self._reshard(self._ring.without_shard(s))
+        with self._deploy_lock:
+            self._retired.add(s)
+            # no NEW traffic routes to s now (ring + _retired), but a
+            # scatter that read the pre-reshard route table can still
+            # target it: retire the queue (late submits shed), then wait
+            # out everything already queued/executing before the engine
+            # closes
+            self.router.retire_queue(s)
+            self.router.drain_shard(s)
+            self.shards[s].close()
+            return moved
+
+    def _seed_replicas(self, s: int) -> None:
+        """Copy every replicated table's full contents onto shard ``s``
+        from the first active donor (a new shard)."""
+        donor = next((d for d in self._active_ids() if d != s), None)
+        if donor is None:
+            return
+        for tname, spec in self.specs.items():
+            if not spec.replicated:
+                continue
+            facade = self.streams.get(tname)
+            if facade is not None and donor < len(facade.pipes):
+                facade.pipes[donor].flush(flush_all=True)
+            keys = _migrate.list_keys(self.shards[donor], tname)
+            if not keys:
+                continue
+            ks, tsv, rws = _migrate.extract_events(self.shards[donor],
+                                                   tname, keys)
+            if len(ks):
+                _migrate.migrate_in(self.shards[s], tname, ks, tsv, rws)
+
+    def _reshard(self, new_ring: HashRing, *,
+                 batch_arcs: Optional[int] = None) -> int:
+        """Migrate routing from the current ring to ``new_ring``: serve
+        from a merged route table, copy each differing key range
+        (source flush -> enumerate keys in range -> extract -> insert
+        into target, skipping any already-present prefix) and flip its
+        owner — one batch of ranges at a time under the route lock, so
+        ingest interleaves with migration at batch granularity. The
+        source keeps its (now stale) copy: readers are never routed
+        there for the moved keys, ``query_offline`` filters by current
+        ownership, and the skip logic makes a later move-back safe."""
+        step = batch_arcs or self.cfg.migrate_batch_arcs
+        with self._route_lock:
+            rt = RouteTable.merged(self._ring, new_ring)
+            self._routing = rt
+        plan = rt.plan_against(new_ring)
+        tgt = {a: new_ring.owner_of_hash(int(rt.points[a]))
+               for a in plan}
+        partitioned = [t for t, sp in self.specs.items()
+                       if not sp.replicated]
+        moved = 0
+        for i in range(0, len(plan), step):
+            batch = plan[i:i + step]
+            with self._route_lock:
+                groups: Dict[Tuple[int, int], List[int]] = {}
+                for a in batch:
+                    groups.setdefault((rt.arc_owner(a), tgt[a]),
+                                      []).append(a)
+                for (src, dst), arcs in groups.items():
+                    if src == dst:
+                        rt.set_owner(arcs, dst)
+                        continue
+                    arcset = np.asarray(arcs)
+                    for tname in partitioned:
+                        facade = self.streams.get(tname)
+                        if facade is not None:
+                            # staged events must be IN the table before
+                            # extract reads its snapshot
+                            facade.pipes[src].flush(flush_all=True)
+                        all_keys = _migrate.list_keys(self.shards[src],
+                                                      tname)
+                        if not all_keys:
+                            continue
+                        in_arc = rt.arc_of_hashes(
+                            key_hashes(np.asarray(all_keys)))
+                        sel = [all_keys[int(j)] for j in np.flatnonzero(
+                            np.isin(in_arc, arcset))]
+                        if not sel:
+                            continue
+                        ks, tsv, rws = _migrate.extract_events(
+                            self.shards[src], tname, sel)
+                        if len(ks):
+                            moved += _migrate.migrate_in(
+                                self.shards[dst], tname, ks, tsv, rws)
+                    rt.set_owner(arcs, dst)
+        self._ring = new_ring
+        with self._route_lock:
+            self._routing = RouteTable(new_ring)
+        return moved
+
+    # --------------------------------------------------------------- online
+    def request(self, name: str, keys: Sequence, ts: Sequence[float],
+                rows: Optional[np.ndarray] = None,
+                ctx: Optional[RequestContext] = None) -> FeatureFrame:
+        pin = ctx.version_pin if ctx is not None else None
+        return self.handle(name, pin).request(keys, ts, rows, ctx=ctx)
+
+    # -------------------------------------------------------------- offline
+    def query_offline(self, name: str, *, batch_size: int = 1024,
+                      point_in_time: bool = True) -> Dict[str, np.ndarray]:
+        """Per-shard offline materialisation under pinned snapshots,
+        concatenated. ``__key`` holds the ACTUAL key values (not dense
+        indices — those are shard-local), plus a ``__shard`` column and
+        the ``__version_vector`` the run was pinned to. Rows whose key is
+        no longer owned by the shard that produced them (stale copies
+        left by a range migration) are filtered out, so the output
+        matches the unsharded engine before/during/after a reshard."""
+        dep = self.handle(name)
+        base_spec = self.specs.get(dep.table.schema.name)
+        replicated = base_spec is not None and base_spec.replicated
+        outs: List[Dict[str, np.ndarray]] = []
+        vvec = []
+        shard_ids_ = ([self._active_ids()[0]] if replicated
+                      else self._active_ids())
+        for s in shard_ids_:
+            res = self.shards[s].query_offline(
+                name, batch_size=batch_size, point_in_time=point_in_time)
+            h = dep.handles[s]
+            vvec.append(h.table.version if h is not None else -1)
+            if "__key" not in res or len(res["__key"]) == 0:
+                # hash skew (or n_shards > distinct keys) can leave a
+                # shard with no retained events; skip it rather than
+                # concatenating dtype-less empties into the key column
+                continue
+            # dense indices are shard-local: map them to the real keys
+            inv = {i: k for k, i in h.table.key_to_idx.items()}
+            res["__key"] = np.asarray([inv[int(i)] for i in res["__key"]])
+            if not replicated:
+                own = self._routing.owners_of(res["__key"]) == s
+                if not own.all():
+                    res = {k: v[own] for k, v in res.items()}
+                if len(res["__key"]) == 0:
+                    continue
+            res["__shard"] = np.full(len(res["__key"]), s, np.int32)
+            outs.append(res)
+        if not outs:
+            merged = {n: np.zeros((0,), np.float32)
+                      for n in dep.phys.feature_names}
+            merged["__key"] = np.zeros((0,), np.int64)
+            merged["__ts"] = np.zeros((0,), np.float32)
+            merged["__shard"] = np.zeros((0,), np.int32)
+        else:
+            merged = {k: np.concatenate([o[k] for o in outs])
+                      for k in outs[0]}
+        merged["__version_vector"] = np.asarray(vvec, np.int64)
+        return merged
+
+    # ---------------------------------------------------------------- intro
+    def explain(self, name: str) -> str:
+        dep = self.handle(name)
+        rs = self.router.stats()
+        part = ("modulo" if self._ring is None else
+                f"consistent-hash ring ({self._ring.vnodes} vnodes/"
+                f"shard)")
+        lines = [
+            f"sharded deployment {name!r} v{dep.version} [{dep.state}] "
+            f"across {self.n_shards} shard(s) "
+            f"[{self.backend_kind} backend]",
+            f"  router: {part}, "
+            f"dispatch_rows={self.cfg.dispatch_rows}, "
+            f"lanes={self.router.n_lanes}, "
+            f"rows/dispatch={rs['rows_per_dispatch']:.1f}",
+            f"  admission: max_inflight="
+            f"{self.cfg.admission.max_inflight}, max_queue_depth="
+            f"{self.cfg.admission.max_queue_depth} "
+            f"({self.resources.metrics()})",
+            "  devices: " + ", ".join(str(self.devices[s])
+                                      for s in self._active_ids()),
+            f"  version vector: {dep.version_vector()}",
+        ]
+        lines.append(f"  per-shard plan (shard {self._active_ids()[0]} "
+                     f"of {self.n_shards}; all shards compile the same "
+                     f"plan):")
+        lines += ["  " + l for l in
+                  self._primary().explain(name).splitlines()]
+        return "\n".join(lines)
+
+    def latency_decomposition(self) -> Dict[str, float]:
+        # counters sum across shards; rates are recomputed from the
+        # summed counters and percentiles take the worst shard — summing
+        # a ratio or a p99 across shards would be nonsense
+        agg: Dict[str, float] = {}
+        join_matches = 0.0
+        join_p99: List[float] = []
+        hit: List[float] = []
+        for s in self._active_ids():
+            eng = self.shards[s]
+            d = eng.latency_decomposition()
+            for k, v in d.items():
+                if k in ("cache_hit_rate", "join_match_rate",
+                         "join_age_p99"):
+                    continue
+                agg[k] = agg.get(k, 0.0) + v
+            if d.get("join_probes"):
+                join_matches += d["join_match_rate"] * d["join_probes"]
+                p99 = d.get("join_age_p99", float("nan"))
+                if not np.isnan(p99):
+                    join_p99.append(p99)
+            hit.append(eng.cache.stats.hit_rate)
+        if agg.get("join_probes"):
+            agg["join_match_rate"] = join_matches / agg["join_probes"]
+            agg["join_age_p99"] = (max(join_p99) if join_p99
+                                   else float("nan"))
+        agg["cache_hit_rate"] = float(np.mean(hit)) if hit else 0.0
+        agg["n_shards"] = self.n_shards
+        agg.update({f"router_{k}": v
+                    for k, v in self.router.stats().items()})
+        agg.update({f"admission_{k}": v
+                    for k, v in self.resources.metrics().items()})
+        return agg
+
+    # ------------------------------------------------------------ lifecycle
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        # drain first: in-flight gathers complete before any lane stops
+        self.router.shutdown(drain=True)
+        self.streams.clear()   # shard engines own + close the pipelines
+        for s in self._active_ids():
+            self.shards[s].close()
+
+    def __enter__(self) -> "ShardedEngine":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False

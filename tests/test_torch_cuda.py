@@ -839,3 +839,257 @@ def test_concurrent_first_launches_build_once_and_count_all(table,
                               rows_preceding=5)
     for out in outs[::17]:
         _assert_same(out, want)
+
+
+# ---------------------------------------------------------------------------
+# the sharded runtime on the card
+# ---------------------------------------------------------------------------
+
+SHARD_WINDOWS = """
+WINDOW w1 AS (PARTITION BY user ORDER BY ts
+              ROWS BETWEEN 10 PRECEDING AND CURRENT ROW),
+       w2 AS (PARTITION BY user ORDER BY ts
+              ROWS BETWEEN 40 PRECEDING AND CURRENT ROW)
+"""
+SHARD_SQL = {
+    # preagg_window x2 and last_join against a replicated table
+    "joined": """
+SELECT SUM(amount) OVER w1 AS s1, STD(amount) OVER w1 AS sd1,
+       COUNT(amount) OVER w2 AS c2, MAX(amount) OVER w2 AS mx2,
+       merchants.risk AS risk, merchants.volume AS vol
+FROM events
+LAST JOIN merchants ORDER BY mts ON merchant
+""" + SHARD_WINDOWS,
+    # window_agg (a LAST over w1) and preagg_window
+    "windows": """
+SELECT SUM(amount) OVER w1 AS s1, MAX(amount) OVER w1 AS mx1,
+       LAST(amount) OVER w1 AS l1, AVG(lat) OVER w2 AS a2,
+       MIN(amount) OVER w2 AS mn2
+FROM events
+""" + SHARD_WINDOWS,
+    # LASTs over both windows: one fused_window launch
+    "fused": """
+SELECT SUM(amount) OVER w1 AS s1, LAST(amount) OVER w1 AS l1,
+       AVG(lat) OVER w2 AS a2, LAST(lat) OVER w2 AS l2
+FROM events
+""" + SHARD_WINDOWS,
+}
+SHARD_KERNELS = {"joined": (preagg_window, last_join),
+                 "windows": (window_agg, preagg_window),
+                 "fused": (fused_window,)}
+
+
+def _shard_data():
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=8000, n_keys=60, n_features=4, seed=21))
+    rows[:, 3] = np.floor(np.abs(rows[:, 3])) % 6          # merchant ids
+    return keys, ts, rows
+
+
+def _fill(eng, keys, ts, rows, replicate=None):
+    kw = {} if replicate is None else {"replicate": replicate}
+    eng.create_table(TableSchema("events", "user", "ts",
+                                 ("amount", "lat", "lon", "merchant")),
+                     max_keys=64, capacity=64, bucket_size=8)
+    eng.create_table(TableSchema("merchants", "merchant", "mts",
+                                 ("risk", "volume")),
+                     max_keys=8, capacity=16, bucket_size=4, **kw)
+    eng.insert("events", keys.tolist(), ts.tolist(), rows)
+    rng = np.random.default_rng(3)
+    for t0 in (float(ts[0]), float(ts[len(ts) // 2])):
+        eng.insert("merchants", list(range(6)), [t0] * 6,
+                   rng.uniform(0, 1, (6, 2)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", sorted(SHARD_SQL))
+def test_sharded_card_engine_equals_unsharded(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.optimizer import OptFlags
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    keys, ts, rows = _shard_data()
+    ref = Engine(OptFlags(), device="cuda")
+    se = ShardedEngine(ShardConfig(n_shards=3), device="cuda")
+    _fill(ref, keys, ts, rows)
+    _fill(se, keys, ts, rows, replicate=True)
+    assert int(ref.tables["events"].state.total.max()) > 64
+    ref.deploy("f", SHARD_SQL[shape])
+    se.deploy("f", SHARD_SQL[shape])
+    rng = np.random.default_rng(5)
+    for B in (1, 37, 500):
+        idx = rng.integers(0, len(keys), B)
+        rk = keys[idx].tolist()
+        rk[0] = 10_000                                   # an unknown key
+        rts = [float(ts.max()) + 1.0] * B
+        for m in SHARD_KERNELS[shape]:
+            m.launches = 0
+        got = se.request("f", rk, rts, rows=rows[idx])
+        assert all(m.launches > 0 for m in SHARD_KERNELS[shape])
+        want = ref.request("f", rk, rts, rows=rows[idx])
+        np.testing.assert_array_equal(got.status, want.status)
+        for c in want:                                   # bit for bit
+            np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    got, want = se.query_offline("f"), ref.query_offline("f")
+    inv = {i: k for k, i in ref.tables["events"].key_to_idx.items()}
+    ka = np.asarray([inv[int(i)] for i in want["__key"]])
+    ia, ib = np.lexsort((want["__ts"], ka)), np.lexsort((got["__ts"],
+                                                        got["__key"]))
+    np.testing.assert_array_equal(ka[ia], got["__key"][ib])
+    for c in ref.handle("f").phys.feature_names:
+        np.testing.assert_array_equal(got[c][ib], want[c][ia], err_msg=c)
+    assert len(got["__version_vector"]) == 3
+    se.close()
+    ref.close()
+
+
+def test_extract_events_device_gather_equals_host_enumeration(table):
+    from repro_torch.shard import migrate
+
+    class _Eng:
+        tables = {"events": table}
+
+    sel = [5, 23, 0, 999, 11, 3]
+    ks, ts, rows = migrate.extract_events(_Eng, "events", sel)
+    st = table.snapshot().state
+    tot, tsa, val = (st.total.cpu().numpy(), st.ts.cpu().numpy(),
+                     st.values.cpu().numpy())
+    C = table.capacity
+    host = []
+    for k in sel:
+        i = table.key_to_idx.get(k)
+        if i is None:
+            continue
+        for p in range(max(int(tot[i]) - C, 0), int(tot[i])):
+            host.append((tsa[i, p % C], k, val[i, p % C]))
+    order = sorted(range(len(host)), key=lambda j: host[j][0])
+    assert len(ks) == len(host) > C
+    assert ks == [host[j][1] for j in order]
+    np.testing.assert_array_equal(ts, np.asarray([host[j][0]
+                                                  for j in order]))
+    np.testing.assert_array_equal(rows, np.stack([host[j][2]
+                                                  for j in order]))
+
+
+def test_migration_under_a_live_serving_thread():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.optimizer import OptFlags
+    from repro_torch.core.results import STATUS_OK, STATUS_SHED
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=3000, n_keys=48, n_features=4, seed=8))
+    rows[:, 3] = np.floor(np.abs(rows[:, 3])) % 6
+    ref = Engine(OptFlags(), device="cuda")
+    se = ShardedEngine(ShardConfig(n_shards=2), device="cuda")
+    for eng in (ref, se):            # no ring wraps: every key stays exact
+        eng.create_table(TableSchema("events", "user", "ts",
+                                     ("amount", "lat", "lon", "merchant")),
+                         max_keys=64, capacity=1024, bucket_size=64)
+        eng.insert("events", keys.tolist(), ts.tolist(), rows)
+        eng.deploy("f", SHARD_SQL["windows"])
+    assert int(ref.tables["events"].state.total.max()) <= 1024
+    rk = list(range(48))
+    rts = [float(ts.max()) + 1.0] * 48
+    want = ref.request("f", rk, rts)
+    stop, first, errs, served = (threading.Event(), threading.Event(), [],
+                                 [0])
+
+    def serve():
+        while not stop.is_set():
+            try:
+                fr = se.request("f", rk, rts)
+            except Exception as e:                 # pragma: no cover
+                errs.append(e)
+                return
+            finally:
+                first.set()
+            if (fr.status == STATUS_SHED).all():
+                continue
+            if not (fr.status == STATUS_OK).all() or any(
+                    not np.array_equal(fr[c], want[c]) for c in want):
+                errs.append(AssertionError("a mixed or wrong batch"))
+                return
+            served[0] += 1
+
+    th = threading.Thread(target=serve)
+    th.start()
+    try:
+        assert first.wait(60.0)
+        se.add_shard()
+        assert se.remove_shard(0) > 0
+    finally:
+        stop.set()
+        th.join(120.0)
+    assert not th.is_alive() and not errs and served[0] > 0
+    got = se.request("f", rk, rts)
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    se.close()
+    ref.close()
+
+
+def test_shards_pinned_to_every_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.optimizer import OptFlags
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    D = torch.cuda.device_count()
+    keys, ts, rows = _shard_data()
+    ref = Engine(OptFlags(), device="cuda")
+    se = ShardedEngine(ShardConfig(n_shards=2 * D), device="cuda")
+    _fill(ref, keys, ts, rows)
+    _fill(se, keys, ts, rows, replicate=True)
+    assert se.router.n_lanes == D
+    for s, eng in enumerate(se.shards):
+        dev = torch.device("cuda", s % D)
+        assert eng.device == dev
+        for t in eng.tables.values():
+            st = t.snapshot()
+            assert st.state.values.device == dev
+            assert st.preagg.sum.device == dev
+    for name in sorted(SHARD_SQL):
+        ref.deploy(name, SHARD_SQL[name])
+        se.deploy(name, SHARD_SQL[name])
+        rng = np.random.default_rng(6)
+        idx = rng.integers(0, len(keys), 200)
+        rk, rts = keys[idx].tolist(), [float(ts.max()) + 1.0] * 200
+        for m in SHARD_KERNELS[name]:
+            m.launches = 0
+        got = se.request(name, rk, rts, rows=rows[idx])
+        # every shard reached launched on its own card: one launch of
+        # each kernel per shard sub-batch
+        reached = len(set(se.owners_of(np.asarray(rk)).tolist()))
+        assert all(m.launches >= reached for m in SHARD_KERNELS[name])
+        want = ref.request(name, rk, rts, rows=rows[idx])
+        for c in want:
+            np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    se.close()
+    ref.close()
+
+
+def test_preagg_tier_is_independent_of_insert_batching_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=20000, n_keys=300, n_features=3, seed=4))
+    tabs = {}
+    for d, split in (("cuda", 1), ("cuda_split", 4), ("cpu", 1)):
+        t = Table(TableSchema("events", "k", "ts", ("a", "b", "c")),
+                  max_keys=320, capacity=128, bucket_size=16,
+                  device="cpu" if d == "cpu" else "cuda")
+        for s in range(split):
+            idx = np.flatnonzero(keys % split == s)
+            t.insert(keys[idx].tolist(), ts[idx], rows[idx], donate=False)
+        tabs[d] = t
+    order = {d: torch.tensor([t.key_to_idx[k] for k in sorted(t.key_to_idx)])
+             for d, t in tabs.items()}
+    want = tabs["cpu"]
+    for d in ("cuda", "cuda_split"):
+        for f in ("sum", "sumsq", "min", "max", "count"):
+            assert torch.equal(
+                getattr(tabs[d].preagg, f).cpu()[order[d]],
+                getattr(want.preagg, f)[order["cpu"]]), (d, f)

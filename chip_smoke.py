@@ -38,12 +38,25 @@ then:
    promote and roll back, and serve every deployment batched, pooled (4
    workers) and per row; asserts the same version sequence, equal frames
    between the engines and between the modes, ``online_offline_consistency``
-   and ``verify_preagg`` after the compaction;
+   and ``verify_preagg`` after the compaction; and their freshness
+   snapshots equal and drift sketches equal (bit for bit where the
+   frames are exact) after serving the same requests;
 7. drives the feature main path: 200 batches of 100 and 200 of 500
    requests on each deployment, asserting OK status, finite outputs and
    that every kernel's launch counter rose, and prints requests/s and
    batch p50/p99;
-8. at full size on the same engine: the execution modes (batched, pooled,
+8. at full size on the same engine, control and observability: the
+   tracer at rate 0 and 1.0 (each traced batch an ``engine.serve`` root
+   whose kernel spans sum to its exec seconds), EXPLAIN ANALYZE of the
+   three deployments beside the kernels' device ms, freshness and drift,
+   the 256th buffered batch's fold, a ControlPlane ticking on real
+   traffic (its fitted cost model, and no device work in its collectors),
+   a forced re-plan of serve_features to the raw-scan plan under a
+   serving thread (no failed request, no mixed version, ``fused_window``
+   launching where ``window_agg`` and ``preagg_window`` did, frames equal
+   to a CPU engine's on that plan; the health gate's wall-clock decision
+   printed, not asserted), a latency SLO alerting with the flight
+   recorder's dump, and the registry's Prometheus text; then the execution modes (batched, pooled,
    per row; B=100) with their batch p50/p99; a hot swap of serve_features
    under a serving thread (build+warm ms, the first new batch against the
    p50, no mixed versions, no plan-cache miss); a stream attached to the
@@ -68,8 +81,10 @@ then:
    (every batch wholly served or wholly shed, never raised; served rows
    of keys that never wrapped their rings bit-identical to the
    reference, the rest within the port's tolerances, during the reshard
-   and after it); a FeatureServer round of 6
-   clients; peak device memory;
+   and after it); merged freshness, one traced request's tree across
+   admission, router lanes and shard engines and EXPLAIN ANALYZE merged
+   over the shards; a FeatureServer round of 6 clients; peak device
+   memory;
 10. holds the two attention kernels against their plain versions, bf16 and
    f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
    lengths, query counts around the 64-row tiles; decode in prefix mode
@@ -202,6 +217,10 @@ class Sizes:
     server_events: int = 20_000  # of those, for FeatureServer.ingest
     server_clients: tuple = (6, 12)   # the paper's 6-12 parallel requests
     server_requests: int = 200   # per client
+    obs_batches: int = 100       # traced and untraced, each (B=500)
+    plane_batches: int = 800     # the control plane on real traffic
+    plane_every: int = 50        # batches per tick (8 ticks to a fit)
+    flip_batches: int = 16       # the health gate's batches after a swap
     shards: int = 4              # the sharded fraud node
     shard_batches: int = 100     # per deployment and batch size
     shard_server_requests: int = 100   # per client, 6 clients
@@ -779,6 +798,12 @@ def per_kernel(timing: List[dict]) -> Dict[str, Dict[str, float]]:
 # CUDA engine vs CPU engine
 # ---------------------------------------------------------------------------
 
+def _exact_column(c: str) -> bool:
+    """The columns compare_frames holds exactly."""
+    return c.startswith(("__", "m_")) or any(
+        x in c for x in ("max", "min", "cnt", "last"))
+
+
 def compare_frames(got, want, what: str, std_atol: float,
                    score_atol: float) -> None:
     if sorted(got) != sorted(want):
@@ -789,8 +814,7 @@ def compare_frames(got, want, what: str, std_atol: float,
         w = np.asarray(want[c], np.float64)
         if g.shape != w.shape:
             raise AssertionError(f"{what}: {c} shape {g.shape} != {w.shape}")
-        if c.startswith(("__", "m_")) or any(
-                x in c for x in ("max", "min", "cnt", "last")):
+        if _exact_column(c):
             ok, d = np.array_equal(g, w), float(np.abs(g - w).max(initial=0))
         else:
             atol = (score_atol if c == "score" else
@@ -889,9 +913,85 @@ def cuda_vs_cpu(sz: Sizes, device) -> None:
         compare_frames(oa, ob, f"{name} offline", std_atol, sc_atol)
         log(f"cuda==cpu {name}: online B={B} ({a.n_unknown} unknown keys), "
             f"offline {len(oa['__key'])} rows")
+    observations_vs_cpu(engines, device, rk, rts, rrows)
     for eng in engines.values():
         eng.close()
     wide_vs_cpu(device)
+
+
+def _without_clock(snap):
+    """A freshness snapshot less its wall-clock stamps."""
+    return {t: {k: v for k, v in ent.items()
+                if k not in ("published_at", "i2v_sketch")}
+            for t, ent in snap.items()}
+
+
+def sketches_close(a: dict, b: dict, exact: bool, what: str) -> None:
+    """Two quantile-sketch dicts of the same served column. A column the
+    frames hold exactly (counts, min/max, last, joins) must give the same
+    sketch bit for bit (its sum too: the same values in the same order).
+    A column built from sums moves by rounding, so a value can land in a
+    neighbouring bucket: equal counts, and the bucket counts of the two
+    may differ by at most max(2, 2 % of the values) moved values."""
+    if exact:
+        if a != b:
+            raise AssertionError(f"{what}: sketches differ")
+        return
+    if a["count"] != b["count"]:
+        raise AssertionError(f"{what}: counts {a['count']} != "
+                             f"{b['count']}")
+    da = {("p", i): c for i, c in a["pos"]}
+    da.update({("n", i): c for i, c in a["neg"]})
+    da["z"] = a["zero"]
+    db = {("p", i): c for i, c in b["pos"]}
+    db.update({("n", i): c for i, c in b["neg"]})
+    db["z"] = b["zero"]
+    moved = sum(abs(da.get(k, 0) - db.get(k, 0)) for k in set(da) | set(db))
+    if moved > 2 * max(2, int(np.ceil(0.02 * a["count"]))):
+        raise AssertionError(f"{what}: {moved / 2} values in other buckets "
+                             f"of {a['count']}")
+
+
+def observations_vs_cpu(engines, device, rk, rts, rrows) -> None:
+    """The card and CPU engines served the same requests: their freshness
+    snapshots (age, ingest-column and key sketches, watermarks, table
+    versions) are equal bit for bit, and so are the drift sketches and
+    report of every column the frames hold exactly; the columns built
+    from sums are held as ``sketches_close`` says. A reference is pinned
+    and the same requests served again at later times, so the report's
+    PSI compares two real distributions."""
+    for eng in engines.values():
+        eng.pin_drift_reference()
+        for name in DEPLOYMENTS:
+            eng.request(name, rk.tolist(), (rts + 1000.0).tolist(),
+                        rows=rrows)
+    fa, fb = (_without_clock(engines[d].freshness_snapshot())
+              for d in (device, "cpu"))
+    if fa != fb:
+        raise AssertionError("card and CPU freshness snapshots differ")
+    da, db = (engines[d].drift.snapshot() for d in (device, "cpu"))
+    ra, rb = (engines[d].drift_report() for d in (device, "cpu"))
+    if sorted(ra) != sorted(rb):
+        raise AssertionError("card and CPU drift columns differ")
+    for side in ("live", "ref"):
+        for c in da[side]:
+            sketches_close(da[side][c], db[side][c], _exact_column(c),
+                           f"drift {side} {c}")
+    for c in ra:
+        if _exact_column(c):
+            same = json.dumps(ra[c]) == json.dumps(rb[c])
+        else:
+            same = (ra[c]["drifted"] == rb[c]["drifted"]
+                    and ra[c]["live_count"] == rb[c]["live_count"]
+                    and np.isfinite(ra[c]["psi"]) == np.isfinite(rb[c]["psi"]))
+        if not same:
+            raise AssertionError(f"drift report {c}: {ra[c]} != {rb[c]}")
+    ev = fa["events"]
+    psi = [r["psi"] for r in ra.values() if np.isfinite(r["psi"])]
+    log(f"cuda==cpu freshness and drift: {ev['serve_rows']} rows served, "
+        f"age sketch of {ev['age_sketch']['count']} equal; drift over "
+        f"{len(ra)} columns (largest psi {max(psi, default=float('nan'))}) "
+        f"equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1272,6 +1372,416 @@ def hot_swap(eng, keys, ts, rows, sz: Sizes) -> Dict[str, object]:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# control and observability
+# ---------------------------------------------------------------------------
+
+def device_work(fn: Callable[[], object]) -> Dict[str, int]:
+    """What ``fn`` asked of the card, from a torch.profiler trace: kernel
+    launches, memory copies and synchronisations (runtime calls and
+    device events) beyond those of an empty profile (the profiler syncs
+    the card itself when it stops), plus the calls of
+    ``torch.cuda.synchronize`` made inside ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    real = torch.cuda.synchronize
+
+    def trace(f):
+        n = {"kernels": 0, "copies": 0, "syncs": 0, "synchronize_calls": 0}
+
+        def counted(*a, **k):
+            n["synchronize_calls"] += 1
+            return real(*a, **k)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize = counted
+            try:
+                f()
+            finally:
+                torch.cuda.synchronize = real
+        for e in prof.events():
+            nm = e.name.lower()
+            if "memcpy" in nm or "memset" in nm:
+                n["copies"] += 1
+            elif "synchronize" in nm:
+                n["syncs"] += 1
+            elif (e.device_type == torch.autograd.DeviceType.CUDA
+                  or "launchkernel" in nm):
+                n["kernels"] += 1
+        return n
+
+    idle, got = trace(lambda: None), trace(fn)
+    return {k: got[k] - idle[k] for k in got}
+
+
+def check_trace(tree, tid: str) -> int:
+    """One engine batch's trace: an ``engine.serve`` root whose children
+    are the attributed ``kernel.<op>`` spans, and their seconds sum to
+    the batch's measured ``exec_s``. Returns the number of children."""
+    if tree is None or tree["name"] != "engine.serve":
+        raise AssertionError(f"trace {tid}: root {tree and tree['name']}")
+    kids = tree["children"]
+    if not kids or any(not c["name"].startswith("kernel.") for c in kids):
+        raise AssertionError(f"trace {tid}: children "
+                             f"{[c['name'] for c in kids]}")
+    exec_s = tree["tags"]["exec_s"]
+    tot = sum(c["duration_s"] for c in kids)
+    if abs(tot - exec_s) > 1e-9 + 1e-6 * exec_s:
+        raise AssertionError(f"trace {tid}: kernel spans {tot} s != "
+                             f"exec_s {exec_s} s")
+    return len(kids)
+
+
+def hook_cost(eng, name: str, rk, rts, rr) -> Dict[str, float]:
+    """Host time of the serve hooks of one batch, on the host that drives
+    the card: the calls ``DeploymentHandle._serve`` makes after its serve
+    clock stops (the disabled tracer, the latency sketch, feature age,
+    the drift buffer, the flight record, the profiler's attribution),
+    repeated on fresh recorders with one real B-row batch's host columns
+    (``MAX_PENDING - 1`` times, so nothing folds), then the fold of those
+    buffers alone."""
+    from repro_torch.obs.flight import FlightRecorder
+    from repro_torch.obs.freshness import FreshnessTracker
+    from repro_torch.obs.profile import OperatorProfiler
+    from repro_torch.obs.sketch import DriftMonitor, RollingSketch
+    from repro_torch.obs.trace import Tracer
+    h = eng.handle(name)
+    fr = eng.request(name, rk, rts, rows=rr)
+    cols = {k: np.asarray(v) for k, v in fr.columns.items()}
+    ts_arr = np.asarray(rts, np.float32)
+    wm, B = h.table.snapshot().watermark, len(rk)
+    tracer, lat = Tracer(sample_rate=0.0), RollingSketch(window_s=5.0)
+    fresh, drift = FreshnessTracker(), DriftMonitor()
+    flight, prof = FlightRecorder(), OperatorProfiler()
+    n = DriftMonitor.MAX_PENDING - 1
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tracer.start("engine.serve", None, tags={"rows": B})
+        lat.observe(2e-3)
+        ages = ts_arr[:B].astype(np.float64) - wm
+        fresh.observe_age(h.table.schema.name, ages)
+        drift.observe(cols, n=B)
+        flight.record("serve", trace=None, deployment=h.tag, rows=B,
+                      unknown=0, table_version=1, watermark=wm,
+                      feature_age=float(ages.max()), serve_ms=2.0)
+        prof.record(h, B, exec_s=1e-3, host_s=1e-3, plan_s=0.0,
+                    serve_s=2e-3, model=eng.cost_model)
+    per_batch = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    drift.snapshot()
+    fresh.snapshot()
+    fold = time.perf_counter() - t0
+    return {"hooks_us_per_batch": per_batch * 1e6,
+            "fold_ms": fold * 1e3, "batches_folded": n,
+            "fold_us_per_batch": fold / n * 1e6, "columns": len(cols),
+            "rows": B}
+
+
+def _op_kernel(op: str) -> str:
+    """The kernel that carries a profiler operator row."""
+    if op.startswith("scan:fused"):
+        return "fused_window"
+    return {"scan": "window_agg", "preagg": "preagg_window",
+            "join": "last_join"}[op.split(":", 1)[0]]
+
+
+def observe_and_control(eng, keys, ts, rows, sz: Sizes, timing, device
+                        ) -> Dict[str, object]:
+    """The control and observability tier on the full-size engine:
+    (1) serve_features with the tracer at rate 0 and 1.0 (alternate
+    batches): every traced batch an ``engine.serve`` root with kernel
+    children summing to its ``exec_s``; the hooks' host time per batch
+    (``hook_cost``); (2) EXPLAIN ANALYZE of the three
+    deployments beside the kernels' device ms; (3) freshness and drift
+    at full size; the 256th buffered batch's fold; (4) a ControlPlane
+    ticking every ``plane_every`` batches on real traffic, and the
+    collectors asking nothing of the card; (5) a forced re-plan to the
+    raw-scan plan under a serving thread (no failed request, no mixed
+    version, the new plan's kernels and not the old plan's, frames equal
+    to a CPU engine's on that plan) and the health gate's real decision,
+    then the engine back on its old version and model; (6) a latency SLO
+    bound below the p50 alerting and the flight recorder's dump; (7) the
+    Prometheus text of the engine's registry."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.control import ControlPlane, Replanner
+    from repro_torch.core.optimizer import CostModel
+    from repro_torch.core.results import RequestContext
+    from repro_torch.obs import SLOEngine, SLOSpec, registry_from_engine
+    from repro_torch.obs.sketch import DriftMonitor
+    from repro_torch.obs.slo import ALERTING
+    name, B = "serve_features", sz.timing_batch
+    out: Dict[str, object] = {}
+
+    def batch(rk, rts, rr, ctx=None):
+        t1 = time.perf_counter()
+        fr = eng.request(name, rk, rts, rows=rr, ctx=ctx)
+        dt = time.perf_counter() - t1
+        check_frame(fr, name, B)
+        return fr, dt
+
+    # ---- (1) the tracer at rate 0 and 1.0 -------------------------------
+    batches = list(request_batches(keys, ts, rows, B, sz.obs_batches,
+                                   seed=51))
+    lat: Dict[float, List[float]] = {0.0: [], 1.0: []}
+    kids = 0
+    for i in range(2 * len(batches)):
+        rate = float(i % 2)
+        eng.tracer.set_sample_rate(rate)
+        tid = f"smoke-{i:05d}"
+        _, dt = batch(*batches[i // 2], ctx=RequestContext(trace_id=tid))
+        lat[rate].append(dt)
+        if rate:
+            kids += check_trace(eng.tracer.tree(tid), tid)
+        elif eng.tracer.trace(tid):
+            raise AssertionError("the tracer recorded at rate 0")
+    eng.tracer.set_sample_rate(0.0)
+    out["tracer"] = {"rate_0": _pcts(lat[0.0]), "rate_1": _pcts(lat[1.0]),
+                     "traces_checked": len(lat[1.0]),
+                     "kernel_spans": kids, "counters": eng.tracer.snapshot()}
+    log(f"tracer {name} B={B}: rate 0 {out['tracer']['rate_0']}, rate 1.0 "
+        f"{out['tracer']['rate_1']}; {len(lat[1.0])} traces, {kids} kernel "
+        f"spans, each tree's kernel seconds == its exec_s")
+
+    out["hooks"] = hook_cost(eng, name, *batches[0])
+    log(f"serve hooks' host time, {name} B={B}: {out['hooks']}")
+
+    # ---- (2) EXPLAIN ANALYZE beside the kernels' device time ------------
+    ops = {}
+    for d in DEPLOYMENTS:
+        log(eng.explain_analyze(d))
+        p = eng.profiler.snapshot(d)
+        for op, r in p["ops"].items():
+            k = _op_kernel(op)
+            ops[f"{d}/{op}"] = {
+                "attributed_ms_per_batch": r["seconds"] / p["batches"] * 1e3,
+                "kernel": k, "kernel_device_ms_per_launch": timing[k]["ms"]}
+            log(f"  {d} {op}: attributed {ops[f'{d}/{op}']['attributed_ms_per_batch']:.5f} "
+                f"ms per batch; {k} device {timing[k]['ms']:.6f} ms per "
+                f"launch")
+    out["operators"] = ops
+
+    # ---- (3) freshness and drift at full size; the 256th-batch fold ------
+    t1 = time.perf_counter()
+    fexp = eng.freshness_export()
+    f_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    drep = eng.drift_report()
+    d_ms = (time.perf_counter() - t1) * 1e3
+    out["freshness"] = {k: v for k, v in fexp.items()
+                        if not k.endswith("_sketch")}
+    out["drift"] = drep
+    log(f"freshness_export ({f_ms:.3f} ms): {out['freshness']}")
+    log(f"drift_report ({d_ms:.3f} ms; no reference pinned): {drep}")
+    eng.drift.snapshot()               # both buffers empty: the next
+    eng.freshness.snapshot()           # MAX_PENDING-th batch folds
+    fold_lat = [batch(*b)[1] for b in request_batches(
+        keys, ts, rows, B, DriftMonitor.MAX_PENDING, seed=52)]
+    if eng.drift._pending or eng.freshness._pending:
+        raise AssertionError("the buffers did not fold on their "
+                             f"{DriftMonitor.MAX_PENDING}th batch")
+    out["fold"] = {"fold_batch_ms": fold_lat[-1] * 1e3,
+                   "others": _pcts(fold_lat[:-1])}
+    log(f"fold: batch {DriftMonitor.MAX_PENDING} of {name} B={B} (drift and "
+        f"freshness fold their buffers) {out['fold']['fold_batch_ms']:.4f} "
+        f"ms; the other batches {out['fold']['others']}")
+
+    # ---- (4) the control plane on real traffic -----------------------------
+    v0, model0 = eng.handle(name).version, eng.cost_model
+    plane = ControlPlane(eng, name)
+    ticks = []
+    for i, b in enumerate(request_batches(keys, ts, rows, B,
+                                          sz.plane_batches, seed=61)):
+        batch(*b)
+        if (i + 1) % sz.plane_every == 0:
+            t1 = time.perf_counter()
+            r = plane.tick()
+            ticks.append({"tick": r["tick"], "ms": (time.perf_counter()
+                                                   - t1) * 1e3,
+                          "fed": r["observations_fed"],
+                          "replan": r["replan"], "health": r["health"],
+                          "knobs": r["knob_decisions"]})
+            log(f"tick {r['tick']}: {ticks[-1]}")
+    fitted = plane.calibrator.fit(base=eng.cost_model)
+    sample_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        plane.collector.sample()
+        sample_ms.append((time.perf_counter() - t1) * 1e3)
+    out["plane"] = {"ticks": ticks, "fitted": repr(fitted),
+                    "installed": repr(eng.cost_model),
+                    "sample_ms": sample_ms,
+                    "replan_events": plane.replanner.events}
+    log(f"control plane: fitted {fitted!r} (installed {eng.cost_model!r}); "
+        f"collector.sample() ms {sample_ms}; replan events "
+        f"{plane.replanner.events}")
+    if device != "cpu":
+        work = device_work(lambda: (plane.collector.sample(),
+                                    eng.freshness_snapshot()))
+        if any(work.values()):
+            raise AssertionError(f"the collectors asked the card for {work}")
+        out["collector_device_work"] = work
+        log(f"collector.sample() + freshness_snapshot(): {work}")
+    while eng.handle(name).version != v0:     # the plane re-planned: undo
+        eng.rollback(name)
+    eng.set_cost_model(model0)
+
+    # ---- (5) a forced re-plan under a serving thread -------------------------
+    rp = Replanner(eng, name, min_health_batches=sz.flip_batches)
+    frames: List[tuple] = []
+    errors: List[Exception] = []
+    new_v: List[int] = []
+    stop, warmed, fresh, enough = (threading.Event(), threading.Event(),
+                                   threading.Event(), threading.Event())
+
+    def serve():
+        try:
+            for b in request_batches(keys, ts, rows, B, 1 << 30, seed=71):
+                if stop.is_set():
+                    return
+                fr, dt = batch(*b)
+                frames.append((fr.version, dt))
+                if len(frames) >= sz.flip_batches:
+                    warmed.set()
+                if new_v and fr.version == new_v[0]:
+                    fresh.set()
+                    n_new = sum(v == new_v[0] for v, _ in frames)
+                    if n_new >= 2 * sz.flip_batches:
+                        enough.set()
+        except Exception as e:         # raised again by the caller
+            errors.append(e)
+            warmed.set()
+            fresh.set()
+            enough.set()
+
+    th = threading.Thread(target=serve, name="replan-serve")
+    th.start()
+    try:
+        if not warmed.wait(300.0):
+            raise AssertionError("re-plan: the serving thread stalled")
+        t0 = time.perf_counter()
+        rep = rp.maybe_replan(CostModel(preagg_el=10.0))
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        if rep["action"] != "swapped":
+            raise AssertionError(f"re-plan: {rep}")
+        new_v.append(rep["new_version"])
+        if not fresh.wait(300.0):
+            raise AssertionError("re-plan: no batch on the new version")
+        reset_launch_counts()          # from here on: new-version batches
+        if not enough.wait(300.0):
+            raise AssertionError("re-plan: too few new-version batches")
+        launches = launch_counts()
+    finally:
+        stop.set()
+        th.join(300.0)
+    if errors:
+        raise errors[0]
+    if th.is_alive():
+        raise AssertionError("re-plan: the serving thread did not stop")
+    versions = [v for v, _ in frames]
+    i_new = versions.index(new_v[0])
+    if set(versions[:i_new]) != {v0} or \
+            any(v != new_v[0] for v in versions[i_new:]):
+        raise AssertionError(f"re-plan: versions out of order {versions}")
+    impl = dict(eng.handle(name).plan.window_impl)
+    if impl.get("w2") == "preagg" or launches["fused_window"] == 0 or \
+            launches["window_agg"] or launches["preagg_window"]:
+        raise AssertionError(f"re-plan: plan {impl}, launches {launches}")
+    log(eng.explain(name))
+    naive_vs_cpu(sz, device)
+    health = rp.check_health()
+    if rp.state != Replanner.IDLE or health["action"] not in (
+            "committed", "rolled_back"):
+        raise AssertionError(f"re-plan: health {health}, state {rp.state}")
+    if health["action"] == "rolled_back" and (
+            eng.handle(name).version != v0 or eng.cost_model != model0):
+        raise AssertionError("re-plan: the rollback did not restore the "
+                             "old version and cost model")
+    out["replan"] = {
+        "swap_ms": swap_ms, "health": health,
+        "batches_old": i_new, "batches_new": len(frames) - i_new,
+        "old_p50_ms": _pcts([d for _, d in frames[:i_new]])["p50_ms"],
+        "new": _pcts([d for _, d in frames[i_new:]]),
+        "launches": {k: launches[k] for k in KERNELS}, "plan": impl}
+    log(f"re-plan {name} v{v0}->v{new_v[0]} under load (B={B}): "
+        f"maybe_replan {swap_ms:.3f} ms; health gate (wall clock, not "
+        f"asserted): {health}; {out['replan']}")
+    while eng.handle(name).version != v0:     # later phases: the old plan
+        eng.rollback(name)
+    eng.set_cost_model(model0)
+
+    # ---- (6) an SLO below the p50 alerts; the flight recorder dumps ------
+    bound = 0.5 * out["tracer"]["rate_0"]["p50_ms"] / 1e3
+    slo = SLOEngine([SLOSpec("latency", "latency_p99_s", bound=bound)])
+    tmp = tempfile.mkdtemp(prefix="flight-")
+    prev_dir = eng.flight.out_dir
+    eng.flight.out_dir = tmp
+    try:
+        plane = ControlPlane(eng, name, replan=False, slo=slo)
+        for b in request_batches(keys, ts, rows, B, 8, seed=81):
+            batch(*b)
+            plane.tick()
+            if slo.state("latency") == ALERTING:
+                break
+        if slo.state("latency") != ALERTING or not eng.flight.dumps:
+            raise AssertionError(f"SLO: {slo.snapshot()}, dumps "
+                                 f"{eng.flight.dumps}")
+        with open(eng.flight.dumps[-1], encoding="utf-8") as f:
+            recs = [json.loads(line) for line in f]
+        if recs[0]["kind"] != "dump" or not any(r["kind"] == "serve"
+                                                for r in recs):
+            raise AssertionError("flight dump: no header or no serve "
+                                 "record")
+        out["slo"] = {"bound_s": bound, "export": slo.export(),
+                      "dump_records": len(recs),
+                      "kinds": sorted({r["kind"] for r in recs})}
+    finally:
+        eng.flight.out_dir = prev_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"SLO latency_p99_s <= {bound * 1e3:.4f} ms: alerting; flight dump "
+        f"of {out['slo']['dump_records']} records {out['slo']['kinds']} "
+        f"(removed)")
+
+    # ---- (7) the registry's Prometheus text ------------------------------
+    reg = registry_from_engine(eng, slo=slo)
+    t1 = time.perf_counter()
+    text = reg.render_prometheus()
+    out["registry"] = {"ms": (time.perf_counter() - t1) * 1e3,
+                       "lines": text.count("\n"), "groups": reg.groups()}
+    log(f"registry: {out['registry']}")
+    return out
+
+
+def naive_vs_cpu(sz: Sizes, device) -> None:
+    """serve_features planned with ``CostModel(preagg_el=10.0)`` (w2 a
+    raw scan, both windows in one fused launch) on a check-size card
+    engine against the same on the CPU."""
+    from repro_torch.core.optimizer import CostModel
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=sz.check_events, n_keys=sz.check_keys, n_features=4))
+    rng = np.random.default_rng(5)
+    rk = rng.integers(0, sz.check_keys, 64)
+    rts = (float(ts.max()) + 1.0 + np.arange(64)).astype(np.float32)
+    frames = {}
+    for dev in (device, "cpu"):
+        eng = make_engine(dev, sz, sz.check_keys)
+        eng.set_cost_model(CostModel(preagg_el=10.0))
+        eng.insert("events", keys.tolist(), ts.tolist(), rows)
+        eng.deploy("serve_features", DEPLOYMENTS["serve_features"])
+        if dict(eng.handle("serve_features").plan.window_impl)["w2"] == \
+                "preagg":
+            raise AssertionError("preagg_el=10 did not re-plan w2")
+        frames[dev] = eng.request("serve_features", rk.tolist(),
+                                  rts.tolist())
+        eng.close()
+    std_atol = 4e-4 * float(np.abs(rows[:, 0]).max())
+    compare_frames(frames[device], frames["cpu"], "naive serve_features",
+                   std_atol, std_atol)
+    log("cuda==cpu serve_features on the raw-scan plan (preagg_el=10)")
+
+
 def check_pipe(pipe, what: str) -> None:
     """Raise if a flush ever failed: the flusher catches an error, counts
     it, restages the events and retries, so nothing else would show it."""
@@ -1594,6 +2104,113 @@ def _check_sharded(fr, want, what: str, std_atol: float,
                             - want[c][w_rows]).max()) for c in cols)
 
 
+def sharded_observe(se, ref: Dict[str, object], sz: Sizes,
+                    direct_rows: int) -> Dict[str, object]:
+    """The sharded tier's observability: merged freshness counts every
+    live row the shard engines served (pad rows left out) and equals the
+    merge of the shards' own snapshots; one traced B=100 request is a
+    tree over admission, the router, its lanes and the shard engines'
+    serves with their kernel spans; EXPLAIN ANALYZE merges the four
+    shards' profiles. ``direct_rows`` rows per deployment were served on
+    shard 0's own handle, outside the sharded handles' counters."""
+    from repro_torch.core.results import RequestContext
+    from repro_torch.obs import FreshnessTracker
+    merged = se.freshness_snapshot()["events"]
+    want = (sum(h.metrics.requests for h in se.deployments.values())
+            + direct_rows * len(DEPLOYMENTS))
+    again = FreshnessTracker.merge(
+        [e.freshness_snapshot() for e in se.shards])["events"]
+    if merged["serve_rows"] != want or \
+            merged["age_sketch"]["count"] != want or \
+            again["age_sketch"] != merged["age_sketch"]:
+        raise AssertionError(f"sharded freshness: {merged['serve_rows']} "
+                             f"rows, {want} served")
+    name, B = "fraud_scored", sz.batches[0]
+    rk, rts, rr = ref["sets"][(name, B)]
+    se.tracer.set_sample_rate(1.0)
+    d0 = se.router.stats()["dispatches"]
+    fr = se.request(name, rk, rts, rows=rr,
+                    ctx=RequestContext(trace_id="smoke-sharded"))
+    disp = se.router.stats()["dispatches"] - d0
+    se.tracer.set_sample_rate(0.0)
+    check_frame(fr, name, B)
+    tree = se.tracer.tree("smoke-sharded")
+    nodes = se.tracer.walk(tree)
+    names = [n["name"] for n in nodes]
+    lanes = [n for n in nodes if n["name"] == "lane.execute"]
+    serves = [n for n in nodes if n["name"] == "engine.serve"]
+    for tier in ("admission", "router.scatter_gather"):
+        if tier not in names:
+            raise AssertionError(f"sharded trace: no {tier} in {names}")
+    if len(serves) != disp or not lanes or any(
+            not any(c["name"].startswith("kernel.") for c in s["children"])
+            for s in serves) or sum(len(l["children"]) for l in lanes) != \
+            disp:
+        raise AssertionError(f"sharded trace: {len(lanes)} lanes, "
+                             f"{len(serves)} serves for {disp} dispatches")
+    txt = se.explain_analyze("serve_features")
+    if f"(merged across {sz.shards} shards)" not in txt:
+        raise AssertionError(f"sharded EXPLAIN ANALYZE: {txt}")
+    log(txt)
+    out = {"serve_rows": merged["serve_rows"],
+           "age_p99": FreshnessTracker.export({"events": merged})[
+               "events/age_p99"],
+           "trace_spans": len(nodes), "trace_lanes": len(lanes),
+           "trace_serves": len(serves), "dispatches": disp,
+           "breakdown": sharded_breakdown(se, ref, sz)}
+    log(f"sharded observability: merged freshness {merged['serve_rows']} "
+        f"rows == served; trace of one {name} B={B} request: {out}")
+    return out
+
+
+def sharded_breakdown(se, ref: Dict[str, object], sz: Sizes,
+                      n: int = 20) -> Dict[str, float]:
+    """Where a traced sharded B=500 serve_features batch spends its time,
+    the median ms over ``n`` batches (a batch in which the shard engines
+    fold their buffers would dominate a mean), from the spans: admission, the router's
+    scatter to gather, the wait before the lane starts the first
+    sub-batch (queue hand-off and coalescing), the lane's executes (one
+    per sub-batch, in turn on the one lane) and the gaps between them,
+    the shard engines' serves inside them, the kernels' attributed exec
+    seconds inside those, and the gather after the last sub-batch."""
+    from repro_torch.core.results import RequestContext
+    name = "serve_features"
+    rk, rts, rr = ref["sets"][(name, sz.batches[-1])]
+    acc: Dict[str, List[float]] = {}
+
+    def add(k, v):
+        acc.setdefault(k, []).append(v * 1e3)
+
+    se.tracer.set_sample_rate(1.0)
+    try:
+        for i in range(n):
+            tid = f"smoke-breakdown-{i}"
+            check_frame(se.request(name, rk, rts, rows=rr,
+                                   ctx=RequestContext(trace_id=tid)),
+                        name, len(rk))
+            by: Dict[str, list] = {}
+            for sp in se.tracer.trace(tid):
+                kind = ("kernel" if sp.name.startswith("kernel.")
+                        else sp.name)
+                by.setdefault(kind, []).append(sp)
+            sg, lanes = by["router.scatter_gather"][0], by["lane.execute"]
+            for kind in ("admission", "router.scatter_gather",
+                         "lane.execute", "engine.serve", "kernel"):
+                add(kind, sum(sp.duration_s for sp in by.get(kind, ())))
+            first = min(l.start for l in lanes)
+            last = max(l.end for l in lanes)
+            add("before_first_lane", first - sg.start)
+            add("after_last_lane", sg.end - last)
+            add("between_lanes", (last - first)
+                - sum(l.duration_s for l in lanes))
+    finally:
+        se.tracer.set_sample_rate(0.0)
+    med = {k: float(np.median(v)) for k, v in acc.items()}
+    log(f"sharded {name} B={len(rk)} from its spans, median ms a batch: "
+        f"{med}")
+    return med
+
+
 def sharded_node(ref: Dict[str, object], unsharded: Dict[str, dict],
                  sz: Sizes, device) -> Dict[str, object]:
     """The fraud node on ``sz.shards`` shards of one card
@@ -1785,6 +2402,7 @@ def sharded_node(ref: Dict[str, object], unsharded: Dict[str, dict],
     out["serve"] = report
     out["busy"] = (device_busy(se, keys, ts, rows, sz, report)
                    if device != "cpu" else {})
+    out["observe"] = sharded_observe(se, ref, sz, direct_rows=4)
     # ---- elastic reshard under a serving thread -----------------------------
     stop, errors = threading.Event(), []
     seen = {"ok": 0, "shed": 0, "worst_wrapped_diff": 0.0}
@@ -1962,6 +2580,9 @@ def run(device, sz: Sizes) -> Dict[str, object]:
     # events: what the sharded node must equal
     shard_ref = shard_reference(eng, keys, ts, rows, sz)
 
+    # ---- control and observability ----------------------------------------
+    observe = observe_and_control(eng, keys, ts, rows, sz, timing, device)
+
     # ---- the live path: modes, hot swap, stream, FeatureServer ------------
     modes = execution_modes(eng, keys, ts, rows, sz)
     swap = hot_swap(eng, keys, ts, rows, sz)
@@ -1982,7 +2603,8 @@ def run(device, sz: Sizes) -> Dict[str, object]:
     return {"kernels": kernels, "serve": report, "ingest_s": ingest_s,
             "peak_bytes": peak, "engine_stats": stats, "busy": busy,
             "calls": calls, "live": live, "modes": modes, "swap": swap,
-            "stream": stream, "server": server, "shard_ref": shard_ref}
+            "stream": stream, "server": server, "shard_ref": shard_ref,
+            "observe": observe}
 
 
 # ---------------------------------------------------------------------------
@@ -2500,6 +3122,7 @@ def main() -> int:
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
                                         "server")}))
+    log(json.dumps({"observe": res["observe"]}))
     log(json.dumps({"sharded": shard}))
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))

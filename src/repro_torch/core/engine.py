@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -51,7 +52,10 @@ from repro_torch.core.results import (STATUS_OK, STATUS_UNKNOWN_KEY,
 from repro_torch.featurestore.registry import FeatureRegistry, FeatureSet
 from repro_torch.featurestore.table import (Table, TableSchema, TableSnapshot,
                                             resolve_device)
-from repro_torch.obs.sketch import QuantileSketch
+from repro_torch.obs.flight import FlightRecorder
+from repro_torch.obs.freshness import FreshnessTracker
+from repro_torch.obs.sketch import DriftMonitor, QuantileSketch, RollingSketch
+from repro_torch.obs.trace import Tracer
 from repro_torch.relational.catalog import Catalog
 
 __all__ = ["Engine", "Deployment", "DeploymentHandle", "HandleMetrics",
@@ -69,7 +73,9 @@ class EngineStats:
     """Cumulative latency decomposition (seconds) + counters.
 
     Every field is a monotonic counter, so two ``snapshot()`` dicts taken
-    at different instants can be subtracted to get an interval's work."""
+    at different instants can be subtracted (``delta``) to get an
+    interval's work — what the control plane's ``MetricsCollector``
+    samples."""
 
     parse_s: float = 0.0
     plan_s: float = 0.0
@@ -86,6 +92,11 @@ class EngineStats:
 
     _FIELDS = ("parse_s", "plan_s", "exec_s", "host_s", "serve_s",
                "n_requests", "n_batches", "kernel_launches")
+    # the per-request latency stages (paper Eq. 3 + the host residual):
+    # serve_s ≈ Σ STAGES over any serve-only interval. Every timing field
+    # is a stage, serve_s itself, or parse_s (deploy time, outside the
+    # serve wall)
+    STAGES = ("plan_s", "exec_s", "host_s")
     # pool workers, the async pool, batcher dispatchers and serving
     # threads update these at once: every update goes through ``add``
     _lock: threading.Lock = dataclasses.field(
@@ -99,6 +110,12 @@ class EngineStats:
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             return {f: getattr(self, f) for f in self._FIELDS}
+
+    def delta(self, prev: Dict[str, float]) -> Dict[str, float]:
+        """Interval counters since ``prev`` (an earlier ``snapshot()``),
+        clamped at 0 so a counter reset never yields negative work."""
+        now = self.snapshot()
+        return {f: max(now[f] - prev.get(f, 0), 0) for f in self._FIELDS}
 
 
 @dataclass
@@ -117,6 +134,41 @@ class HandleMetrics:
     # online only — offline materialisation doesn't count
     join_probes: Dict[str, int] = dataclasses.field(default_factory=dict)
     join_matches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # rolling sketch of recent per-batch serve latencies (seconds), what
+    # the replan health gate computes p99 over: bounded memory, displaced
+    # by time, merged exactly across shards. ``len(latency_s)`` is the
+    # monotonic batch count the gate counts.
+    latency_s: RollingSketch = dataclasses.field(
+        default_factory=lambda: RollingSketch(
+            window_s=HandleMetrics.LATENCY_WINDOW_S))
+
+    LATENCY_WINDOW_S = 5.0
+
+    def observe_latency(self, seconds: float) -> None:
+        self.latency_s.observe(float(seconds))
+
+    def latency_percentile(self, pct: float) -> float:
+        """Percentile (e.g. 99) over the rolling latency window; NaN with
+        no samples."""
+        return self.latency_s.percentile(pct)
+
+    def snapshot(self) -> Dict[str, float]:
+        """JSON-serializable copy. The latency sketch rides along under
+        ``latency_sketch`` so the sharded rollup merges percentiles
+        exactly."""
+        sk = self.latency_s.sketch()
+        return {
+            "requests": self.requests, "batches": self.batches,
+            "serve_s": self.serve_s, "unknown_keys": self.unknown_keys,
+            "canary_batches": self.canary_batches,
+            "canary_max_abs_diff": self.canary_max_abs_diff,
+            "join_probes": dict(self.join_probes),
+            "join_matches": dict(self.join_matches),
+            "latency_samples": len(self.latency_s),
+            "latency_p50_s": sk.percentile(50),
+            "latency_p99_s": sk.percentile(99),
+            "latency_sketch": sk.to_dict(),
+        }
 
 
 class DeploymentHandle:
@@ -330,11 +382,10 @@ class DeploymentHandle:
 
         ``n_live`` marks how many leading rows are real when the caller
         edge-padded the batch to a shape bucket (the shard lanes repeat
-        the last row). Every row is served as usual; only the frame's
-        ``feature_age`` reads the live rows alone. (In the JAX package
-        it also trims the freshness, drift and flight observations,
-        which come to the port with its observability, ROADMAP Queue 1
-        item 6.)"""
+        the last row). Every row is served as usual; the frame's
+        ``feature_age`` and the freshness, drift and flight observations
+        read the live rows alone, so equal request multisets produce
+        equal sketches however they were batched."""
         if ctx is not None and ctx.expired:
             raise DeadlineExceeded(
                 f"deadline expired before serving {self.tag}")
@@ -395,6 +446,10 @@ class DeploymentHandle:
                 version=self.version, table_version=table.version,
                 trace_id=trace)
         t_start = time.perf_counter()
+        span = eng.tracer.start(
+            "engine.serve", trace,
+            parent_id=ctx.parent_span if ctx is not None else None,
+            tags={"deployment": self.tag, "rows": B})
         # unknown keys are masked (index 0, empty history) instead of
         # raising: the caller gets per-request status, the rest of the
         # batch is unaffected. Integer key batches resolve through the
@@ -457,17 +512,56 @@ class DeploymentHandle:
         wall = time.perf_counter() - t_start
         plan_dt = max(eng.cache.tag_stats(self.tag).compile_seconds
                       - plan_before, 0.0)
+        # serve = plan + exec + host, host the measured residual (clamped
+        # so a clock glitch can never push a stage negative)
+        host_dt = max(wall - exec_dt - plan_dt, 0.0)
         with self._lock:
             m = self.metrics
             m.requests += B
             m.batches += 1
             m.serve_s += wall
             m.unknown_keys += n_unknown
-        eng.stats.add(serve_s=wall,
-                      host_s=max(wall - exec_dt - plan_dt, 0.0))
+            m.observe_latency(wall)
+        eng.stats.add(serve_s=wall, host_s=host_dt)
+        # data-plane observability, all on host values (the request's
+        # ts, the snapshot's float watermark, the numpy feature columns
+        # already copied back): per-row feature age against the served
+        # snapshot's watermark, the live feature distributions for
+        # drift, and a flight-recorder record. Pad rows beyond ``nl``
+        # are excluded.
+        batch_age = None
         wm = snap.watermark
-        batch_age = (float((ts_arr[:nl].astype(np.float64) - wm).max())
-                     if nl and np.isfinite(wm) else None)
+        if nl and np.isfinite(wm):
+            ages = ts_arr[:nl].astype(np.float64) - wm
+            batch_age = float(ages.max())
+            eng.freshness.observe_age(table.schema.name, ages)
+        if nl:
+            eng.drift.observe(out, n=nl)
+        eng.flight.record(
+            "serve", trace=trace, deployment=self.tag, rows=nl,
+            unknown=n_unknown, table_version=snap.version,
+            watermark=wm if np.isfinite(wm) else None,
+            feature_age=batch_age, serve_ms=wall * 1e3)
+        attributed = eng.profiler.record(
+            self, B, exec_s=exec_dt, host_s=host_dt, plan_s=plan_dt,
+            serve_s=wall, model=eng.cost_model)
+        if span is not None:
+            # the kernel children are ATTRIBUTED, not clocked: the exec
+            # clock ends in one device sync for the whole batch, so each
+            # operator's share of it is laid out in turn across the exec
+            # window
+            t_op = t_start + wall - exec_dt
+            for r in attributed:
+                if r["seconds"] <= 0:
+                    continue
+                eng.tracer.record(
+                    f"kernel.{r['op']}", trace, span.span_id,
+                    t_op, t_op + r["seconds"],
+                    tags={"attributed": True,
+                          "share": round(r["share"], 4)})
+                t_op += r["seconds"]
+            eng.tracer.finish(span, tags={
+                "exec_s": exec_dt, "host_s": host_dt, "plan_s": plan_dt})
         return FeatureFrame(
             out, status=status, deployment=self.name, version=self.version,
             table_version=snap.version,
@@ -513,6 +607,19 @@ class Engine:
                                enabled=flags.plan_cache)
         self.streams: Dict[str, object] = {}   # table -> IngestPipeline
         self.stats = EngineStats()
+        # observability: the tracer samples nothing unless
+        # REPRO_TRACE_SAMPLE (or set_sample_rate) says so; the profiler
+        # always accumulates (it rides the timings the stats path already
+        # takes). Freshness, drift and the flight recorder merge across
+        # shards. None of them touches the device. (obs.profile imports
+        # repro_torch.core, so it is imported here, not at module level.)
+        from repro_torch.obs.profile import OperatorProfiler
+        self.tracer = Tracer(sample_rate=float(
+            os.environ.get("REPRO_TRACE_SAMPLE", "0") or 0))
+        self.profiler = OperatorProfiler()
+        self.freshness = FreshnessTracker()
+        self.drift = DriftMonitor()
+        self.flight = FlightRecorder()
         # batch buckets every new deployment version warms before going
         # live (redeploys also warm the buckets the retired version served)
         self.warm_buckets: Tuple[int, ...] = tuple(warm_buckets)
@@ -604,7 +711,8 @@ class Engine:
             cfg = PipelineConfig(**cfg_kw)
         elif cfg_kw:
             raise ValueError("pass cfg or keywords, not both")
-        pipe = IngestPipeline(self.tables[table], cfg)
+        pipe = IngestPipeline(self.tables[table], cfg,
+                              freshness=self.freshness)
         self.streams[table] = pipe
         return pipe
 
@@ -914,6 +1022,35 @@ class Engine:
                      f"{dep.phys.n_kernel_launches}")
         return "\n".join(lines)
 
+    def explain_analyze(self, target: str) -> str:
+        """Measured-runtime EXPLAIN: render the operator profiler's
+        accumulated attribution for a deployment. ``target`` is a
+        deployment name or a full ``EXPLAIN ANALYZE SELECT ...``
+        statement, matched against the deployed queries by parse
+        equality."""
+        from repro_torch.obs.profile import OperatorProfiler
+        name = self._resolve_analyze_target(target)
+        dep = self.handle(name)
+        return OperatorProfiler.render(name, dep.version,
+                                       self.profiler.snapshot(name))
+
+    def _resolve_analyze_target(self, target: str) -> str:
+        sql = dsl.strip_explain_analyze(target)
+        if sql is None:
+            return target                  # plain deployment name
+        q = dsl.parse_sql(sql)
+        for nm, dep in self.deployments.items():
+            if dep.query == q:
+                return nm
+        raise KeyError(
+            f"EXPLAIN ANALYZE: no live deployment serves this query "
+            f"(deploy it first); deployed: {sorted(self.deployments)}")
+
+    def drain_profile_observations(self, name: str) -> List[Dict]:
+        """The control plane's measured-per-operator calibrator feed
+        (``OperatorProfiler.drain_observations``)."""
+        return self.profiler.drain_observations(name)
+
     def _predict_params(self, dep: DeploymentHandle):
         if dep.plan.predict is None:
             return None
@@ -1076,6 +1213,43 @@ class Engine:
             out["join_match_rate"] = matches / probes
             out["join_age_p99"] = max(ages) if ages else float("nan")
         return out
+
+    # ------------------------------------------------------------ freshness
+    def freshness_snapshot(self) -> Dict[str, Dict[str, object]]:
+        """Per-table freshness snapshot: serving sketches from the
+        tracker plus stamps read off each table's current snapshot
+        (watermark, publish time, version) and its ingest-side sketches —
+        host state only, so a control-plane thread may call it while
+        requests are served. ``FreshnessTracker.merge`` folds these
+        across shards."""
+        snap = self.freshness.snapshot()
+        for name, t in self.tables.items():
+            ent = snap.get(name)
+            if ent is None:
+                ent = snap[name] = dict(FreshnessTracker.blank_entry())
+            ts = t.snapshot()
+            ent["watermark"] = float(ts.watermark)
+            ent["published_at"] = float(ts.published_at)
+            ent["table_version"] = int(ts.version)
+            ent.update(t.ingest_stats())
+        return snap
+
+    def freshness_export(self) -> Dict[str, object]:
+        """Flat ``freshness`` metrics group for the registry."""
+        return FreshnessTracker.export(self.freshness_snapshot())
+
+    def drift_report(self) -> Dict[str, Dict[str, float]]:
+        """Per-column live-vs-reference PSI scores."""
+        return self.drift.report()
+
+    def drift_export(self) -> Dict[str, float]:
+        """Flat ``drift`` metrics group for the registry."""
+        return self.drift.export()
+
+    def pin_drift_reference(self) -> List[str]:
+        """Adopt the current live serving distribution as the drift
+        reference (e.g. at model-deploy time); returns pinned columns."""
+        return self.drift.pin_reference()
 
     # ------------------------------------------------------------ lifecycle
     def close(self) -> None:

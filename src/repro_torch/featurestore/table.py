@@ -28,12 +28,13 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.featurestore.keydir import KeyDirectory
+from repro_torch.obs.sketch import CardinalityEstimator, QuantileSketch
 
 __all__ = ["TableSchema", "TableState", "PreAggState", "Table",
            "TableSnapshot", "empty_state", "empty_preagg", "ingest",
@@ -300,7 +301,14 @@ class Table:
         self._published = TableSnapshot(state=state, preagg=preagg,
                                         version=0)
         self._last_ts: Dict[int, float] = {}
+        # freshness/drift instrumentation: the event-time write frontier
+        # plus ingest-side distribution sketches — one quantile sketch
+        # per value column and a KMV distinct-key estimator, updated per
+        # insert from the host rows (never from the device)
         self._watermark = float("-inf")
+        self._col_sketches: Dict[str, QuantileSketch] = {
+            c: QuantileSketch() for c in schema.value_cols}
+        self._key_card = CardinalityEstimator()
 
     def put(self, x) -> torch.Tensor:
         """A host array (or a tensor) as a tensor on this table's device."""
@@ -424,6 +432,12 @@ class Table:
             self._watermark = max(self._watermark, float(ts_arr.max()))
         self.publish(state, preagg)
         self._last_ts.update(pending)
+        # the sketches commit only on success (the same contract as
+        # _last_ts)
+        if B:
+            self._key_card.add_many(keys)
+            for j, col in enumerate(self.schema.value_cols):
+                self._col_sketches[col].observe_many(rows[:, j])
 
     def warm_ingest(self, *, max_batch: Optional[int] = None) -> int:
         """The streaming pipeline's pre-flush warm-up. Ingest here is a
@@ -433,6 +447,17 @@ class Table:
         return 0
 
     # -- introspection -----------------------------------------------------
+    def ingest_stats(self) -> Dict[str, Any]:
+        """Ingest-side distribution snapshot: per-value-column quantile
+        sketches plus the distinct-key estimate, from host state only (no
+        device work). Merges exactly across shards."""
+        return {
+            "key_card": self._key_card.to_dict(),
+            "columns": {c: sk.to_dict()
+                        for c, sk in self._col_sketches.items()
+                        if sk.count},
+        }
+
     def memory_bytes(self) -> int:
         st, pa = self.state, self.preagg
         ts = [st.values, st.ts, st.total]

@@ -89,9 +89,13 @@ class DynamicBatcher:
     """
 
     def __init__(self, serve_batch: Callable,
-                 cfg: BatcherConfig = BatcherConfig()):
+                 cfg: BatcherConfig = BatcherConfig(), *,
+                 tracer=None):
         self.serve_batch = serve_batch
         self.cfg = cfg
+        # optional repro_torch.obs.trace.Tracer: queue-wait spans and the
+        # exemplar trace carried into the batch context
+        self.tracer = tracer
         try:
             self._wants_ctx = "ctx" in inspect.signature(
                 serve_batch).parameters
@@ -214,6 +218,19 @@ class DynamicBatcher:
                 zero = np.zeros_like(proto)
                 payloads = np.stack([r.payload if r.payload is not None
                                      else zero for r in batch])
+            tracer = self.tracer
+            if tracer is not None:
+                # queue-wait spans recorded after the fact: enqueue ->
+                # dispatch, per traced request (enqueued_at and the
+                # tracer share the perf_counter clock)
+                t_disp = time.perf_counter()
+                for r in batch:
+                    c = r.ctx
+                    if (c is not None and c.trace_id
+                            and tracer.sampled(c.trace_id)):
+                        tracer.record("batch.queue_wait", c.trace_id,
+                                      c.parent_span, r.enqueued_at,
+                                      t_disp, tags={"batch": len(batch)})
             try:
                 if self._wants_ctx:
                     bctx = self._batch_ctx(batch)
@@ -224,7 +241,9 @@ class DynamicBatcher:
                     for i, r in enumerate(batch):
                         row = res.row(i)
                         if r.ctx is not None and r.ctx.trace_id:
-                            # each split row gets its own request's id
+                            # the batch frame carries the exemplar's
+                            # trace id; each split row gets its own
+                            # request's id back
                             row.trace_id = r.ctx.trace_id
                         r.result = row
                         r.done.set()
@@ -252,11 +271,24 @@ class DynamicBatcher:
     def _batch_ctx(self, batch: List[Request]
                    ) -> Optional[RequestContext]:
         """The batch's shared downstream context: its version pin (every
-        request of a batch shares one pin group)."""
+        request of a batch shares one pin group) plus, when a tracer is
+        attached, an exemplar trace: the first request with a sampled
+        trace lends its ``trace_id``/``parent_span`` (the engine opens
+        one serve span per batch, so one request stands for the whole
+        dispatch)."""
         pin = batch[0].group
-        if pin is None:
+        trace_id = parent = None
+        tracer = self.tracer
+        if tracer is not None:
+            ex = next((r.ctx for r in batch
+                       if r.ctx is not None and r.ctx.trace_id
+                       and tracer.sampled(r.ctx.trace_id)), None)
+            if ex is not None:
+                trace_id, parent = ex.trace_id, ex.parent_span
+        if pin is None and trace_id is None:
             return None
-        return RequestContext(version_pin=pin)
+        return RequestContext(version_pin=pin, trace_id=trace_id,
+                              parent_span=parent)
 
     # ------------------------------------------------------------------ tune
     def reconfigure(self, **changes) -> BatcherConfig:

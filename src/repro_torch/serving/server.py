@@ -76,7 +76,9 @@ class FeatureServer:
 
         if cfg.warm_buckets and engine.cache.enabled:
             engine.handle(deployment).warm(cfg.warm_buckets)
-        self.batcher = DynamicBatcher(serve_batch, cfg.batcher)
+        self.batcher = DynamicBatcher(
+            serve_batch, cfg.batcher,
+            tracer=getattr(engine, "tracer", None))
 
     def _resolve(self, ctx: Optional[RequestContext]) -> DeploymentHandle:
         """One handle per batch — the no-version-mixing pivot."""
@@ -106,13 +108,26 @@ class FeatureServer:
             ctx = RequestContext()
         if ctx.trace_id is None:
             # every request is traceable: the id is generated at the
-            # serving edge when the caller didn't bring one
+            # serving edge when the caller didn't bring one (span
+            # recording still honours the tracer's sampling decision)
             ctx = dataclasses.replace(ctx, trace_id=new_trace_id())
+        tracer = getattr(self.engine, "tracer", None)
+        span = None
+        if tracer is not None:
+            span = tracer.start("server.request", ctx.trace_id,
+                                tags={"deployment": self.deployment})
+            if span is not None:
+                ctx = dataclasses.replace(ctx,
+                                          parent_span=span.span_id)
         call = lambda: self.batcher(key, ts, row, timeout=timeout, ctx=ctx)
-        if self.cfg.hedge_after_s is not None:
-            res = hedged(call, self.cfg.hedge_after_s)
-        else:
-            res = call()
+        try:
+            if self.cfg.hedge_after_s is not None:
+                res = hedged(call, self.cfg.hedge_after_s)
+            else:
+                res = call()
+        finally:
+            if span is not None:
+                tracer.finish(span)
         if isinstance(res, FeatureFrame):
             res.trace_id = ctx.trace_id
         return res

@@ -64,14 +64,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import dsl
-from repro_torch.core.engine import DeploymentHandle, Engine
+from repro_torch.core.engine import DeploymentHandle, Engine, HandleMetrics
 from repro_torch.core.logical import Query
 from repro_torch.core.optimizer import CostModel, OptFlags
 from repro_torch.core.results import (STATUS_DEGRADED, STATUS_OK,
                                       STATUS_SHED, FeatureFrame,
                                       RequestContext)
 from repro_torch.featurestore.table import TableSchema
-from repro_torch.obs.sketch import QuantileSketch
+from repro_torch.obs.flight import FlightRecorder
+from repro_torch.obs.freshness import FreshnessTracker
+from repro_torch.obs.sketch import DriftMonitor, QuantileSketch, RollingSketch
+from repro_torch.obs.trace import Tracer
 from repro_torch.shard import migrate as _migrate
 from repro_torch.shard.resource import AdmissionConfig, ResourceManager
 from repro_torch.shard.ring import HashRing, ModuloRouting, RouteTable, \
@@ -141,9 +144,23 @@ class ShardedHandleMetrics:
     serve_s: float = 0.0
     canary_batches: int = 0
     canary_max_abs_diff: float = 0.0
+    # end-to-end (scatter -> gather) per-batch latency in the rolling
+    # sketch HandleMetrics uses: the replan health gate works the same
+    # when sharded, and the sketch merges exactly with the shards' own
+    latency_s: RollingSketch = dataclasses.field(
+        default_factory=lambda: RollingSketch(
+            window_s=HandleMetrics.LATENCY_WINDOW_S))
+
+    def observe_latency(self, seconds: float) -> None:
+        self.latency_s.observe(float(seconds))
+
+    def latency_percentile(self, pct: float) -> float:
+        return self.latency_s.percentile(pct)
 
     def snapshot(self) -> Dict[str, float]:
-        """JSON-serializable copy."""
+        """JSON-serializable copy (the latency sketch rides along,
+        mergeable)."""
+        sk = self.latency_s.sketch()
         return {
             "requests": self.requests, "batches": self.batches,
             "shed_requests": self.shed_requests,
@@ -153,6 +170,10 @@ class ShardedHandleMetrics:
             "serve_s": self.serve_s,
             "canary_batches": self.canary_batches,
             "canary_max_abs_diff": self.canary_max_abs_diff,
+            "latency_samples": len(self.latency_s),
+            "latency_p50_s": sk.percentile(50),
+            "latency_p99_s": sk.percentile(99),
+            "latency_sketch": sk.to_dict(),
         }
 
 
@@ -290,10 +311,16 @@ class ShardedDeploymentHandle:
                 f"deployment {self.name!r} has {len(self.plan.joins)} "
                 f"LAST JOIN(s); online requests must pass rows= — the "
                 f"join probes read the request row's join-key column(s)")
+        aspan = eng.tracer.start(
+            "admission", trace,
+            parent_id=ctx.parent_span if ctx is not None else None,
+            tags={"deployment": self.name, "rows": B})
         adm = eng.resources.admit(self.name, ctx,
                                   queue_depths=eng.router.queue_depths)
+        if aspan is not None:
+            eng.tracer.finish(aspan, tags={"shed": adm.shed})
         if adm.shed:
-            return self._shed_frame(B, trace)
+            return self._shed_frame(B, trace, kind="admission")
         try:
             cand = None
             pinned = ctx is not None and ctx.version_pin is not None
@@ -334,9 +361,32 @@ class ShardedDeploymentHandle:
         row_arr = (np.asarray(rows, np.float32) if rows is not None
                    else None)
         B = len(karr)
-        parts = eng.router.scatter(self.handles, karr, ts_arr, row_arr,
-                                   ctx=ctx, owners=eng.owners_of(karr))
-        columns, status, _tvers, any_shed = eng.router.gather(parts, B)
+        span = eng.tracer.start(
+            "router.scatter_gather", trace,
+            parent_id=ctx.parent_span if ctx is not None else None,
+            tags={"deployment": self.name, "rows": B})
+        if span is not None:
+            # re-parent the downstream spans (lane.execute, the shard
+            # engine's serve) under this one
+            ctx = (dataclasses.replace(ctx, parent_span=span.span_id)
+                   if ctx is not None else
+                   RequestContext(trace_id=trace,
+                                  parent_span=span.span_id))
+        try:
+            parts = eng.router.scatter(self.handles, karr, ts_arr,
+                                       row_arr, ctx=ctx,
+                                       owners=eng.owners_of(karr))
+            columns, status, _tvers, any_shed = \
+                eng.router.gather(parts, B)
+        except BaseException as e:
+            if span is not None:
+                eng.tracer.finish(span,
+                                  tags={"error": type(e).__name__})
+            raise
+        if span is not None:
+            eng.tracer.finish(
+                span, tags={"n_sub_batches": len(parts),
+                            "shed": bool(any_shed)})
         if any_shed:
             reasons = {it.shed_reason for _, it in parts if it.shed}
             if reasons == {"worker_down"} and self._stale_cap > 0:
@@ -350,7 +400,7 @@ class ShardedDeploymentHandle:
             shed_kind = ("worker_down" if "worker_down" in reasons
                          else "deadline")
             eng.resources.record_shed(kind=shed_kind)
-            return self._shed_frame(B, trace)
+            return self._shed_frame(B, trace, kind=shed_kind)
         self._remember(karr, columns, status)
         wall = time.perf_counter() - t0
         with self._lock:
@@ -358,6 +408,7 @@ class ShardedDeploymentHandle:
             m.requests += B
             m.batches += 1
             m.serve_s += wall
+            m.observe_latency(wall)
         # freshness stamp across touched shards: MIN watermark (the
         # slowest shard bounds the batch) / MAX feature age
         wm = age = None
@@ -368,14 +419,18 @@ class ShardedDeploymentHandle:
             if it.feature_age is not None:
                 age = it.feature_age if age is None \
                     else max(age, it.feature_age)
+        vv = self.version_vector()
+        eng.flight.record(
+            "serve", trace=trace, deployment=self.tag, rows=B,
+            version_vector=list(vv), watermark=wm, feature_age=age,
+            serve_ms=wall * 1e3)
         return FeatureFrame(
             columns, status=status, deployment=self.name,
             version=self.version, trace_id=trace,
             table_version=max((h.table.version for h in self.handles
                                if h is not None), default=-1),
             latency={"serve_s": wall},
-            version_vector=self.version_vector(), watermark=wm,
-            feature_age=age)
+            version_vector=vv, watermark=wm, feature_age=age)
 
     # ------------------------------------------------------ stale tier
     @staticmethod
@@ -437,10 +492,14 @@ class ShardedDeploymentHandle:
                                if h is not None), default=-1),
             version_vector=self.version_vector())
 
-    def _shed_frame(self, B: int, trace) -> FeatureFrame:
+    def _shed_frame(self, B: int, trace,
+                    kind: str = "shed") -> FeatureFrame:
         with self._lock:
             self.metrics.shed_requests += B
             self.metrics.shed_batches += 1
+        self.engine.flight.record("shed", trace=trace,
+                                  deployment=self.tag, rows=B,
+                                  shed_kind=kind)
         return FeatureFrame(
             {n: np.zeros((B,), np.float32)
              for n in self.phys.feature_names},
@@ -559,6 +618,18 @@ class ShardedEngine:
                                   coalesce_delay_s=cfg.coalesce_delay_s,
                                   n_lanes=n_lanes)
         self.resources = ResourceManager(cfg.admission)
+        # shared observability: ONE tracer for the whole tier — the shard
+        # engines record into it (their own constructor-made one is
+        # replaced), so a trace tree assembles in place across admission,
+        # router, lanes and shard serves — and a flight recorder for the
+        # tier's serve and shed records. Each shard engine keeps its own
+        # profiler, freshness and drift; the methods below merge them.
+        self.tracer = Tracer(sample_rate=float(
+            os.environ.get("REPRO_TRACE_SAMPLE", "0") or 0))
+        self.flight = FlightRecorder()
+        for sub in self.shards:
+            sub.tracer = self.tracer
+        self.router.tracer = self.tracer
         # ring routing state: readers (scatter, query_offline) read the
         # route table lock-free — a reader racing a range flip sees either
         # the old owner (which retains a stale copy: correct) or the new
@@ -954,6 +1025,7 @@ class ShardedEngine:
             # 1) runtime + catalog
             dev = self._device_of(s)
             eng = Engine(self.flags, device=dev, **self._engine_kw)
+            eng.tracer = self.tracer
             for spec in self.specs.values():
                 eng.create_table(spec.schema, **spec.create_kw)
             for name, (fn, params) in self._models.items():
@@ -1179,6 +1251,70 @@ class ShardedEngine:
         lines += ["  " + l for l in
                   self._primary().explain(name).splitlines()]
         return "\n".join(lines)
+
+    def explain_analyze(self, target: str) -> str:
+        """Measured-runtime EXPLAIN, merged across shards. ``target`` is
+        a deployment name or an ``EXPLAIN ANALYZE SELECT ...`` statement
+        (matched against deployed queries, like the single engine)."""
+        from repro_torch.obs.profile import OperatorProfiler
+        name = target
+        sql = dsl.strip_explain_analyze(target)
+        if sql is not None:
+            q = dsl.parse_sql(sql)
+            name = next((nm for nm, dep in self.deployments.items()
+                         if dep.query == q), None)
+            if name is None:
+                raise KeyError(
+                    f"EXPLAIN ANALYZE: no live deployment serves this "
+                    f"query (deploy it first); deployed: "
+                    f"{sorted(self.deployments)}")
+        dep = self.handle(name)
+        snaps = [self.shards[s].profiler.snapshot(name)
+                 for s in self._active_ids()]
+        return OperatorProfiler.render(
+            name, dep.version, OperatorProfiler.merge(snaps),
+            n_shards=len(snaps))
+
+    def drain_profile_observations(self, name: str) -> List[Dict]:
+        """Measured-per-operator calibrator feed (control plane): drain
+        every shard profiler's interval accumulator."""
+        obs: List[Dict] = []
+        for s in self._active_ids():
+            obs.extend(self.shards[s].profiler.drain_observations(name))
+        return obs
+
+    # ----------------------------------------------------------- freshness
+    def freshness_snapshot(self) -> Dict[str, Dict[str, object]]:
+        """Cross-shard freshness: the shards' snapshots merged exactly —
+        sketches add bucket-wise, counters sum, watermarks take the MIN
+        (the slowest shard bounds global freshness)."""
+        return FreshnessTracker.merge(
+            [self.shards[s].freshness_snapshot()
+             for s in self._active_ids()])
+
+    def freshness_export(self) -> Dict[str, object]:
+        """Flat ``freshness`` metrics group (merged across shards)."""
+        return FreshnessTracker.export(self.freshness_snapshot())
+
+    def _drift_monitor(self) -> DriftMonitor:
+        return DriftMonitor.merge([self.shards[s].drift.snapshot()
+                                   for s in self._active_ids()])
+
+    def drift_report(self) -> Dict[str, Dict[str, float]]:
+        """Per-column live-vs-reference PSI, merged across shards."""
+        return self._drift_monitor().report()
+
+    def drift_export(self) -> Dict[str, float]:
+        return self._drift_monitor().export()
+
+    def pin_drift_reference(self) -> List[str]:
+        """Pin every shard's current live distribution as its drift
+        reference (each shard pins locally; the merged report then
+        compares merged-live vs merged-reference)."""
+        cols: Set[str] = set()
+        for s in self._active_ids():
+            cols.update(self.shards[s].pin_drift_reference())
+        return sorted(cols)
 
     def latency_decomposition(self) -> Dict[str, float]:
         # counters sum across shards; rates are recomputed from the

@@ -187,6 +187,8 @@ class _Lane:
         self._rr = 0
         self.stats = {"dispatches": 0, "rows": 0}
         self.thread: Optional[threading.Thread] = None
+        # assigned by ShardRouter.tracer = ... (sharded engine wiring)
+        self.tracer = None
 
     def start(self) -> None:
         self.thread = threading.Thread(target=self._loop, daemon=True,
@@ -306,6 +308,26 @@ class _Lane:
                  else np.zeros((len(it), V), np.float32) for it in live])
         B = len(keys)
         step = self.dispatch_rows
+        # tracing: one exemplar span per coalesced dispatch — the first
+        # live item with a sampled trace lends its context; the shard
+        # engine's serve re-parents under this span through a forwarded
+        # context without a deadline
+        span = None
+        ctx_fwd = None
+        tracer = self.tracer
+        if tracer is not None:
+            ex = next((it.ctx for it in live
+                       if it.ctx is not None and it.ctx.trace_id
+                       and tracer.sampled(it.ctx.trace_id)), None)
+            if ex is not None:
+                span = tracer.start(
+                    "lane.execute", ex.trace_id, parent_id=ex.parent_span,
+                    tags={"lane": self.lane_id, "shard": sq.shard_id,
+                          "n_coalesced": len(live)})
+            if span is not None:
+                from repro_torch.core.results import RequestContext
+                ctx_fwd = RequestContext(trace_id=ex.trace_id,
+                                         parent_span=span.span_id)
         col_parts: List[Dict[str, np.ndarray]] = []
         st_parts: List[np.ndarray] = []
         tver = -1
@@ -328,9 +350,13 @@ class _Lane:
                     if re is not None:
                         re = np.concatenate(
                             [re, np.repeat(re[-1:], pad, axis=0)])
-                # pad rows are shape filler: n_live tells the engine
-                # which rows are real
-                frame = handle.request(ke, te, re, n_live=nb)
+                # pad rows are shape filler: the engine serves them but
+                # leaves them out of the freshness, drift and flight
+                # observations
+                kw = {"n_live": nb}
+                if ctx_fwd is not None:
+                    kw["ctx"] = ctx_fwd
+                frame = handle.request(ke, te, re, **kw)
                 col_parts.append(
                     {k: np.asarray(v)[:nb] for k, v in frame.columns.items()})
                 st_parts.append(np.asarray(frame.status)[:nb])
@@ -350,6 +376,10 @@ class _Lane:
             # whole-batch STATUS_SHED
             reason = "worker_down" if isinstance(e, ShardDownError) \
                 else "deadline"
+            # the span closes before any caller wakes, so a returned
+            # request finds its whole trace
+            if span is not None:
+                tracer.finish(span, tags={"shed": reason})
             for it in live:
                 it.shed = True
                 it.shed_reason = reason
@@ -357,10 +387,14 @@ class _Lane:
                 it.done.set()
             return
         except BaseException as e:
+            if span is not None:
+                tracer.finish(span, tags={"error": type(e).__name__})
             for it in live:
                 it.error = e
                 it.done.set()
             return
+        if span is not None:
+            tracer.finish(span, tags={"rows": B})
         cols = {k: (np.concatenate([p[k] for p in col_parts])
                     if len(col_parts) > 1 else col_parts[0][k])
                 for k in col_parts[0]}
@@ -411,6 +445,20 @@ class ShardRouter:
         for lane in self.lanes:
             lane.start()
         self._closed = False
+        self._tracer = None
+
+    # ------------------------------------------------------------- tracing
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, t) -> None:
+        """Share one tracer with every lane (sharded-engine wiring);
+        lanes open one ``lane.execute`` span per coalesced dispatch."""
+        self._tracer = t
+        for lane in self.lanes:
+            lane.tracer = t
 
     # ------------------------------------------------------------- scatter
     def submit(self, shard: int, item: SubBatch) -> SubBatch:
@@ -468,6 +516,22 @@ class ShardRouter:
         return columns, status, tvers, False
 
     # ----------------------------------------------------------------- tune
+    def set_dispatch_rows(self, rows: int) -> int:
+        """Retune the coalescing chunk size live (control-plane knob).
+        Lanes read it per drain/execute, so the next dispatch uses the
+        new chunking; ``max_drain_rows`` keeps its 4x relation. Returns
+        the previous value."""
+        if rows < 1:
+            raise ValueError(f"dispatch_rows must be >= 1, got {rows}")
+        prev = self.dispatch_rows
+        self.dispatch_rows = rows
+        for lane in self.lanes:
+            with lane.cv:
+                lane.dispatch_rows = rows
+                lane.max_drain_rows = 4 * rows
+                lane.cv.notify_all()
+        return prev
+
     def set_coalesce_delay(self, seconds: float) -> float:
         """Retune how long an otherwise-idle lane waits to fill a chunk.
         Returns the previous value."""

@@ -1093,3 +1093,172 @@ def test_preagg_tier_is_independent_of_insert_batching_on_the_card():
             assert torch.equal(
                 getattr(tabs[d].preagg, f).cpu()[order[d]],
                 getattr(want.preagg, f)[order["cpu"]]), (d, f)
+
+
+# ---------------------------------------------------------------------------
+# control and observability on the card
+# ---------------------------------------------------------------------------
+
+OBS_SQL = """SELECT SUM(a) OVER w1 AS s1, COUNT(a) OVER w1 AS c1,
+  LAST(a) OVER w1 AS l1, MAX(b) OVER w2 AS mx2, COUNT(b) OVER w2 AS c2
+FROM events
+WINDOW w1 AS (PARTITION BY k ORDER BY ts
+              ROWS BETWEEN 10 PRECEDING AND CURRENT ROW),
+       w2 AS (PARTITION BY k ORDER BY ts
+              ROWS BETWEEN 100 PRECEDING AND CURRENT ROW)
+"""
+OBS_EXACT = ("c1", "l1", "mx2", "c2")     # w1 a raw scan (LAST), w2 preagg
+
+
+def _obs_engine(device, model=None):
+    from repro_torch.core.engine import Engine
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=8000, n_keys=40, n_features=3, seed=21))
+    eng = Engine(device=device, cost_model=model)
+    eng.create_table(TableSchema("events", "k", "ts", ("a", "b", "c")),
+                     max_keys=64, capacity=256, bucket_size=32)
+    eng.insert("events", keys.tolist(), ts.tolist(), rows)
+    eng.deploy("f", OBS_SQL)
+    return eng, float(ts.max())
+
+
+def _obs_batches(t_max, n=6, B=48, seed=8):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 44, B).tolist(),             # 40..43 unknown
+             (t_max + 1.0 + i + np.arange(B, dtype=np.float32)).tolist())
+            for i in range(n)]
+
+
+def test_replan_flips_preagg_to_raw_scan_kernels():
+    """A re-plan with ``preagg_el=10`` moves w2 off the pre-aggregate
+    tier: the launch counters show ``fused_window`` where
+    ``window_agg`` and ``preagg_window`` launched, and the frames equal
+    a CPU engine's on the new plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.control import Replanner
+    from repro_torch.core.optimizer import CostModel
+    eng, t_max = _obs_engine("cuda")
+    (rk, rt), = _obs_batches(t_max, n=1)
+    counters = (window_agg, fused_window, preagg_window)
+    for m in counters:
+        m.launches = 0
+    before = eng.request("f", rk, rt)
+    assert window_agg.launches and preagg_window.launches
+    assert fused_window.launches == 0
+    rp = Replanner(eng, "f", min_health_batches=2)
+    assert rp.maybe_replan(CostModel(preagg_el=10.0))["action"] == "swapped"
+    assert dict(eng.handle("f").plan.window_impl)["w2"] != "preagg"
+    for m in counters:
+        m.launches = 0
+    after = eng.request("f", rk, rt)
+    assert fused_window.launches
+    assert window_agg.launches == 0 and preagg_window.launches == 0
+    cpu, _ = _obs_engine("cpu", model=CostModel(preagg_el=10.0))
+    want = cpu.request("f", rk, rt)
+    np.testing.assert_array_equal(after.status, want.status)
+    for c in want:
+        if c in OBS_EXACT:
+            np.testing.assert_array_equal(after[c], want[c], err_msg=c)
+            np.testing.assert_array_equal(after[c], before[c], err_msg=c)
+        else:
+            np.testing.assert_allclose(after[c], want[c], rtol=2e-4,
+                                       atol=1e-4, err_msg=c)
+    for e in (eng, cpu):
+        e.close()
+
+
+def _sketch_moved(a, b):
+    """Values in other buckets between two sketch dicts of one column."""
+    da = {("p", i): c for i, c in a["pos"]}
+    da.update({("n", i): c for i, c in a["neg"]})
+    db = {("p", i): c for i, c in b["pos"]}
+    db.update({("n", i): c for i, c in b["neg"]})
+    da["z"], db["z"] = a["zero"], b["zero"]
+    return sum(abs(da.get(k, 0) - db.get(k, 0))
+               for k in set(da) | set(db)) / 2
+
+
+def test_freshness_and_drift_on_the_card_equal_the_cpu():
+    """The same requests on a card engine and a CPU engine: equal
+    freshness snapshots (age, ingest-column and key sketches, watermark,
+    versions) bit for bit, equal drift sketches bit for bit for the
+    columns the frames hold exactly; the sum column ``s1`` can move a
+    value into a neighbouring bucket by rounding, so it is held to equal
+    counts and at most 2 % of its values in other buckets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    engines = {d: _obs_engine(d) for d in ("cuda", "cpu")}
+    t_max = engines["cpu"][1]
+    for i, (rk, rt) in enumerate(_obs_batches(t_max)):
+        for d, (eng, _) in engines.items():
+            eng.request("f", rk, rt)
+            if i == 2:
+                eng.pin_drift_reference()
+    snaps = {}
+    for d, (eng, _) in engines.items():
+        f = eng.freshness_snapshot()
+        for ent in f.values():
+            ent.pop("published_at")
+        snaps[d] = (f, eng.drift.snapshot(), eng.drift_report())
+    (fa, da, ra), (fb, db, rb) = snaps["cuda"], snaps["cpu"]
+    assert fa == fb
+    assert fa["events"]["serve_rows"] == 6 * 48
+    for side in ("live", "ref"):
+        assert sorted(da[side]) == sorted(db[side])
+        for c in da[side]:
+            if c in OBS_EXACT:
+                assert da[side][c] == db[side][c], (side, c)
+            else:
+                assert da[side][c]["count"] == db[side][c]["count"]
+                assert _sketch_moved(da[side][c], db[side][c]) <= max(
+                    2, 0.02 * db[side][c]["count"]), (side, c)
+    for c in OBS_EXACT:
+        assert ra[c] == rb[c], c
+    for eng, _ in engines.values():
+        eng.close()
+
+
+def test_collectors_neither_sync_nor_copy():
+    """``MetricsCollector.sample()`` and ``freshness_snapshot()`` run on
+    the control plane's thread while requests are served: they read host
+    state only. Across one call of each, torch.cuda.synchronize is never
+    called, and the profiler sees no kernel, no copy and no sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.control import MetricsCollector
+    eng, t_max = _obs_engine("cuda")
+    for rk, rt in _obs_batches(t_max):
+        eng.request("f", rk, rt)
+    col = MetricsCollector(eng)
+    col.sample()
+    torch.cuda.synchronize()
+    calls = [0]
+    real = torch.cuda.synchronize
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    def device_events(fn):
+        # the profiler syncs the card itself when it stops: count what a
+        # no-op profile shows and what fn's shows, and compare
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize = counted
+            try:
+                fn()
+            finally:
+                torch.cuda.synchronize = real
+        return sorted(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      or any(x in e.name.lower() for x in
+                             ("memcpy", "memset", "synchronize",
+                              "launchkernel")))
+
+    idle = device_events(lambda: None)
+    got = device_events(lambda: (col.sample(), eng.freshness_snapshot()))
+    assert calls[0] == 0
+    assert got == idle
+    eng.close()

@@ -85,18 +85,38 @@ then:
    admission, router lanes and shard engines and EXPLAIN ANALYZE merged
    over the shards; a FeatureServer round of 6 clients; peak device
    memory;
-10. holds the two attention kernels against their plain versions, bf16 and
+10. with that engine closed too, the same node on four worker processes
+   (``ShardedEngine(backend="process")``, one warm standby, a WAL dir):
+   spawn seconds and the workers' pids, load seconds against the clone
+   bound with the card's peak memory in use (``mem_get_info``, every
+   process's), frames and ``query_offline`` against the unsharded
+   engine's, batch p50/p99 at B=100 and B=500 beside the in-process
+   sharded and unsharded ones, the workers' launch counters (zeroed
+   before, read after), one traced request whose workers' spans nest in
+   their lanes, ``add_shard`` (the standby adopted) then
+   ``remove_shard(0)`` under a serving thread, a worker SIGKILLed under
+   that thread (every batch returns, wholly SHED or OK rows equal to the
+   reference; ready time; then the killed shard's bulk-loaded keys
+   UNKNOWN_KEY, the rest equal); at check size, 2 workers fed through a
+   ShardedPipeline with a WAL, SIGKILLed under traffic with and without
+   a standby (MTTR; frames bit-identical to a never-killed card engine;
+   a ControlPlane tick reports ``recovering``), and the seeded fault
+   plan ``seed=1337,drop=0.01,dup=0.02,corrupt=0.01`` over 200 batches
+   (all OK and equal, retries and corrupt frames in the registry's
+   ``transport`` group); no worker outlives the phase and the card's
+   memory comes back within 1 GiB;
+11. holds the two attention kernels against their plain versions, bf16 and
    f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
    lengths, query counts around the 64-row tiles; decode in prefix mode
    with and without a window, at lengths around its split edges, past
    the cache, and in ring mode past the window): ``rtol = atol = 2e-2``
    in bf16, ``2e-5`` in f32;
-11. holds ``ModelServer`` for qwen2-1.5b on the card against the same
+12. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
    ``1e-4`` with equal greedy tokens, bf16 logits within a relative L2 of
    ``2e-2``;
-12. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
+13. drives the model main path: ``ModelServer`` for qwen2-1.5b at full
    width and depth (bf16, random seeded weights), 16 slots, a 1024-long
    cache: 8 prompts of 512, 32 decode steps, 8 prompts of 384, 128 decode
    steps; asserts finite logits and that both attention kernels' launch
@@ -104,7 +124,7 @@ then:
    tokens/s, peak device memory and the device-busy share of one decode
    step; then times each attention kernel, its plain version and
    ``scaled_dot_product_attention`` on the main path's arguments;
-13. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
+14. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -224,6 +244,8 @@ class Sizes:
     shards: int = 4              # the sharded fraud node
     shard_batches: int = 100     # per deployment and batch size
     shard_server_requests: int = 100   # per client, 6 clients
+    proc_batches: int = 100      # process node: per deployment, batch size
+    fault_batches: int = 200     # process node: under the fault plan
 
 
 def log(msg: str) -> None:
@@ -285,21 +307,24 @@ def fill_merchants(eng, ts: np.ndarray, sz: Sizes) -> None:
                    .astype(np.float32))
 
 
-def deploy_all(eng, model_params) -> None:
-    """The three deployments; PREDICT is a logistic scorer over
-    standardised features with seeded random weights. Its dot product is
-    summed column by column, so a row's score does not depend on the
-    batch it came in: a matrix product's rounding does (the BLAS picks
-    its blocking by shape), and a sharded node serves each row in a
-    sub-batch of another size than the unsharded one."""
-    def scorer(p, feats):
-        mu, sd, w, b = p
-        z = (feats - mu) / sd * w
-        acc = b + z[:, 0]
-        for j in range(1, z.shape[1]):
-            acc = acc + z[:, j]
-        return torch.sigmoid(acc)
+def fraud_scorer(p, feats):
+    """PREDICT's logistic scorer over standardised features. Its dot
+    product is summed column by column, so a row's score does not depend
+    on the batch it came in: a matrix product's rounding does (the BLAS
+    picks its blocking by shape), and a sharded node serves each row in a
+    sub-batch of another size than the unsharded one. A module-level
+    function, so a process-backend worker can import it by name."""
+    mu, sd, w, b = p
+    z = (feats - mu) / sd * w
+    acc = b + z[:, 0]
+    for j in range(1, z.shape[1]):
+        acc = acc + z[:, j]
+    return torch.sigmoid(acc)
 
+
+def deploy_all(eng, model_params, scorer=fraud_scorer) -> None:
+    """The three deployments; PREDICT scores with ``scorer`` and seeded
+    random weights (``scorer_params``)."""
     eng.register_model("fraud", scorer, model_params)
     for name, sql in DEPLOYMENTS.items():
         eng.deploy(name, sql)
@@ -2516,6 +2541,718 @@ def sharded_node(ref: Dict[str, object], unsharded: Dict[str, dict],
     return out
 
 
+# ---------------------------------------------------------------------------
+# the process-backed node: one worker process per shard on the card
+# ---------------------------------------------------------------------------
+
+PROC_FAULT_PLAN = "seed=1337,drop=0.01,dup=0.02,corrupt=0.01"
+
+
+def card_used_bytes(device) -> int:
+    """Bytes in use on the whole card, every process's (0 on the CPU)."""
+    if device == "cpu":
+        return 0
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def compute_apps() -> List[str]:
+    """``pid, used_memory`` of each process on the card, as nvidia-smi
+    lists them (a container may hide the processes' own pids)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+class CardPeak:
+    """The card's largest bytes in use while the block runs, sampled from
+    ``mem_get_info`` every 20 ms on a thread (it sees the workers' memory,
+    which the parent's allocator statistics do not)."""
+
+    def __init__(self, device):
+        import threading
+        self.device = device
+        self.peak = card_used_bytes(device)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, card_used_bytes(self.device))
+
+    def __enter__(self) -> "CardPeak":
+        if self.device != "cpu":
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(10.0)
+        self.peak = max(self.peak, card_used_bytes(self.device))
+
+
+def _exited(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def _await(pred: Callable[[], bool], timeout: float, what: str) -> float:
+    """Poll ``pred`` every 20 ms; raise if it is still false after
+    ``timeout`` seconds; return the seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _recovered(se, restarts: int, timeout: float = 300.0) -> float:
+    """Seconds until the supervisor has made ``restarts`` respawns in all
+    and every worker serves again."""
+    return _await(lambda: se.worker_restarts >= restarts
+                  and not se.recovering, timeout,
+                  f"recovery to {restarts} respawn(s)")
+
+
+def check_rows(fr, want, keys, what: str, std_atol: float, sc_atol: float,
+               unknown_ok=frozenset()) -> str:
+    """A frame served while a shard is down or back without its data:
+    either wholly SHED, or every OK row equal to the reference under
+    ``_check_sharded``'s rules, DEGRADED rows (the stale tier's last row
+    served for that key, possibly for another request time or row: not
+    comparable) and UNKNOWN_KEY only for keys in ``unknown_ok``
+    (``keys`` are the request's). Returns the frame's worst status."""
+    from repro_torch.core.results import (STATUS_DEGRADED, STATUS_OK,
+                                          STATUS_SHED, STATUS_UNKNOWN_KEY,
+                                          FeatureFrame)
+    st = np.asarray(fr.status)
+    if (st == STATUS_SHED).any():
+        if not (st == STATUS_SHED).all():
+            raise AssertionError(f"{what}: a mixed shed batch {st}")
+        return "shed"
+    unk = st == STATUS_UNKNOWN_KEY
+    if unk.any() and not set(np.asarray(keys)[unk].tolist()) <= unknown_ok:
+        raise AssertionError(f"{what}: UNKNOWN_KEY for a key whose shard "
+                             f"kept its data")
+    rows, deg = st == STATUS_OK, st == STATUS_DEGRADED
+    if not (rows | deg | unk).all():
+        raise AssertionError(f"{what}: unexpected statuses {set(st)}")
+    cols = [c for c in want if not c.startswith("__")]
+    if deg.any():
+        # the stale tier keeps the plan's features, not PREDICT's output
+        # (in the JAX package too): a degraded frame has no score column
+        cols = [c for c in cols if c in fr.columns]
+    sub = FeatureFrame({c: np.asarray(fr[c])[rows] for c in cols},
+                       status=np.full(int(rows.sum()), STATUS_OK, np.int8))
+    _check_sharded(sub, dict({c: want[c][rows] for c in cols},
+                             __status=want["__status"][rows],
+                             __wrapped=want["__wrapped"][rows]),
+                   what, std_atol, sc_atol)
+    return "degraded" if deg.any() else "unknown" if unk.any() else "ok"
+
+
+def serving_thread(se, sets, check):
+    """A thread serving ``sets`` round robin, each frame through
+    ``check(fr, name, B)`` (its return value counted), every request with
+    a 30 s deadline; ``stop()`` ends it and returns the counts, raising
+    the first error it met."""
+    import threading
+    from repro_torch.core.results import RequestContext
+    stop, started = threading.Event(), threading.Event()
+    seen: Dict[str, object] = {"batches": 0, "slowest_s": 0.0}
+    errors: List[BaseException] = []
+
+    def loop():
+        i = 0
+        try:
+            while not stop.is_set():
+                (name, B), (rk, rts, rr) = sets[i % len(sets)]
+                i += 1
+                t0 = time.perf_counter()
+                fr = se.request(name, rk, rts, rows=rr,
+                                ctx=RequestContext.with_timeout(30.0))
+                dt = time.perf_counter() - t0
+                kind = check(fr, name, B)
+                seen[kind] = seen.get(kind, 0) + 1
+                seen["batches"] += 1
+                seen["slowest_s"] = max(seen["slowest_s"], dt)
+                started.set()
+        except BaseException as e:          # raised again by stop()
+            errors.append(e)
+            started.set()
+
+    th = threading.Thread(target=loop, name="process-serve")
+    th.start()
+    if not started.wait(300.0):
+        raise AssertionError("the serving thread stalled")
+
+    def halt() -> Dict[str, object]:
+        stop.set()
+        th.join(600.0)
+        if errors:
+            raise errors[0]
+        if th.is_alive():
+            raise AssertionError(f"the serving thread hung: {seen}")
+        return dict(seen)
+    return halt
+
+
+def process_full(ref, unsharded, sharded, sz: Sizes, device, tmp: str,
+                 scorer) -> Dict[str, object]:
+    """The fraud node at full size on ``sz.shards`` worker processes
+    (``ShardConfig(backend="process")``, one warm standby). Returns its
+    report; every process it started has exited when it returns."""
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    from repro_torch.featurestore.table import TableSchema
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    out: Dict[str, object] = {}
+    started_pids = set()
+    t0 = time.perf_counter()
+    se = ShardedEngine(ShardConfig(
+        n_shards=sz.shards, backend="process", standby_workers=1,
+        wal_dir=os.path.join(tmp, "wal-full")), device=device)
+    out["spawn_s"] = time.perf_counter() - t0
+    se.flight.out_dir = tmp
+    try:
+        started_pids.update(se.backend.pids)
+        out["worker_pids"] = [c.proc.pid for c in se.shards]
+        log(f"process node: {sz.shards} workers up in {out['spawn_s']:.3f} "
+            f"s (pids {out['worker_pids']}, standby "
+            f"{se.backend.standby.pids}); card in use "
+            f"{card_used_bytes(device)} bytes; per process "
+            f"{compute_apps() if device != 'cpu' else []}")
+        se.create_table(TableSchema("events", key_col="user", ts_col="ts",
+                                    value_cols=("amount", "lat", "lon",
+                                                "merchant")),
+                        max_keys=sz.keys, capacity=sz.capacity,
+                        bucket_size=sz.bucket)
+        se.create_table(TableSchema("merchants", key_col="merchant",
+                                    ts_col="mts",
+                                    value_cols=("risk", "volume")),
+                        max_keys=sz.merchants, capacity=64, bucket_size=8,
+                        replicate=True)
+        keys, ts, rows = generate_events(EventStreamConfig(
+            n_events=sz.events, n_keys=sz.keys, n_features=4, seed=0))
+        with CardPeak(device) as peak:
+            t0 = time.perf_counter()
+            se.insert("events", keys, ts, rows)
+            load_s = time.perf_counter() - t0
+        fill_merchants(se, ts, sz)
+        deploy_all(se, scorer_params(rows, device), scorer)
+        bound = sharded["load"]["clone_bound_s"]
+        out["load"] = {"seconds": load_s,
+                       "events_per_s": sz.events / load_s,
+                       "clone_bound_s": bound,
+                       "inprocess_seconds": sharded["load"]["seconds"],
+                       "card_peak_bytes": peak.peak,
+                       "card_after_bytes": card_used_bytes(device)}
+        log(f"process load: {sz.events} events into {sz.shards} workers in "
+            f"{load_s:.3f} s (in process {sharded['load']['seconds']:.3f} "
+            f"s; clone bound {bound:.3f} s); card at most {peak.peak} "
+            f"bytes in use during the load; per process "
+            f"{compute_apps() if device != 'cpu' else []}")
+        log(se.explain("fraud_scored"))
+        std_atol = 4e-4 * float(np.abs(rows[:, 0]).max())
+        sc_atol = score_atol(rows, std_atol)
+        for (name, B), want in ref["frames"].items():
+            want["__wrapped"] = np.isin(ref["sets"][(name, B)][0],
+                                        list(ref["wrapped"]))
+
+        def check_all(what: str, unknown_ok=frozenset()) -> Dict[str, int]:
+            kinds: Dict[str, int] = {}
+            for (name, B), (rk, rts, rr) in ref["sets"].items():
+                k = check_rows(se.request(name, rk, rts, rows=rr),
+                               ref["frames"][(name, B)], rk,
+                               f"{what} {name} B={B}", std_atol, sc_atol,
+                               unknown_ok)
+                kinds[k] = kinds.get(k, 0) + 1
+            return kinds
+
+        # ---- correctness: online, offline --------------------------------
+        exact = 0
+        for (name, B), (rk, rts, rr) in ref["sets"].items():
+            fr = se.request(name, rk, rts, rows=rr)
+            want = ref["frames"][(name, B)]
+            if len(fr.version_vector) != sz.shards:
+                raise AssertionError(f"process {name}: version vector "
+                                     f"{fr.version_vector}")
+            _check_sharded(fr, want, f"process {name} B={B}", std_atol,
+                           sc_atol)
+            exact += all(np.array_equal(np.asarray(fr[c]), want[c])
+                         for c in fr.columns)
+        t0 = time.perf_counter()
+        for name in DEPLOYMENTS:
+            res = se.query_offline(name)
+            got = _sorted_offline(res, se.handle(name).phys.feature_names)
+            for c, v in ref["offline"][name].items():
+                if not np.array_equal(got[c], v):
+                    raise AssertionError(f"process offline {name}: {c} "
+                                         f"differs")
+        out["offline_s"] = time.perf_counter() - t0
+        log(f"process == unsharded: {len(ref['sets'])} request sets under "
+            f"the sharded rules, {exact} of them bit for bit in every "
+            f"column; query_offline equal (sorted by key, ts) for the "
+            f"three deployments in {out['offline_s']:.3f} s")
+        # ---- serving: this path's launch counters, zeroed first ----------
+        for c in se.shards:
+            c.launch_counts(reset=True)
+        e0 = [c.stats.snapshot() for c in se.shards]
+        d0 = se.router.stats()["dispatches"]
+        report: Dict[str, dict] = {}
+        for name in DEPLOYMENTS:
+            for B in sz.batches:
+                lat: List[float] = []
+                t0 = time.perf_counter()
+                for rk, rts, rr in request_batches(keys, ts, rows, B,
+                                                   sz.proc_batches, seed=B):
+                    t1 = time.perf_counter()
+                    fr = se.request(name, rk, rts, rows=rr)
+                    lat.append(time.perf_counter() - t1)
+                    check_frame(fr, name, B)
+                wall = time.perf_counter() - t0
+                key = f"{name}/B={B}"
+                report[key] = dict(
+                    {f"batch_{k}": v for k, v in _pcts(lat).items()},
+                    requests_per_s=B * sz.proc_batches / wall,
+                    inprocess_p50_ms=sharded["serve"][key]["batch_p50_ms"],
+                    inprocess_p99_ms=sharded["serve"][key]["batch_p99_ms"],
+                    unsharded_p50_ms=unsharded[key]["batch_p50_ms"],
+                    unsharded_p99_ms=unsharded[key]["batch_p99_ms"])
+                r = report[key]
+                log(f"process serve {key}: batch p50 "
+                    f"{r['batch_p50_ms']:.4f} ms, p99 "
+                    f"{r['batch_p99_ms']:.4f} ms; in process "
+                    f"{r['inprocess_p50_ms']:.4f} / "
+                    f"{r['inprocess_p99_ms']:.4f}; unsharded "
+                    f"{r['unsharded_p50_ms']:.4f} / "
+                    f"{r['unsharded_p99_ms']:.4f}; "
+                    f"{r['requests_per_s']:.1f} req/s")
+        counts = {k: 0 for k in KERNELS}
+        for c in se.shards:
+            for k, v in c.launch_counts().items():
+                counts[k] += v
+        e1 = [c.stats.snapshot() for c in se.shards]
+        disp = se.router.stats()["dispatches"] - d0
+        stats_launches = sum(b["kernel_launches"] - a["kernel_launches"]
+                             for a, b in zip(e0, e1))
+        # a worker's own serve clock per sub-batch, the 4 serving at once,
+        # then one serving alone (every key of a batch on one shard)
+        serve_ms = sum(b["serve_s"] - a["serve_s"]
+                       for a, b in zip(e0, e1)) / max(disp, 1) * 1e3
+        out["solo"] = process_solo(se, keys, ts, rows, sz)
+        out["solo"]["worker_serve_ms_all_serving"] = serve_ms
+        log(f"process worker serve per sub-batch: {serve_ms:.4f} ms with "
+            f"all {sz.shards} serving, {out['solo']['worker_serve_ms']:.4f}"
+            f" ms alone ({out['solo']})")
+        missing = [k for k in KERNELS if counts[k] == 0]
+        if missing or stats_launches <= 0:
+            raise AssertionError(f"the process serve phase never launched "
+                                 f"{missing} (engine stats: "
+                                 f"{stats_launches})")
+        # the lanes' coalescing wait: the same batches without it
+        prev = se.router.set_coalesce_delay(0.0)
+        name, B = "serve_features", sz.batches[-1]
+        lat = []
+        for rk, rts, rr in request_batches(keys, ts, rows, B,
+                                           sz.proc_batches, seed=B):
+            t1 = time.perf_counter()
+            check_frame(se.request(name, rk, rts, rows=rr), name, B)
+            lat.append(time.perf_counter() - t1)
+        se.router.set_coalesce_delay(prev)
+        report[f"{name}/B={B}"]["no_coalesce_wait"] = _pcts(lat)
+        log(f"process serve {name}/B={B} with coalesce_delay_s=0: "
+            f"{_pcts(lat)}")
+        out["serve"] = report
+        out["launches"] = counts
+        out["stats_kernel_launches"] = stats_launches
+        log(f"process serve phase: the workers' launch counters {counts}; "
+            f"their engine stats count {stats_launches} plan launches")
+        out["trace"] = process_trace(se, ref, sz)
+        txt = se.explain_analyze("serve_features")
+        if f"(merged across {sz.shards} shards)" not in txt:
+            raise AssertionError(f"process EXPLAIN ANALYZE: {txt}")
+        log("process EXPLAIN ANALYZE, the workers' profiles over RPC:\n"
+            + txt)
+        # ---- reshard under a serving thread ------------------------------
+        small = [(k, v) for k, v in ref["sets"].items()
+                 if k[1] == min(sz.batches)]
+        halt = serving_thread(se, small, lambda fr, name, B: check_rows(
+            fr, ref["frames"][(name, B)], ref["sets"][(name, B)][0],
+            f"reshard {name}", std_atol, sc_atol))
+        try:
+            t0 = time.perf_counter()
+            s_new = se.add_shard()
+            add_s = time.perf_counter() - t0
+            started_pids.update(se.backend.pids)
+            card_add = card_used_bytes(device)
+            t0 = time.perf_counter()
+            moved = se.remove_shard(0)
+            remove_s = time.perf_counter() - t0
+        finally:
+            seen = halt()
+        out["reshard"] = {"add_shard_s": add_s, "remove_shard_s": remove_s,
+                          "new_shard": s_new, "events_moved": moved,
+                          "adopted": bool(se.shards[s_new].proc.adopted),
+                          "card_after_add_bytes": card_add,
+                          "card_after_remove_bytes":
+                              card_used_bytes(device), "served": seen,
+                          "after": check_all("after the reshard")}
+        log(f"process reshard under a serving thread: add_shard {add_s:.3f}"
+            f" s (standby adopted: {out['reshard']['adopted']}), card "
+            f"{card_add} bytes in use; remove_shard(0) {remove_s:.3f} s "
+            f"({moved} events moved), card {card_used_bytes(device)} "
+            f"bytes; batches {seen}")
+        # ---- SIGKILL one worker under the serving thread -----------------
+        out["kill"] = process_kill(se, ref, sz, keys, std_atol, sc_atol,
+                                   small, check_all)
+        started_pids.update(se.backend.pids)
+    finally:
+        started_pids.update(se.backend.pids)
+        se.close()
+    left = [p for p in sorted(started_pids) if not _exited(p)]
+    if left:
+        raise AssertionError(f"process node: {left} outlived close()")
+    return out
+
+
+def process_solo(se, keys, ts, rows, sz: Sizes, n: int = 40
+                 ) -> Dict[str, float]:
+    """``n`` B=100 serve_features batches whose keys all live on one
+    shard: one worker serves while the others idle. Its serve clock per
+    batch against the batch p50 shows what the workers cost each other
+    (one card, one host) when all four serve at once."""
+    name, B = "serve_features", sz.batches[0]
+    s = se._active_ids()[1]
+    mine = keys[se.owners_of(keys) == s]
+    rng = np.random.default_rng(77)
+    c = se.shards[s]
+    e0 = c.stats.snapshot()
+    lat = []
+    for i in range(n):
+        idx = rng.integers(0, len(mine), B)
+        rk = mine[idx]
+        rts = np.full(B, float(ts.max()) + 1.0 + i, np.float32)
+        rr = rows[rng.integers(0, len(rows), B)]
+        t1 = time.perf_counter()
+        check_frame(se.request(name, rk, rts, rows=rr), name, B)
+        lat.append(time.perf_counter() - t1)
+    e1 = c.stats.snapshot()
+    return dict(_pcts(lat), shard=s,
+                worker_serve_ms=(e1["serve_s"] - e0["serve_s"]) / n * 1e3)
+
+
+def process_trace(se, ref, sz: Sizes) -> Dict[str, object]:
+    """One traced B=100 fraud_scored request: the workers' engine.serve
+    spans, re-based onto this clock, nest inside their lanes' windows and
+    carry their kernel children."""
+    from repro_torch.core.results import RequestContext
+    name, B = "fraud_scored", sz.batches[0]
+    rk, rts, rr = ref["sets"][(name, B)]
+    se.tracer.set_sample_rate(1.0)
+    try:
+        check_frame(se.request(name, rk, rts, rows=rr,
+                               ctx=RequestContext(trace_id="smoke-proc")),
+                    name, B)
+    finally:
+        se.tracer.set_sample_rate(0.0)
+    spans = se.tracer.trace("smoke-proc")
+    lanes = {s.span_id: s for s in spans if s.name == "lane.execute"}
+    serves = [s for s in spans if s.name == "engine.serve"]
+    kernels = [s for s in spans if s.name.startswith("kernel.")
+               and any(s.parent_id == v.span_id for v in serves)]
+    bad = [s for s in serves if s.parent_id not in lanes
+           or not (lanes[s.parent_id].start <= s.start <= s.end
+                   <= lanes[s.parent_id].end)]
+    if not serves or bad or not kernels:
+        raise AssertionError(f"process trace: {len(serves)} serves, "
+                             f"{len(bad)} outside their lane, "
+                             f"{len(kernels)} kernel spans")
+    tree = se.tracer.walk(se.tracer.tree("smoke-proc"))
+    log("process trace of one fraud_scored B=100 request: " + "; ".join(
+        f"{n['name']} {n['duration_s'] * 1e3:.4f} ms" for n in tree))
+    return {"spans": len(spans), "lanes": len(lanes), "serves": len(serves),
+            "kernel_spans": len(kernels),
+            "serve_ms": [s.duration_s * 1e3 for s in serves],
+            "lane_ms": [s.duration_s * 1e3 for s in lanes.values()],
+            "adopted": se.tracer.counters["spans_adopted"]}
+
+
+def process_kill(se, ref, sz: Sizes, keys, std_atol: float,
+                 sc_atol: float, small, check_all) -> Dict[str, object]:
+    """SIGKILL a worker of the full-size node under the serving thread:
+    every batch returns, wholly SHED or with OK/DEGRADED rows equal to
+    the reference; time to ready with the standby adopted; afterwards the
+    other shards' keys equal the reference and the killed shard's
+    bulk-loaded keys are UNKNOWN_KEY (a bulk insert is not in the WAL)."""
+    import signal
+    victim = next(s for s in se._active_ids() if s != 0)
+    down = frozenset(
+        k for k in np.unique(np.concatenate(
+            [np.asarray(v[0]) for v in ref["sets"].values()])).tolist()
+        if se.shard_of(k) == victim)
+    _await(lambda: se.backend.standby.n_warm > 0, 300.0, "a warm standby")
+    restarts = se.worker_restarts
+    halt = serving_thread(se, small, lambda fr, name, B: check_rows(
+        fr, ref["frames"][(name, B)], ref["sets"][(name, B)][0],
+        f"kill {name}", std_atol, sc_atol, down))
+    try:
+        pid = se.shards[victim].proc.pid
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        ready_s = _recovered(se, restarts + 1)
+    finally:
+        seen = halt()
+    rec = dict(se.backend.recovery_stats)
+    after = check_all("after the kill", down)
+    if after.get("shed") or after.get("degraded"):
+        raise AssertionError(f"after the kill: {after}")
+    out = {"shard": victim, "pid": pid, "kill_to_ready_s": ready_s,
+           "recovery": rec, "served": seen, "after": after,
+           "down_keys_in_sets": len(down)}
+    log(f"process kill of shard {victim} (pid {pid}) under a serving "
+        f"thread: ready {ready_s:.3f} s after the kill ({rec}); batches "
+        f"{seen} (slowest {seen['slowest_s']:.3f} s); after it {after}, "
+        f"the killed shard's {len(down)} bulk-loaded keys UNKNOWN_KEY")
+    return out
+
+
+def process_check(sz: Sizes, device, tmp: str, scorer) -> Dict[str, object]:
+    """At check size on the card: (1) WAL recovery — 2 workers fed every
+    event through a ShardedPipeline with a WAL, a worker SIGKILLed under a
+    serving thread, first with a warm standby, then without one; after
+    each recovery the frames bit-identical to an in-process card engine
+    that was never killed; a ControlPlane tick during the first recovery
+    reports ``recovering``. (2) The seeded fault plan over
+    ``sz.fault_batches`` batches: every batch OK and equal to that
+    engine's, the retries and corrupt frames in the registry's
+    ``transport`` group."""
+    import signal
+    from repro_torch.control.plane import ControlPlane
+    from repro_torch.core.results import (STATUS_DEGRADED, STATUS_OK,
+                                          STATUS_SHED)
+    from repro_torch.data.synthetic import EventStreamConfig, generate_events
+    from repro_torch.featurestore.table import TableSchema
+    from repro_torch.obs.export import registry_from_engine
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    from repro_torch.shard.proc.faults import FaultPlan
+    ck = dataclasses.replace(sz, keys=sz.check_keys)
+    keys, ts, rows = generate_events(EventStreamConfig(
+        n_events=sz.check_events, n_keys=ck.keys, n_features=4, seed=5))
+    params = scorer_params(rows, device)
+    sets = {(name, B): next(request_batches(keys, ts, rows, B, 1,
+                                            seed=700 + B))
+            for name in DEPLOYMENTS for B in sz.batches}
+
+    def build(eng, stream: bool):
+        eng.create_table(TableSchema("events", key_col="user", ts_col="ts",
+                                     value_cols=("amount", "lat", "lon",
+                                                 "merchant")),
+                         max_keys=ck.keys, capacity=sz.capacity,
+                         bucket_size=sz.bucket)
+        eng.create_table(TableSchema("merchants", key_col="merchant",
+                                     ts_col="mts",
+                                     value_cols=("risk", "volume")),
+                         max_keys=sz.merchants, capacity=64, bucket_size=8,
+                         replicate=True)
+        if stream:
+            pipe = eng.attach_stream("events", **LIVE_CFG)
+            for i in range(0, len(keys), 2000):
+                pipe.push_batch(keys[i:i + 2000], ts[i:i + 2000],
+                                rows[i:i + 2000])
+            pipe.flush()
+        else:
+            eng.insert("events", keys, ts, rows)
+        fill_merchants(eng, ts, sz)
+        deploy_all(eng, params, scorer)
+
+    def same(eng, twin, what: str) -> None:
+        for (name, B), (rk, rts, rr) in sets.items():
+            got = eng.request(name, rk, rts, rows=rr)
+            want = twin.request(name, rk, rts, rows=rr)
+            check_frame(got, f"{what} {name}", B)
+            if not np.array_equal(got.status, want.status) or any(
+                    not np.array_equal(np.asarray(got[c]),
+                                       np.asarray(want[c])) for c in want):
+                raise AssertionError(f"{what} {name} B={B}: not bit-"
+                                     f"identical to the never-killed "
+                                     f"engine")
+
+    out: Dict[str, object] = {}
+    started = set()
+    twin = ShardedEngine(ShardConfig(n_shards=2), device=device)
+    se = ShardedEngine(ShardConfig(
+        n_shards=2, backend="process", standby_workers=1,
+        wal_dir=os.path.join(tmp, "wal-check")), device=device)
+    se.flight.out_dir = tmp
+    try:
+        started.update(se.backend.pids)
+        build(twin, stream=True)
+        build(se, stream=True)
+        same(se, twin, "process check size")
+        plane = ControlPlane(se, "serve_features", replan=False)
+        plane.tick()
+        small = [((n, B), v) for (n, B), v in sets.items()
+                 if B == min(sz.batches)]
+
+        def ok_or_shed(fr, name, B):
+            """Wholly SHED, or OK and DEGRADED rows only."""
+            st = np.asarray(fr.status)
+            if (st == STATUS_SHED).all():
+                return "shed"
+            if not set(st.tolist()) <= {STATUS_OK, STATUS_DEGRADED}:
+                raise AssertionError(f"recovery {name}: statuses {st}")
+            return "degraded" if (st == STATUS_DEGRADED).any() else "ok"
+
+        for label in ("standby", "cold"):
+            if label == "standby":
+                _await(lambda: se.backend.standby.n_warm > 0, 300.0,
+                       "a warm standby")
+            else:                      # no standby: a cold spawn
+                pool, se.backend.standby = se.backend.standby, None
+                started.update(pool.pids)
+                pool.close()
+            restarts = se.worker_restarts
+            victim = 1 if label == "standby" else 0
+            halt = serving_thread(se, small, ok_or_shed)
+            try:
+                started.add(se.shards[victim].proc.pid)
+                os.kill(se.shards[victim].proc.pid, signal.SIGKILL)
+                ready_s = _recovered(se, restarts + 1)
+            finally:
+                seen = halt()
+            started.update(se.backend.pids)
+            rec = dict(se.backend.recovery_stats)
+            if label == "standby":
+                tick = plane.tick()
+                if tick["recovering"] is not True:
+                    raise AssertionError(f"a tick after a respawn: {tick}")
+                out["plane_tick"] = {k: tick[k] for k in
+                                     ("recovering", "replan", "health")}
+            same(se, twin, f"after the {label} recovery")
+            if bool(rec["last_adopted"]) != (label == "standby"):
+                raise AssertionError(f"{label} recovery: {rec}")
+            out[label] = {"kill_to_ready_s": ready_s, "recovery": rec,
+                          "served": seen,
+                          "wal": dict(se.recovery_stats)}
+            log(f"process recovery ({label}, check size): ready "
+                f"{ready_s:.3f} s after the kill of shard {victim}; "
+                f"{rec}; WAL {se.recovery_stats}; batches {seen}; frames "
+                f"bit-identical to the never-killed card engine")
+        log(f"control plane tick during the recovery: {out['plane_tick']}")
+    finally:
+        started.update(se.backend.pids)
+        se.close()
+    # ---- the seeded fault plan --------------------------------------------
+    plan = FaultPlan.parse(PROC_FAULT_PLAN)
+    fe = ShardedEngine(ShardConfig(n_shards=2, backend="process",
+                                   fault_plan=plan), device=device)
+    try:
+        started.update(fe.backend.pids)
+        build(fe, stream=False)
+        names = list(DEPLOYMENTS)
+        t0 = time.perf_counter()
+        for i, rb in enumerate(request_batches(keys, ts, rows,
+                                               sz.batches[0],
+                                               sz.fault_batches, seed=9)):
+            name = names[i % len(names)]
+            got = fe.request(name, *rb[:2], rows=rb[2])
+            want = twin.request(name, *rb[:2], rows=rb[2])
+            check_frame(got, f"fault plan {name}", sz.batches[0])
+            if any(not np.array_equal(np.asarray(got[c]),
+                                      np.asarray(want[c])) for c in want):
+                raise AssertionError(f"fault plan {name}: a frame differs")
+        wall = time.perf_counter() - t0
+        transport = registry_from_engine(fe).collect()["transport"]
+        injected = [dict(c.proc.ch.fault_injector.stats)
+                    for c in fe.shards]
+        if transport["retries"] + transport["frame_corrupt"] == 0:
+            raise AssertionError(f"fault plan: nothing retried "
+                                 f"{transport}")
+        out["faults"] = {"plan": PROC_FAULT_PLAN,
+                         "batches": sz.fault_batches, "seconds": wall,
+                         "transport": transport,
+                         "client_injectors": injected,
+                         "worker_restarts": fe.worker_restarts}
+        log(f"fault plan {PROC_FAULT_PLAN}: {sz.fault_batches} batches all "
+            f"OK and equal to the in-process engine's in {wall:.3f} s; "
+            f"registry transport {transport}; parent-side injectors "
+            f"{injected}")
+    finally:
+        started.update(fe.backend.pids)
+        fe.close()
+        twin.close()
+    left = [p for p in sorted(started) if not _exited(p)]
+    if left:
+        raise AssertionError(f"process check: {left} outlived close()")
+    return out
+
+
+def process_node(ref: Dict[str, object], unsharded: Dict[str, dict],
+                 sharded: Dict[str, object], sz: Sizes, device
+                 ) -> Dict[str, object]:
+    """The process-backed shard runtime on the card: the full-size fraud
+    node on ``sz.shards`` worker processes (``process_full``), then WAL
+    recovery and the fault plan at check size (``process_check``). Every
+    worker and standby has exited when it returns, and the card's memory
+    is back within 1 GiB of where it was. Raises on any failure."""
+    import gc
+    import importlib
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    # the workers import this module by name for PREDICT's scorer (a
+    # function of __main__ would not unpickle in them); the phases after
+    # this one get the import path back as it was
+    here = str(Path(__file__).resolve().parent)
+    saved_env, saved_path = os.environ.get("PYTHONPATH"), list(sys.path)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in [saved_env] if p])
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    gc.collect()
+    _sync_card()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    before = card_used_bytes(device)
+    cpus = sorted(os.sched_getaffinity(0))
+    info = torch.cuda.mem_get_info() if device != "cpu" else None
+    log(f"process node: card in use before any worker {before} bytes "
+        f"(mem_get_info {info}); {os.cpu_count()} CPUs, affinity {cpus}")
+    out: Dict[str, object] = {"card_before_bytes": before,
+                              "cpu_count": os.cpu_count(),
+                              "affinity": len(cpus)}
+    tmp = tempfile.mkdtemp(prefix="smoke-proc-")
+    try:
+        scorer = importlib.import_module("chip_smoke").fraud_scorer
+        out["full"] = process_full(ref, unsharded, sharded, sz, device,
+                                   tmp, scorer)
+        out["check"] = process_check(sz, device, tmp, scorer)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_env
+        sys.path[:] = saved_path
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        _await(lambda: card_used_bytes(device) - before < 2**30, 60.0,
+               "the card's memory back within 1 GiB after the workers")
+    out["card_after_bytes"] = card_used_bytes(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"process node phase: {out['seconds']:.3f} s; card in use "
+        f"{out['card_after_bytes']} bytes after it (before: {before})")
+    return out
+
+
 def setup(device, sz: Sizes, workers: int = 1):
     """One node at production key space: the engine with its tables
     filled and the three deployments, and the events it ingested."""
@@ -3115,8 +3852,10 @@ def main() -> int:
         return 0
     res = run("cuda", Sizes())
     torch.cuda.empty_cache()
-    shard = sharded_node(res.pop("shard_ref"), res["serve"], Sizes(), "cuda")
+    shard_ref = res.pop("shard_ref")
+    shard = sharded_node(shard_ref, res["serve"], Sizes(), "cuda")
     torch.cuda.empty_cache()
+    proc = process_node(shard_ref, res["serve"], shard, Sizes(), "cuda")
     mres = run_model("cuda", ModelSizes())
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
@@ -3124,6 +3863,7 @@ def main() -> int:
                                         "server")}))
     log(json.dumps({"observe": res["observe"]}))
     log(json.dumps({"sharded": shard}))
+    log(json.dumps({"process": proc}))
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))
     log(card)

@@ -69,6 +69,7 @@ class ControlPlane:
             else getattr(engine, "flight", None)
         self.reports: List[Dict[str, Any]] = []
         self._tick = 0
+        self._prev_restarts = 0.0
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
@@ -97,7 +98,8 @@ class ControlPlane:
         source: the operator profiler's MEASURED per-operator exec times
         (``drain_profile_observations`` — exec-clock seconds split per
         unit-cost element, host/plan residuals excluded). Fallback when
-        no profile is available: the original EM-style split of the
+        no profile is available (e.g. process-backend shards keep their
+        profilers worker-side): the original EM-style split of the
         tick's serve seconds under the current model's weighted shares.
         Returns observations fed."""
         prof_obs = self._drain_profile()
@@ -254,11 +256,39 @@ class ControlPlane:
                             "reason": d.reason, "applied": ok})
         return applied
 
+    # ------------------------------------------------------------- recovery
+    def _recovering(self, sample: Dict[str, Any]) -> bool:
+        """True while the runtime is absorbing a worker death: a restart
+        happened since the last tick, or a shard client is still not
+        ready (catalog/WAL replay in flight). A recovery tick's latency
+        and shed counters describe the FAILURE, not the workload — fitting
+        the cost model or moving knobs on them would tune the steady
+        state to a transient."""
+        decomp = sample.get("latency_decomposition", {})
+        restarts = float(decomp.get("worker_restarts", 0) or 0)
+        prev, self._prev_restarts = self._prev_restarts, restarts
+        return restarts > prev or getattr(self.engine, "recovering", False)
+
     # ----------------------------------------------------------------- tick
     def tick(self) -> Dict[str, Any]:
         t = self._tick
         self._tick += 1
         sample = self.collector.sample()
+
+        if self._recovering(sample):
+            # sample was still taken (baselines advance: the recovery
+            # interval's deltas are consumed here, not leaked into the
+            # next steady tick) but nothing is fitted, replanned or tuned
+            self._drain_profile()    # discard: recovery-interval timings
+            report = {
+                "tick": t, "recovering": True, "observations_fed": 0,
+                "replan": {"action": "recovering"},
+                "health": {"action": "recovering"},
+                "load": None, "slo": None, "knob_decisions": [],
+                "knobs": dict(self.knobs.knobs),
+            }
+            self.reports.append(report)
+            return report
 
         fed = self._feed_calibrator(sample)
 

@@ -87,6 +87,9 @@ _HANDLE_COUNTERS = ("requests", "batches", "serve_s", "unknown_keys",
                     "shed_requests", "shed_batches")
 _CACHE_COUNTERS = ("hits", "misses", "evictions", "invalidations",
                    "compile_seconds")
+# the sharded decomposition's counters that the recovery series diff
+_RECOVERY_COUNTERS = ("worker_restarts", "transport_retries",
+                      "transport_frame_corrupt")
 
 
 class MetricsCollector:
@@ -112,6 +115,7 @@ class MetricsCollector:
         self._prev_handles: Dict[str, Dict[str, float]] = {}
         self._prev_admission: Dict[str, float] = {}
         self._prev_batcher: Dict[str, float] = {}
+        self._prev_decomp: Dict[str, float] = {}
 
     # ------------------------------------------------------------- sources
     def _engine_stats(self) -> Dict[str, float]:
@@ -217,6 +221,23 @@ class MetricsCollector:
         self._push(t, "engine.kernel_launches",
                    eng_delta.get("kernel_launches", 0))
         self._push(t, "cache.hit_rate", cache_snap.get("hit_rate", 0.0))
+
+        # durability / chaos tier (ShardedEngine only; keys absent on a
+        # single Engine's decomposition). Counters are diffed into
+        # per-tick deltas; replay lag is a gauge (last recovery's value)
+        if "worker_restarts" in decomp:
+            dd = self._delta(decomp, self._prev_decomp,
+                             _RECOVERY_COUNTERS)
+            self._prev_decomp = {k: decomp.get(k, 0)
+                                 for k in _RECOVERY_COUNTERS}
+            self._push(t, "engine.worker_restarts",
+                       dd.get("worker_restarts", 0))
+            self._push(t, "transport.retries",
+                       dd.get("transport_retries", 0))
+            self._push(t, "transport.frame_corrupt",
+                       dd.get("transport_frame_corrupt", 0))
+            self._push(t, "recovery.wal_replay_lag_s",
+                       decomp.get("recovery_wal_replay_lag_s", 0.0))
 
         sample = _jsonable({
             "t": t,

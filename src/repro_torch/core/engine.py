@@ -1238,6 +1238,16 @@ class Engine:
         """Flat ``freshness`` metrics group for the registry."""
         return FreshnessTracker.export(self.freshness_snapshot())
 
+    def profile_snapshot(self, name: str) -> Optional[Dict[str, object]]:
+        """The operator profiler's totals for deployment ``name``
+        (``OperatorProfiler.merge`` folds these across shards)."""
+        return self.profiler.snapshot(name)
+
+    def drift_snapshot(self) -> Dict[str, object]:
+        """The drift monitor's sketches (``DriftMonitor.merge`` folds
+        these across shards)."""
+        return self.drift.snapshot()
+
     def drift_report(self) -> Dict[str, Dict[str, float]]:
         """Per-column live-vs-reference PSI scores."""
         return self.drift.report()

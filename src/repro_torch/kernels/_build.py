@@ -4,13 +4,18 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into an object, all at
 once in parallel, and the objects are linked into one shared library with
 a plain C interface that :mod:`ctypes` loads. The library lands in
 ``build/kernels/<digest>/`` at the repository root (listed in
-``.gitignore``), keyed by a digest of the sources and flags, so a process
-builds only when a source changed; the first call of any kernel wrapper
-triggers the build. A failed build raises.
+``.gitignore``; ``REPRO_KERNEL_BUILD_ROOT`` names another directory),
+keyed by a digest of the sources and flags, so a process builds only
+when a source changed; the first call of any kernel wrapper
+triggers the build. Threads of one process build once under a lock, and
+processes (the shard workers of the process backend) under an ``flock``
+on the digest directory: the first builds, the others wait and load its
+library. A failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import math
@@ -28,11 +33,12 @@ import torch
 __all__ = ["library", "function", "check", "build_seconds", "build_log",
            "require", "ptr", "stream_of", "field_bits", "launch_fields",
            "require_cuda", "check_cols", "empty_outputs", "device_table",
-           "launch_slices", "count_launch", "MAX_COLS", "MAX_SPECS",
-           "BUILD_ROOT", "NVCC_FLAGS"]
+           "launch_slices", "count_launch", "builds", "MAX_COLS",
+           "MAX_SPECS", "BUILD_ROOT", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_ROOT = Path(os.environ.get("REPRO_KERNEL_BUILD_ROOT") or
+                  Path(__file__).resolve().parents[3] / "build" / "kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -91,12 +97,14 @@ _lib: Optional[ctypes.CDLL] = None
 # stream flusher, the batcher) must not each run nvcc: the first one
 # builds and loads under this lock, the others wait for it
 _lib_lock = threading.Lock()
+builds = 0        # libraries this process built (0: it loaded a built one)
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its digest is new; built
-    and loaded once per process, whichever thread asks first."""
-    global _lib
+    and loaded once per process, whichever thread asks first, and built
+    once per digest, whichever process asks first."""
+    global _lib, builds
     if _lib is None:
         with _lib_lock:
             if _lib is None:
@@ -104,7 +112,12 @@ def library() -> ctypes.CDLL:
                          + sorted(CSRC.glob("*.cuh")))
                 out = BUILD_ROOT / _digest(files) / _LIB_NAME
                 if not out.exists():
-                    _build(out)
+                    out.parent.mkdir(parents=True, exist_ok=True)
+                    with open(out.parent / "lock", "w") as lock:
+                        fcntl.flock(lock, fcntl.LOCK_EX)
+                        if not out.exists():    # another process built it
+                            _build(out)
+                            builds += 1
                 lib = ctypes.CDLL(str(out))
                 lib.rt_error_string.argtypes = [ctypes.c_int]
                 lib.rt_error_string.restype = ctypes.c_char_p

@@ -154,8 +154,10 @@ def registry_from_engine(engine, *, server=None, slo=None,
     ``ShardedEngine``) and the optional ``FeatureServer`` expose. Groups
     appear only when their surface exists; the per-deployment collector
     enumerates at collect time, so deploys after wiring are picked up
-    automatically. (The JAX package's ``transport`` and ``recovery``
-    groups read the process backend, which the port does not have yet.)"""
+    automatically. A sharded engine adds ``recovery`` (WAL replays) and,
+    under the process backend, ``transport`` (retries, corrupt frames,
+    RPC timeouts summed over the workers) with the respawns in
+    ``recovery``."""
     reg = MetricsRegistry(prefix=prefix)
     shards = getattr(engine, "shards", None)
 
@@ -199,6 +201,11 @@ def registry_from_engine(engine, *, server=None, slo=None,
     router = getattr(engine, "router", None)
     if router is not None:
         reg.register("router", router.stats)
+
+    if getattr(engine, "backend", None) is not None:
+        reg.register("transport", engine.transport_stats)
+    if hasattr(engine, "recovery_snapshot"):
+        reg.register("recovery", engine.recovery_snapshot)
 
     tracer = getattr(engine, "tracer", None)
     if tracer is not None:

@@ -1,15 +1,16 @@
 """Sharded serving runtime: hash-partitioned shard engines behind the
 single-engine API (DESIGN.md §9, §11).
 
-``ShardedEngine`` wraps N key-hash-partitioned shard engines in this
-process, each on its device (the engine's, or ``cuda:{s % D}`` with
-several cards); a ``ShardRouter`` scatters request batches to
-per-shard coalescing lanes and gathers rows back in request order; a
-consistent-hash ring (``shard/ring.py``) owns key -> shard placement so
-the shard count can grow/shrink under live traffic; a
-``ResourceManager`` bounds per-deployment concurrency and sheds
-past-deadline work whole-batch. The process backend (one subprocess per
-shard) is not ported yet.
+``ShardedEngine`` wraps N key-hash-partitioned shard engines — in this
+process (default), each on its device (the engine's, or ``cuda:{s % D}``
+with several cards), or one subprocess per shard (``backend="process"``
+/ ``REPRO_SHARD_BACKEND=process``, see ``shard/proc/``); a
+``ShardRouter`` scatters request batches to per-shard coalescing lanes
+and gathers rows back in request order; a consistent-hash ring
+(``shard/ring.py``) owns key -> shard placement so the shard count can
+grow/shrink under live traffic; a ``ResourceManager`` bounds
+per-deployment concurrency and sheds past-deadline (or dead-worker)
+work whole-batch.
 """
 from repro_torch.shard.engine import (ShardConfig, ShardedDeploymentHandle,
                                       ShardedEngine, ShardedPipeline,

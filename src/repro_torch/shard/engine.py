@@ -6,13 +6,23 @@ directory, plan cache and (when streams are attached) ingest pipeline
 with its own watermarks — behind the familiar ``create_table / insert /
 attach_stream / deploy / request / query_offline`` surface.
 
-The shard engines live in this process. Every shard's tables sit on the
-device the caller asks for (``ShardedEngine(device=...)``, ``"cuda"`` by
-default, raising where CUDA is absent); with ``ShardConfig.pin_devices``
-and more than one CUDA device, shard ``s`` sits on ``cuda:{s % D}``
-(:func:`shard_device`). One execution lane serves each device in use, so
-on one card the shards' sub-batches run one after another. The process
-backend (one subprocess per shard) is not part of this package yet.
+Every shard's tables sit on the device the caller asks for
+(``ShardedEngine(device=...)``, ``"cuda"`` by default, raising where CUDA
+is absent); with ``ShardConfig.pin_devices`` and more than one CUDA
+device, shard ``s`` sits on ``cuda:{s % D}`` (:func:`shard_device`). Two
+backends host the shard set (``ShardedEngine(backend=...)``,
+``ShardConfig.backend`` or the ``REPRO_SHARD_BACKEND`` env var):
+
+* ``"inprocess"`` (default) — the shard engines are objects in this
+  process. One execution lane serves each device in use, so on one card
+  the shards' sub-batches run one after another, on one GIL.
+* ``"process"`` — each shard engine lives in its OWN subprocess
+  (``shard/proc/``) with its own interpreter and CUDA context (its card
+  pinned by ``CUDA_VISIBLE_DEVICES`` where the host has several), one
+  lane per shard. Sub-batches, control RPCs and telemetry snapshots
+  cross a CRC-framed pickle channel; worker death is supervised (shed →
+  respawn → catalog replay → WAL replay), with warm standbys and a
+  seeded fault plan for the transport (DESIGN.md §11–§12).
 
 * **Routing** (``shard/ring.py``): a consistent-hash ring (virtual
   nodes) replaces the bare ``hash % N`` partitioner, so the shard count
@@ -45,17 +55,19 @@ backend (one subprocess per shard) is not part of this package yet.
   unsharded engine before/during/after a reshard.
 * **Admission control** (``shard/resource.py``): per-deployment
   in-flight and queue-depth bounds plus deadline shedding; a retired
-  shard sheds with an explicit ``worker_down`` reason instead of
-  hanging gathers, and the stale tier answers its keys DEGRADED where it
-  can.
+  shard or a dead worker sheds with an explicit ``worker_down`` reason
+  instead of hanging gathers, and the stale tier answers its keys
+  DEGRADED where it can.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import os
+import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, \
     Union
@@ -76,19 +88,22 @@ from repro_torch.obs.freshness import FreshnessTracker
 from repro_torch.obs.sketch import DriftMonitor, QuantileSketch, RollingSketch
 from repro_torch.obs.trace import Tracer
 from repro_torch.shard import migrate as _migrate
+# stdlib-only module: importing the plan type does not pull the proc
+# backend into in-process users
+from repro_torch.shard.proc.faults import FaultPlan
 from repro_torch.shard.resource import AdmissionConfig, ResourceManager
 from repro_torch.shard.ring import HashRing, ModuloRouting, RouteTable, \
     key_hashes
-from repro_torch.shard.router import ShardRouter
-from repro_torch.streaming.wal import WalConfig, \
+from repro_torch.shard.router import ShardDownError, ShardRouter
+from repro_torch.streaming.wal import WalConfig, read_dir as wal_read_dir, \
     resolve_shard as wal_resolve_shard
 
 __all__ = ["ShardConfig", "ShardedEngine", "ShardedDeploymentHandle",
            "ShardedPipeline", "ShardedHandleMetrics", "shard_device"]
 
-_PROCESS_TODO = ("the process shard backend (one subprocess per shard) is "
-                 "not ported yet: ROADMAP Queue 1 item 5, the process "
-                 "runtime; use the in-process backend")
+# max time _reshard keeps retrying one arc batch across worker deaths
+# before giving up (a respawn + WAL replay fits many times)
+_RESHARD_RETRY_S = 60.0
 
 
 def shard_device(base, shard: int, pin_devices: bool,
@@ -110,27 +125,46 @@ class ShardConfig:
     # deadline policy; 0 disables waiting)
     coalesce_delay_s: float = 0.002
     # execution lanes (worker threads). None = one per distinct device in
-    # use (more execution threads than devices just contend)
+    # use for the in-process backend (more execution threads than devices
+    # just contend) and one per shard for the process backend (lanes block
+    # on channel I/O with the GIL released, so a lane per worker keeps
+    # every subprocess busy)
     n_lanes: Optional[int] = None
     admission: AdmissionConfig = AdmissionConfig()
-    # pin shard s to cuda:{s % D} when more than one CUDA device exists;
-    # False keeps every shard on the engine's device
+    # pin shard s to cuda:{s % D} when more than one CUDA device exists
+    # (process backend: its worker's CUDA_VISIBLE_DEVICES); False keeps
+    # every shard on the engine's device
     pin_devices: bool = True
-    # "inprocess"; None resolves REPRO_SHARD_BACKEND, then "inprocess".
-    # "process" is not ported yet and raises NotImplementedError
+    # "inprocess" | "process"; None resolves REPRO_SHARD_BACKEND, then
+    # "inprocess"
     backend: Optional[str] = None
     # "ring" (consistent hash, elastic) | "modulo" (pure hash % N,
     # cannot reshard)
     partitioner: str = "ring"
     vnodes: int = 64                  # ring points per shard
     migrate_batch_arcs: int = 8       # arcs copied per migration step
+    # --- durability / chaos tier (DESIGN.md §12) -------------------------
     # base directory for per-shard write-ahead ingest logs; None disables.
     # Partitioned stream-attached tables get a WAL at
-    # ``<wal_dir>/shard-<s>/<table>/`` injected into their PipelineConfig
+    # ``<wal_dir>/shard-<s>/<table>/`` injected into their PipelineConfig;
+    # on worker death (process backend) the dead shard's log is archived,
+    # then replayed through the live route table after respawn
     wal_dir: Optional[str] = None
+    # pre-spawned workers kept past their imports, CUDA context and
+    # kernel library load, for fast adoption on respawn (process backend;
+    # 0 disables the pool)
+    standby_workers: int = 0
+    # the JAX package's workers share a persistent XLA compilation cache
+    # here. The port compiles nothing per process but the kernel library,
+    # which is already kept by digest in build/kernels/<digest>/: no
+    # counterpart, and any value but None raises
+    compile_cache_dir: None = None
     # stale-tier cache: last served feature row per key, used to answer
-    # STATUS_DEGRADED while a shard cannot serve (0 disables)
+    # STATUS_DEGRADED while a shard is down/replaying (0 disables)
     degraded_cache_keys: int = 4096
+    # chaos: fault plan for the worker transport (process backend); None
+    # falls back to the REPRO_FAULT_PLAN env var, then no faults
+    fault_plan: Optional[FaultPlan] = None
 
 
 @dataclass
@@ -204,8 +238,8 @@ class ShardedDeploymentHandle:
             tuple(handles)
         self.state = DeploymentHandle.WARMING
         self.metrics = ShardedHandleMetrics()
-        # the deploy-time inputs, kept so a newly added shard can rebuild
-        # this exact version
+        # the deploy-time inputs, kept so a respawned worker (or a newly
+        # added shard) can rebuild this exact version
         self.query: Optional[Query] = None
         self.warm_buckets: Optional[Tuple[int, ...]] = None
         self._canary: Optional[Tuple["ShardedDeploymentHandle", float]] = \
@@ -214,8 +248,9 @@ class ShardedDeploymentHandle:
         self._lock = threading.Lock()
         # stale tier (degradation ladder OK→DEGRADED→SHED): the last
         # feature row served per key, LRU-bounded. While a shard cannot
-        # serve, its keys answer from here with STATUS_DEGRADED instead of
-        # shedding the whole batch — possibly stale, never wrong-key
+        # serve (retired, dead or replaying), its keys answer from here
+        # with STATUS_DEGRADED instead of shedding the whole batch —
+        # possibly stale, never wrong-key
         self._stale: "collections.OrderedDict" = collections.OrderedDict()
         self._stale_cap = int(engine.cfg.degraded_cache_keys)
 
@@ -531,6 +566,17 @@ class ShardedPipeline:
         return [(s, p) for s, p in enumerate(self.pipes)
                 if s not in retired]
 
+    def _gate(self, s: int) -> None:
+        """Refuse ingest into a shard whose worker is respawning/replaying
+        its WAL. A fresh write landing in the rebuilt buffer BEFORE replay
+        finishes would make ``migrate_in``'s prefix-skip drop the older
+        replayed events — recovery would no longer be bit-identical. The
+        producer sees :class:`ShardDownError` and retries after recovery."""
+        client = getattr(self.pipes[s], "client", None)
+        if client is not None and not client.ready:
+            raise ShardDownError(
+                f"shard {s} is recovering (WAL replay in progress)")
+
     def push(self, key, ts: float, row: np.ndarray) -> bool:
         eng = self.engine
         if self.replicated:
@@ -539,7 +585,9 @@ class ShardedPipeline:
                 ok = p.push(key, ts, row) and ok
             return ok
         with eng._route_lock:
-            return self.pipes[eng._routing.owner(key)].push(key, ts, row)
+            s = eng._routing.owner(key)
+            self._gate(s)
+            return self.pipes[s].push(key, ts, row)
 
     def push_batch(self, keys: Sequence, ts: Sequence[float],
                    rows: np.ndarray, *, all_or_nothing: bool = False
@@ -556,6 +604,7 @@ class ShardedPipeline:
             sid = eng._routing.owners_of(keys)
             n = 0
             for s in np.unique(sid):
+                self._gate(int(s))
                 idx = np.flatnonzero(sid == s)
                 n += self.pipes[s].push_batch(
                     keys[idx], ts[idx], rows[idx],
@@ -595,35 +644,57 @@ class ShardedEngine:
                  backend: Optional[str] = None,
                  flags: OptFlags = OptFlags(), device="cuda",
                  **engine_kw):
+        if cfg.compile_cache_dir is not None:
+            raise ValueError(
+                "compile_cache_dir has no counterpart in the port: its "
+                "workers compile nothing but the kernel library, which is "
+                "kept by digest in build/kernels/<digest>/")
         self.cfg = cfg
         self.flags = flags
         self._engine_kw = dict(engine_kw)
         S = cfg.n_shards
         kind = (backend or cfg.backend
                 or os.environ.get("REPRO_SHARD_BACKEND") or "inprocess")
-        if kind == "process":
-            raise NotImplementedError(_PROCESS_TODO)
-        if kind != "inprocess":
+        if kind not in ("inprocess", "process"):
             raise ValueError(f"unknown shard backend {kind!r}; expected "
                              f"'inprocess' or 'process'")
         self.backend_kind = kind
         self.device = torch.device(device)
         self.devices: Tuple[torch.device, ...] = tuple(
             self._device_of(s) for s in range(S))
-        self.shards: List[Engine] = [
-            Engine(flags, device=d, **engine_kw) for d in self.devices]
-        n_lanes = (cfg.n_lanes if cfg.n_lanes is not None
-                   else len(set(self.devices)))
+        if kind == "process":
+            from repro_torch.shard.proc.backend import ProcShardBackend
+            plan = cfg.fault_plan if cfg.fault_plan is not None \
+                else FaultPlan.from_env()
+            self.backend = ProcShardBackend(
+                S, flags=flags, engine_kw=engine_kw, device=self.device,
+                pin_devices=cfg.pin_devices,
+                standby_workers=cfg.standby_workers, fault_plan=plan)
+            self.backend.reseed_hook = self._reseed_replicas
+            self.backend.respawn_hook = self._replay_shard
+            self.backend.prespawn_hook = self._archive_wal
+            self.backend.replay_hook = self._replay_wal
+            self.shards: List = list(self.backend.clients)
+            default_lanes = S
+        else:
+            self.backend = None
+            self.shards = [Engine(flags, device=d, **engine_kw)
+                           for d in self.devices]
+            default_lanes = len(set(self.devices))
+        n_lanes = cfg.n_lanes if cfg.n_lanes is not None else default_lanes
         self.router = ShardRouter(S, dispatch_rows=cfg.dispatch_rows,
                                   coalesce_delay_s=cfg.coalesce_delay_s,
                                   n_lanes=n_lanes)
         self.resources = ResourceManager(cfg.admission)
-        # shared observability: ONE tracer for the whole tier — the shard
-        # engines record into it (their own constructor-made one is
+        # shared observability: ONE tracer for the whole tier — in-process
+        # shard engines record into it (their own constructor-made one is
         # replaced), so a trace tree assembles in place across admission,
-        # router, lanes and shard serves — and a flight recorder for the
-        # tier's serve and shed records. Each shard engine keeps its own
-        # profiler, freshness and drift; the methods below merge them.
+        # router, lanes and shard serves; process workers keep their own
+        # tracer and export spans per serve RPC, which the client adopts
+        # (re-based) into this one — and a flight recorder for the tier's
+        # serve and shed records, dumped on a worker death. Each shard
+        # engine keeps its own profiler, freshness and drift; the methods
+        # below merge them (over RPC for workers).
         self.tracer = Tracer(sample_rate=float(
             os.environ.get("REPRO_TRACE_SAMPLE", "0") or 0))
         self.flight = FlightRecorder()
@@ -654,8 +725,14 @@ class ShardedEngine:
         self._versions: Dict[str, Dict[int, ShardedDeploymentHandle]] = {}
         self._history: Dict[str, List[ShardedDeploymentHandle]] = {}
         self._deploy_lock = threading.RLock()
-        # serializes reshard operations; taken OUTSIDE _deploy_lock
+        # serializes reshard operations; taken OUTSIDE _deploy_lock so a
+        # migration can wait out a worker respawn (whose hooks need the
+        # deploy lock) without deadlocking
         self._reshard_lock = threading.Lock()
+        # WAL recovery counters (latency_decomposition / telemetry)
+        self.recovery_stats: Dict[str, float] = {
+            "wal_replays": 0, "wal_replayed_events": 0,
+            "wal_replay_lag_s": 0.0}
         self._closed = False
 
     def _device_of(self, s: int) -> torch.device:
@@ -673,7 +750,7 @@ class ShardedEngine:
         return [s for s in range(len(self.shards))
                 if s not in self._retired]
 
-    def _primary(self) -> Engine:
+    def _primary(self):
         return self.shards[self._active_ids()[0]]
 
     @property
@@ -687,6 +764,40 @@ class ShardedEngine:
 
     def owners_of(self, keys: np.ndarray) -> np.ndarray:
         return self._routing.owners_of(np.asarray(keys))
+
+    @property
+    def worker_restarts(self) -> int:
+        """Total worker respawns (process backend; 0 in-process)."""
+        if self.backend is None:
+            return 0
+        return sum(c.restarts for c in self.backend.clients)
+
+    @property
+    def recovering(self) -> bool:
+        """True while a non-retired worker is alive but not serving yet
+        (its catalog or WAL replay is in flight); False in-process."""
+        return self.backend is not None and any(
+            not c.ready and not c.retired for c in self.backend.clients)
+
+    def transport_stats(self) -> Dict[str, int]:
+        """Transport counters (retries, corrupt frames, RPC timeouts)
+        summed over the workers; empty in-process."""
+        agg: Dict[str, int] = {}
+        for c in (self.backend.clients if self.backend is not None
+                  else ()):
+            for k, v in c.transport_stats.items():
+                agg[k] = agg.get(k, 0) + v
+        return agg
+
+    def recovery_snapshot(self) -> Dict[str, float]:
+        """The recovery counters: WAL replays, and under the process
+        backend the supervisor's respawn counters and
+        ``worker_restarts``."""
+        out = dict(self.recovery_stats)
+        if self.backend is not None:
+            out.update(self.backend.recovery_stats)
+            out["worker_restarts"] = self.worker_restarts
+        return out
 
     # ------------------------------------------------------------------ DDL
     def create_table(self, schema: TableSchema, *, max_keys: int = 1024,
@@ -717,30 +828,46 @@ class ShardedEngine:
         self.specs[schema.name] = _TableSpec(schema=schema,
                                              replicated=replicate,
                                              create_kw=create_kw)
+        if self.backend is not None:
+            self.backend.log_ddl("create_table", schema=schema,
+                                 **create_kw)
 
     def tables_of(self, name: str) -> Tuple:
-        """The per-shard Table objects for ``name`` (shard order)."""
+        """The per-shard Table objects for ``name`` (shard order;
+        in-process backend only — a subprocess's tables are not
+        reachable as objects, which is rather the point)."""
+        if self.backend is not None:
+            raise NotImplementedError(
+                "tables_of() reaches into shard-engine objects; the "
+                "process backend keeps those in worker subprocesses — "
+                "use query_offline / telemetry snapshots instead")
         return tuple(self.shards[s].tables[name]
                      for s in self._active_ids())
 
     def insert(self, table: str, keys: Sequence, ts: Sequence[float],
                rows: np.ndarray) -> None:
         """Bulk insert, routed to owning shards (replicated tables fan
-        out to all). For stream-attached partitioned tables the
-        multi-shard write is TRANSACTIONAL: every involved shard prepares
-        its slice, then all commit — or any reject aborts them all with
-        nothing staged (matching ``Engine.insert``'s atomic contract, but
-        across shards).
+        out to all — one serialized payload broadcast under the process
+        backend). For stream-attached partitioned tables the multi-shard
+        write is TRANSACTIONAL: every involved shard prepares its slice,
+        then all commit — or any reject aborts them all with nothing
+        staged (matching ``Engine.insert``'s atomic contract, but across
+        shards).
 
-        Every shard insert is copy-on-write (``donate=False``): the shard
-        engines are live, their lanes serve off table snapshots while
-        this writes, so each insert of up to ``capacity`` events clones
-        the shard's table."""
+        Every shard insert is copy-on-write (``donate=False``; a worker
+        always inserts so): the shard engines are live, their lanes serve
+        off table snapshots while this writes, so each insert of up to
+        ``capacity`` events clones the shard's table."""
         spec = self._spec(table)
         keys = np.asarray(keys)
         ts = np.asarray(ts, np.float32)
         rows = np.asarray(rows, np.float32)
         if spec.replicated:
+            if self.backend is not None:
+                self.backend.broadcast("insert", only=self._active_ids(),
+                                       table=table, keys=keys.tolist(),
+                                       ts=ts.tolist(), rows=rows)
+                return
             for s in self._active_ids():
                 self.shards[s].insert(table, keys.tolist(), ts.tolist(),
                                       rows, donate=False)
@@ -751,8 +878,19 @@ class ShardedEngine:
             return
         with self._route_lock:
             sid = self._routing.owners_of(keys)
-            for s in np.unique(sid):
-                idx = np.flatnonzero(sid == s)
+            parts = [(int(s), np.flatnonzero(sid == s))
+                     for s in np.unique(sid)]
+            if self.backend is not None and len(parts) > 1:
+                # one insert RPC per worker, all in flight at once: each
+                # worker clones and scatters in its own process
+                with ThreadPoolExecutor(max_workers=len(parts)) as ex:
+                    futs = [ex.submit(self.shards[s].insert, table,
+                                      keys[idx].tolist(), ts[idx].tolist(),
+                                      rows[idx]) for s, idx in parts]
+                    for f in futs:
+                        f.result()
+                return
+            for s, idx in parts:
                 self.shards[s].insert(table, keys[idx].tolist(),
                                       ts[idx].tolist(), rows[idx],
                                       donate=False)
@@ -764,12 +902,14 @@ class ShardedEngine:
         ``prepare`` validates each slice against its shard's released
         frontier and parks it; the buffers then HOLD their watermarks at
         the prepared timestamps, so phase 2 ``commit`` cannot fail. Any
-        reject aborts every parked slice."""
+        reject (or a dead worker mid-prepare) aborts every parked
+        slice."""
         with self._route_lock:
             sid = self._routing.owners_of(keys)
             txns: List[Tuple[int, int]] = []
             try:
                 for s in np.unique(sid):
+                    facade._gate(int(s))
                     idx = np.flatnonzero(sid == s)
                     txn = facade.pipes[s].prepare(
                         keys[idx].tolist(), ts[idx].tolist(), rows[idx])
@@ -784,7 +924,10 @@ class ShardedEngine:
                     txns.append((int(s), txn))
             except BaseException:
                 for s, txn in txns:
-                    facade.pipes[s].abort_txn(txn)
+                    try:
+                        facade.pipes[s].abort_txn(txn)
+                    except (ShardDownError, TimeoutError):
+                        pass       # abort is advisory on a dead shard
                 raise
             for s, txn in txns:
                 facade.pipes[s].commit_txn(txn)
@@ -793,6 +936,9 @@ class ShardedEngine:
         # exactly like Engine.insert's single-shard barrier
         for s, _txn in txns:
             pipe = facade.pipes[s]
+            if self.backend is not None:    # the worker checks for itself
+                pipe.flush(flush_all=True, check=True)
+                continue
             errs_before = pipe.stats["errors"]
             pipe.flush(flush_all=True)
             if (pipe.stats["errors"] > errs_before
@@ -824,7 +970,9 @@ class ShardedEngine:
             # durability: every partitioned stream shard gets its own WAL
             # under <wal_dir>/shard-{shard}/<table>; the template keeps
             # the `{shard}` placeholder and each shard resolves its own
-            # id (an added shard resolves to its new slot)
+            # id (an added shard resolves to its new slot; a worker
+            # client resolves its own, so the DDL replay after a respawn
+            # lands in the new incarnation's directory)
             cfg = dataclasses.replace(
                 cfg if cfg is not None else PipelineConfig(),
                 wal=WalConfig(dir=os.path.join(
@@ -835,6 +983,8 @@ class ShardedEngine:
         facade = ShardedPipeline(self, table, pipes, spec.replicated)
         self.streams[table] = facade
         self._stream_cfgs[table] = cfg
+        if self.backend is not None:
+            self.backend.log_ddl("attach_stream", table=table, cfg=cfg)
         return facade
 
     def create_stream(self, schema: TableSchema, *, max_keys: int = 1024,
@@ -843,15 +993,24 @@ class ShardedEngine:
         self.create_table(schema, max_keys=max_keys, capacity=capacity,
                           bucket_size=bucket_size, replicate=replicate)
         facade = self.attach_stream(schema.name, **cfg_kw)
-        return self.tables_of(schema.name), facade
+        tables = (None if self.backend is not None
+                  else self.tables_of(schema.name))
+        return tables, facade
 
     def register_model(self, name: str, fn: Callable,
                        params: object = None) -> None:
-        """``params`` (tensors) go to every shard as given; a shard on
-        another device than the parameters is the caller's to feed."""
+        """``params`` (tensors) go to every in-process shard as given; a
+        shard on another device than the parameters is the caller's to
+        feed. Under the process backend ``fn`` crosses a pickle boundary
+        by reference — a module-level function the workers can import,
+        not a closure — and ``params`` tensors cross as numpy, each
+        worker putting them on its own device."""
         for s in self._active_ids():
             self.shards[s].register_model(name, fn, params)
         self._models[name] = (fn, params)
+        if self.backend is not None:
+            self.backend.log_ddl("register_model", name=name, fn=fn,
+                                 params=params)
 
     def set_cost_model(self, model: CostModel) -> CostModel:
         """Install calibrated optimizer constants on EVERY shard (all
@@ -862,6 +1021,8 @@ class ShardedEngine:
             prev = self._primary().cost_model
             for s in self._active_ids():
                 self.shards[s].set_cost_model(model)
+            if self.backend is not None:
+                self.backend.log_ddl("set_cost_model", model=model)
             return prev
 
     @property
@@ -933,7 +1094,10 @@ class ShardedEngine:
     def _discard_built(self, built: List[Tuple[int, DeploymentHandle]]
                        ) -> None:
         for s, h in built:
-            self.shards[s].discard_version(h)
+            try:
+                self.shards[s].discard_version(h)
+            except (ShardDownError, TimeoutError):
+                pass       # a shard dying mid-rollback is already down
 
     def _swap(self, name: str,
               new: ShardedDeploymentHandle,
@@ -1009,13 +1173,14 @@ class ShardedEngine:
     # -------------------------------------------------------------- elastic
     def add_shard(self) -> int:
         """Grow the shard set by one under live traffic: bring up a shard
-        engine on its device, replay the catalog (tables, streams,
-        models, cost model), seed replicated tables, build + publish
-        every retained deployment version, add a router queue — and only
-        THEN flip ring ownership, interval by interval, migrating each
-        key range before its flip. Requests keep flowing the whole time
-        (routing always answers with a shard that holds the data).
-        Returns the new shard id."""
+        engine on its device (a fresh worker subprocess, or an adopted
+        standby, under the process backend), replay the catalog (tables,
+        streams, models, cost model), seed replicated tables, build +
+        publish every retained deployment version, add a router queue —
+        and only THEN flip ring ownership, interval by interval,
+        migrating each key range before its flip. Requests keep flowing
+        the whole time (routing always answers with a shard that holds
+        the data). Returns the new shard id."""
         if self._ring is None:
             raise RuntimeError(
                 "partitioner='modulo' cannot reshard; use the default "
@@ -1024,20 +1189,26 @@ class ShardedEngine:
             s = len(self.shards)
             # 1) runtime + catalog
             dev = self._device_of(s)
-            eng = Engine(self.flags, device=dev, **self._engine_kw)
-            eng.tracer = self.tracer
-            for spec in self.specs.values():
-                eng.create_table(spec.schema, **spec.create_kw)
-            for name, (fn, params) in self._models.items():
-                eng.register_model(name, fn, params)
-            eng.set_cost_model(self.cost_model)
-            for tname, scfg in self._stream_cfgs.items():
-                eng.attach_stream(tname, wal_resolve_shard(scfg, s))
+            if self.backend is not None:
+                eng = self.backend.add_client()   # replays the DDL itself
+                eng.tracer = self.tracer
+                new_pipes = eng._streams
+            else:
+                eng = Engine(self.flags, device=dev, **self._engine_kw)
+                eng.tracer = self.tracer
+                for spec in self.specs.values():
+                    eng.create_table(spec.schema, **spec.create_kw)
+                for name, (fn, params) in self._models.items():
+                    eng.register_model(name, fn, params)
+                eng.set_cost_model(self.cost_model)
+                for tname, scfg in self._stream_cfgs.items():
+                    eng.attach_stream(tname, wal_resolve_shard(scfg, s))
+                new_pipes = eng.streams
             self.shards.append(eng)
             self.devices = self.devices + (dev,)
             # 2) streaming facades gain the new shard's pipe
             for tname, facade in self.streams.items():
-                facade.pipes.append(eng.streams[tname])
+                facade.pipes.append(new_pipes[tname])
             # 3) replicated dimension tables: full copy from a donor
             self._seed_replicas(s)
             # 4) every retained deployment version exists on the new
@@ -1051,7 +1222,10 @@ class ShardedEngine:
                     sh.handles = sh.handles + (h,)
                     if live is sh:
                         eng.publish_version(h)
-            # 5) routing: the new queue now, the range migration after
+            # 5) routing: new queue now; the range migration itself runs
+            #    OUTSIDE the deploy lock — a worker respawn mid-migration
+            #    needs that lock for its catalog/deployment/WAL replay
+            #    hooks, and _reshard waits out exactly such respawns
             self.router.add_queue()
         with self._reshard_lock:
             self._reshard(self._ring.with_shard(s))
@@ -1060,8 +1234,9 @@ class ShardedEngine:
     def remove_shard(self, s: int) -> int:
         """Shrink the shard set: migrate every key range owned by ``s``
         to the surviving shards (interval by interval, under live
-        traffic), then retire and close the shard engine. The slot id is
-        never reused. Returns the number of events migrated."""
+        traffic), then retire and close the shard engine (its worker,
+        under the process backend). The slot id is never reused. Returns
+        the number of events migrated."""
         if self._ring is None:
             raise RuntimeError(
                 "partitioner='modulo' cannot reshard; use the default "
@@ -1071,6 +1246,9 @@ class ShardedEngine:
                 raise ValueError(f"shard {s} is not active")
             if self.n_shards <= 1:
                 raise ValueError("cannot remove the last active shard")
+        # migrate outside the deploy lock (see add_shard): a respawn of
+        # some OTHER worker mid-migration must be able to run its replay
+        # hooks while _reshard retries the interrupted batch
         with self._reshard_lock:
             moved = self._reshard(self._ring.without_shard(s))
         with self._deploy_lock:
@@ -1082,12 +1260,14 @@ class ShardedEngine:
             # closes
             self.router.retire_queue(s)
             self.router.drain_shard(s)
+            if self.backend is not None:
+                self.shards[s].retired = True   # supervisor: no respawn
             self.shards[s].close()
             return moved
 
     def _seed_replicas(self, s: int) -> None:
         """Copy every replicated table's full contents onto shard ``s``
-        from the first active donor (a new shard)."""
+        from the first healthy donor (a new shard / respawned worker)."""
         donor = next((d for d in self._active_ids() if d != s), None)
         if donor is None:
             return
@@ -1097,13 +1277,25 @@ class ShardedEngine:
             facade = self.streams.get(tname)
             if facade is not None and donor < len(facade.pipes):
                 facade.pipes[donor].flush(flush_all=True)
-            keys = _migrate.list_keys(self.shards[donor], tname)
+            lk, ex, _mi = self._mig_ops(donor)
+            keys = lk(tname)
             if not keys:
                 continue
-            ks, tsv, rws = _migrate.extract_events(self.shards[donor],
-                                                   tname, keys)
+            ks, tsv, rws = ex(tname, keys)
             if len(ks):
-                _migrate.migrate_in(self.shards[s], tname, ks, tsv, rws)
+                _lk, _ex, mi = self._mig_ops(s)
+                mi(tname, ks, tsv, rws)
+
+    def _mig_ops(self, s: int):
+        """(list_keys, extract_events, migrate_in) for shard ``s`` —
+        local calls in-process, worker RPCs under the process backend."""
+        eng = self.shards[s]
+        if self.backend is not None:
+            return eng.list_keys, eng.extract_events, eng.migrate_in
+        return ((lambda t: _migrate.list_keys(eng, t)),
+                (lambda t, ks: _migrate.extract_events(eng, t, ks)),
+                (lambda t, ks, tsv, rws: _migrate.migrate_in(eng, t, ks,
+                                                             tsv, rws)))
 
     def _reshard(self, new_ring: HashRing, *,
                  batch_arcs: Optional[int] = None) -> int:
@@ -1128,42 +1320,190 @@ class ShardedEngine:
         moved = 0
         for i in range(0, len(plan), step):
             batch = plan[i:i + step]
-            with self._route_lock:
-                groups: Dict[Tuple[int, int], List[int]] = {}
-                for a in batch:
-                    groups.setdefault((rt.arc_owner(a), tgt[a]),
-                                      []).append(a)
-                for (src, dst), arcs in groups.items():
-                    if src == dst:
-                        rt.set_owner(arcs, dst)
-                        continue
-                    arcset = np.asarray(arcs)
-                    for tname in partitioned:
-                        facade = self.streams.get(tname)
-                        if facade is not None:
-                            # staged events must be IN the table before
-                            # extract reads its snapshot
-                            facade.pipes[src].flush(flush_all=True)
-                        all_keys = _migrate.list_keys(self.shards[src],
-                                                      tname)
-                        if not all_keys:
-                            continue
-                        in_arc = rt.arc_of_hashes(
-                            key_hashes(np.asarray(all_keys)))
-                        sel = [all_keys[int(j)] for j in np.flatnonzero(
-                            np.isin(in_arc, arcset))]
-                        if not sel:
-                            continue
-                        ks, tsv, rws = _migrate.extract_events(
-                            self.shards[src], tname, sel)
-                        if len(ks):
-                            moved += _migrate.migrate_in(
-                                self.shards[dst], tname, ks, tsv, rws)
-                    rt.set_owner(arcs, dst)
+            # one batch is retried as a unit when a worker dies (or an
+            # RPC times out) mid-migration: migrate_in's prefix-skip
+            # makes a re-run idempotent, arcs already flipped regroup as
+            # src == dst no-ops, and the respawned worker's WAL replay
+            # (which needs the route lock we release between attempts)
+            # restores the source data the retry re-extracts
+            deadline = time.monotonic() + _RESHARD_RETRY_S
+            while True:
+                try:
+                    moved += self._migrate_batch(rt, batch, tgt,
+                                                 partitioned)
+                    break
+                except (ShardDownError, TimeoutError):
+                    if time.monotonic() >= deadline:
+                        raise
+                    # route lock released: the supervisor's respawn +
+                    # replay hooks can run; wait for every worker to
+                    # come back before re-running the batch
+                    self._await_ready()
         self._ring = new_ring
         with self._route_lock:
             self._routing = RouteTable(new_ring)
         return moved
+
+    def _migrate_batch(self, rt: RouteTable, batch: Sequence[int],
+                       tgt: Dict[int, int], partitioned: Sequence[str]
+                       ) -> int:
+        """Copy one batch of arcs to their new owners and flip them,
+        under the route lock; returns the events moved."""
+        moved = 0
+        with self._route_lock:
+            groups: Dict[Tuple[int, int], List[int]] = {}
+            for a in batch:
+                groups.setdefault((rt.arc_owner(a), tgt[a]),
+                                  []).append(a)
+            for (src, dst), arcs in groups.items():
+                if src == dst:
+                    rt.set_owner(arcs, dst)
+                    continue
+                arcset = np.asarray(arcs)
+                for tname in partitioned:
+                    facade = self.streams.get(tname)
+                    if facade is not None:
+                        # staged events must be IN the table before
+                        # extract reads its snapshot
+                        facade.pipes[src].flush(flush_all=True)
+                    lk, ex, _mi = self._mig_ops(src)
+                    all_keys = lk(tname)
+                    if not all_keys:
+                        continue
+                    in_arc = rt.arc_of_hashes(
+                        key_hashes(np.asarray(all_keys)))
+                    sel = [all_keys[int(j)] for j in np.flatnonzero(
+                        np.isin(in_arc, arcset))]
+                    if not sel:
+                        continue
+                    ks, tsv, rws = ex(tname, sel)
+                    if len(ks):
+                        _lk, _ex, mi = self._mig_ops(dst)
+                        moved += mi(tname, ks, tsv, rws)
+                rt.set_owner(arcs, dst)
+        return moved
+
+    # ----------------------------------------------- worker respawn hooks
+    def _reseed_replicas(self, s: int, client) -> None:
+        """(process backend) After a worker respawn + catalog replay,
+        re-seed its replicated dimension tables from a healthy donor —
+        joins on the respawned shard must not silently miss every
+        dimension row. Partitioned table data re-enters through the
+        stream or the WAL replay."""
+        del client
+        with self._deploy_lock:
+            self._seed_replicas(s)
+
+    def _replay_shard(self, s: int, client) -> None:
+        """(process backend) Rebuild every retained deployment version
+        on a respawned worker, in version order, aliasing the parent's
+        stable version ids to the fresh worker's numbering; publish the
+        live one. Runs under the deploy lock so a concurrent deploy
+        cannot interleave with the rebuild."""
+        with self._deploy_lock:
+            for name, versions in self._versions.items():
+                live = self.deployments.get(name)
+                for v in sorted(versions):
+                    sh = versions[v]
+                    ph = sh.handles[s] if s < len(sh.handles) else None
+                    if ph is None:
+                        continue
+                    summary = client.proc.call(
+                        "build_version", name=name, query=sh.query,
+                        warm_buckets=sh.warm_buckets)
+                    client._alias[(name, ph.version)] = \
+                        summary["version"]
+                    ph.table.version = summary["table_version"]
+                    ph.phys.feature_names = \
+                        list(summary["feature_names"])
+                    ph.phys.groups = tuple(summary["groups"])
+                    if live is not None and live.handles[s] is ph:
+                        ph.table.version = client.proc.call(
+                            "publish_version", name=name,
+                            version=summary["version"])
+
+    def _await_ready(self, timeout: float = 30.0) -> bool:
+        """Block until every non-retired process worker is serving again
+        (in-process backend: trivially true). MUST be called without
+        ``_route_lock`` held — the supervisor's WAL replay needs it."""
+        deadline = time.monotonic() + timeout
+        while self.recovering:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+        return True
+
+    # ------------------------------------------------- WAL recovery hooks
+    def _archive_wal(self, s: int) -> None:
+        """(process backend, pre-spawn) Move the dead shard's WAL tree
+        aside so the respawned incarnation starts a FRESH log — replay
+        re-ingests through the pipeline and re-logs into the new one.
+        Archives stack (``.recover-0``, ``.recover-1`` ...) if a worker
+        dies again before the previous replay finished; prefix-skip
+        makes replaying both idempotent."""
+        # postmortem evidence first: the ring holds the batches that led
+        # into the crash (rate-limited, so a crash loop can't disk-fill)
+        self.flight.record("worker_down", shard=s)
+        self.flight.dump(f"worker-down-shard-{s}")
+        if self.cfg.wal_dir is None:
+            return
+        src = os.path.join(self.cfg.wal_dir, f"shard-{s}")
+        if not os.path.isdir(src):
+            return
+        k = 0
+        while os.path.exists(f"{src}.recover-{k}"):
+            k += 1
+        os.rename(src, f"{src}.recover-{k}")
+
+    def _replay_wal(self, s: int, client) -> None:
+        """(process backend, post-respawn) Replay the archived WAL of
+        shard ``s`` through the LIVE route table: events are re-scattered
+        to their current owners (usually ``s`` itself, but a reshard may
+        have moved keys while the worker was down) via ``migrate_in``,
+        whose prefix-skip keeps duplicates out. Runs after the catalog +
+        deployment replay, while the client is still ``ready=False`` so
+        no fresh ingest can race ahead of the replayed history."""
+        del client
+        if self.cfg.wal_dir is None:
+            return
+        t0 = time.monotonic()
+        dirs = sorted(d for d in os.listdir(self.cfg.wal_dir)
+                      if d.startswith(f"shard-{s}.recover-")) \
+            if os.path.isdir(self.cfg.wal_dir) else []
+        total = 0
+        for d in dirs:
+            rdir = os.path.join(self.cfg.wal_dir, d)
+            for tname in sorted(os.listdir(rdir)):
+                spec = self.specs.get(tname)
+                if (spec is None or spec.replicated
+                        or tname not in self.streams):
+                    continue
+                events: List[Tuple[object, float, np.ndarray]] = []
+                for keys, tsv, rows in wal_read_dir(
+                        os.path.join(rdir, tname)):
+                    for j in range(len(keys)):
+                        events.append((keys[j], float(tsv[j]), rows[j]))
+                if not events:
+                    continue
+                # global (ts, append-seq) order: stable sort reproduces
+                # exactly the order the buffer accepted them in
+                events.sort(key=lambda e: e[1])
+                ks = np.asarray([e[0] for e in events])
+                tsv = np.asarray([e[1] for e in events], np.float32)
+                rws = np.asarray([e[2] for e in events], np.float32)
+                with self._route_lock:
+                    owners = self._routing.owners_of(ks)
+                for o in np.unique(owners):
+                    idx = np.flatnonzero(owners == o)
+                    _lk, _ex, mi = self._mig_ops(int(o))
+                    for c in range(0, len(idx), 2048):
+                        sl = idx[c:c + 2048]
+                        total += mi(tname, ks[sl], tsv[sl], rws[sl])
+            shutil.rmtree(rdir)          # replayed in full: drop archive
+        self.recovery_stats["wal_replays"] += 1
+        self.recovery_stats["wal_replayed_events"] += total
+        self.recovery_stats["wal_replay_lag_s"] = \
+            time.monotonic() - t0
 
     # --------------------------------------------------------------- online
     def request(self, name: str, keys: Sequence, ts: Sequence[float],
@@ -1199,9 +1539,13 @@ class ShardedEngine:
                 # shard with no retained events; skip it rather than
                 # concatenating dtype-less empties into the key column
                 continue
-            # dense indices are shard-local: map them to the real keys
-            inv = {i: k for k, i in h.table.key_to_idx.items()}
-            res["__key"] = np.asarray([inv[int(i)] for i in res["__key"]])
+            if self.backend is None:
+                # dense indices are shard-local: map them to the real
+                # keys here (a worker already did, where its key_to_idx
+                # lives)
+                inv = {i: k for k, i in h.table.key_to_idx.items()}
+                res["__key"] = np.asarray([inv[int(i)]
+                                           for i in res["__key"]])
             if not replicated:
                 own = self._routing.owners_of(res["__key"]) == s
                 if not own.all():
@@ -1241,8 +1585,11 @@ class ShardedEngine:
             f"{self.cfg.admission.max_inflight}, max_queue_depth="
             f"{self.cfg.admission.max_queue_depth} "
             f"({self.resources.metrics()})",
-            "  devices: " + ", ".join(str(self.devices[s])
-                                      for s in self._active_ids()),
+            "  devices: " + ", ".join(
+                str(self.devices[s]) if self.backend is None
+                else f"worker-subprocess {self.shards[s].proc.device} "
+                     f"(pid {self.shards[s].proc.pid})"
+                for s in self._active_ids()),
             f"  version vector: {dep.version_vector()}",
         ]
         lines.append(f"  per-shard plan (shard {self._active_ids()[0]} "
@@ -1269,7 +1616,7 @@ class ShardedEngine:
                     f"query (deploy it first); deployed: "
                     f"{sorted(self.deployments)}")
         dep = self.handle(name)
-        snaps = [self.shards[s].profiler.snapshot(name)
+        snaps = [self.shards[s].profile_snapshot(name)
                  for s in self._active_ids()]
         return OperatorProfiler.render(
             name, dep.version, OperatorProfiler.merge(snaps),
@@ -1277,17 +1624,22 @@ class ShardedEngine:
 
     def drain_profile_observations(self, name: str) -> List[Dict]:
         """Measured-per-operator calibrator feed (control plane): drain
-        every shard profiler's interval accumulator."""
+        every in-process shard profiler's interval accumulator. Process
+        workers keep their profiles worker-side (the plane falls back to
+        its EM attribution there)."""
         obs: List[Dict] = []
-        for s in self._active_ids():
-            obs.extend(self.shards[s].profiler.drain_observations(name))
+        if self.backend is None:
+            for s in self._active_ids():
+                obs.extend(
+                    self.shards[s].profiler.drain_observations(name))
         return obs
 
     # ----------------------------------------------------------- freshness
     def freshness_snapshot(self) -> Dict[str, Dict[str, object]]:
-        """Cross-shard freshness: the shards' snapshots merged exactly —
-        sketches add bucket-wise, counters sum, watermarks take the MIN
-        (the slowest shard bounds global freshness)."""
+        """Cross-shard freshness: the shards' snapshots (one RPC per
+        worker under the process backend) merged exactly — sketches add
+        bucket-wise, counters sum, watermarks take the MIN (the slowest
+        shard bounds global freshness)."""
         return FreshnessTracker.merge(
             [self.shards[s].freshness_snapshot()
              for s in self._active_ids()])
@@ -1297,7 +1649,7 @@ class ShardedEngine:
         return FreshnessTracker.export(self.freshness_snapshot())
 
     def _drift_monitor(self) -> DriftMonitor:
-        return DriftMonitor.merge([self.shards[s].drift.snapshot()
+        return DriftMonitor.merge([self.shards[s].drift_snapshot()
                                    for s in self._active_ids()])
 
     def drift_report(self) -> Dict[str, Dict[str, float]]:
@@ -1344,10 +1696,15 @@ class ShardedEngine:
                                    else float("nan"))
         agg["cache_hit_rate"] = float(np.mean(hit)) if hit else 0.0
         agg["n_shards"] = self.n_shards
+        rec = self.recovery_snapshot()
+        agg["worker_restarts"] = rec.pop("worker_restarts", 0)
         agg.update({f"router_{k}": v
                     for k, v in self.router.stats().items()})
         agg.update({f"admission_{k}": v
                     for k, v in self.resources.metrics().items()})
+        agg.update({f"recovery_{k}": v for k, v in rec.items()})
+        agg.update({f"transport_{k}": v
+                    for k, v in self.transport_stats().items()})
         return agg
 
     # ------------------------------------------------------------ lifecycle
@@ -1358,6 +1715,9 @@ class ShardedEngine:
         # drain first: in-flight gathers complete before any lane stops
         self.router.shutdown(drain=True)
         self.streams.clear()   # shard engines own + close the pipelines
+        if self.backend is not None:
+            self.backend.close()
+            return
         for s in self._active_ids():
             self.shards[s].close()
 

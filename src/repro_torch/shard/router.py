@@ -47,9 +47,10 @@ __all__ = ["shard_of", "shard_ids", "SubBatch", "ShardRouter",
 
 
 class ShardDownError(RuntimeError):
-    """A shard cannot serve right now (a retired or dead shard runtime).
-    Lanes translate this into a whole-batch SHED: the caller sees
-    ``STATUS_SHED``, never a hang or a raw exception."""
+    """A shard cannot serve right now: a retired shard, or (process
+    backend) a dead or respawning worker. Lanes translate this into a
+    whole-batch SHED: the caller sees ``STATUS_SHED``, never a hang or a
+    raw exception, while the supervisor respawns the worker."""
 
 # Knuth multiplicative constant — the same one featurestore.keydir hashes
 # with, so routing and key-directory slot math share one hash family
@@ -298,6 +299,20 @@ class _Lane:
         if not live:
             return
         handle = live[0].handle
+        # per-RPC deadline (process backend): the serve RPC gets the
+        # tightest remaining request budget among the coalesced items,
+        # so a wedged worker turns into a bounded TimeoutError → shed
+        # instead of pinning the lane for the transport's default 120 s
+        timeout_s: Optional[float] = None
+        if getattr(handle, "supports_rpc_deadline", False):
+            for it in live:
+                if it.ctx is not None and it.ctx.deadline is not None:
+                    rem = it.ctx.remaining()
+                    if rem is not None:
+                        timeout_s = rem if timeout_s is None \
+                            else min(timeout_s, rem)
+            if timeout_s is not None:
+                timeout_s = max(timeout_s, 0.05)
         keys = np.concatenate([it.keys for it in live])
         ts = np.concatenate([it.ts for it in live])
         rows = None
@@ -354,6 +369,8 @@ class _Lane:
                 # leaves them out of the freshness, drift and flight
                 # observations
                 kw = {"n_live": nb}
+                if timeout_s is not None:
+                    kw["timeout_s"] = timeout_s
                 if ctx_fwd is not None:
                     kw["ctx"] = ctx_fwd
                 frame = handle.request(ke, te, re, **kw)

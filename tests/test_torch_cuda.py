@@ -18,6 +18,8 @@ before PV): ``rtol = atol = 2e-2`` in bf16 and ``2e-5`` in f32, as
 ``tests/test_kernels.py`` holds the Pallas kernels. No attention case has a query that keeps no key (there the
 kernels write 0 and the plain versions the uniform average).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -941,6 +943,134 @@ def test_sharded_card_engine_equals_unsharded(shape):
     assert len(got["__version_vector"]) == 3
     se.close()
     ref.close()
+
+
+def _gone(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def test_process_engine_on_the_card_equals_in_process():
+    """Two worker processes, each with its own CUDA context on the card,
+    serve every shape bit for bit like the in-process card engine; each
+    worker's kernels launch in that worker; close() leaves no worker."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    keys, ts, rows = _shard_data()
+    ref = ShardedEngine(ShardConfig(n_shards=2), device="cuda")
+    se = ShardedEngine(ShardConfig(n_shards=2, backend="process"),
+                       device="cuda")
+    pids = se.backend.pids
+    try:
+        for eng in (ref, se):
+            _fill(eng, keys, ts, rows, replicate=True)
+            for shape, sql in SHARD_SQL.items():
+                eng.deploy(shape, sql)
+        assert all(c.ping()["device"].startswith("cuda")
+                   for c in se.shards)
+        rng = np.random.default_rng(5)
+        for shape in SHARD_SQL:
+            for c in se.shards:
+                c.launch_counts(reset=True)
+            for B in (1, 37, 500):
+                idx = rng.integers(0, len(keys), B)
+                rk = keys[idx].tolist()
+                rk[0] = 10_000                           # an unknown key
+                rts = [float(ts.max()) + 1.0] * B
+                got = se.request(shape, rk, rts, rows=rows[idx])
+                want = ref.request(shape, rk, rts, rows=rows[idx])
+                np.testing.assert_array_equal(got.status, want.status)
+                for c in want:                           # bit for bit
+                    np.testing.assert_array_equal(got[c], want[c],
+                                                  err_msg=c)
+            counts = [c.launch_counts() for c in se.shards]
+            for m in SHARD_KERNELS[shape]:
+                name = m.__name__.rsplit(".", 1)[-1]
+                assert all(n[name] > 0 for n in counts), (shape, counts)
+        got, want = se.query_offline("windows"), ref.query_offline("windows")
+        for res in (got, want):
+            order = np.lexsort((res["__ts"], res["__key"]))
+            for c in list(res):
+                if c != "__version_vector":
+                    res[c] = np.asarray(res[c])[order]
+        for c in ref.handle("windows").phys.feature_names:
+            np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    finally:
+        se.close()
+        ref.close()
+    assert all(_gone(p) for p in pids)
+
+
+def test_process_worker_respawn_on_the_card_loads_the_library(
+        tmp_path, monkeypatch):
+    """A SIGKILLed worker on the card comes back (a warm standby adopted)
+    with its catalog, deployments and WAL; neither it nor any other
+    worker ran nvcc (the parent built the library, into an empty build
+    directory, before spawning); its frames equal a never-killed
+    in-process card engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import shutil
+    import signal
+    import tempfile
+    import time
+    from repro_torch.shard import ShardConfig, ShardedEngine
+    # a build directory with no library in it, for this process and the
+    # workers it spawns: the parent's build is then a real one
+    root = tmp_path / "kernels"
+    monkeypatch.setenv("REPRO_KERNEL_BUILD_ROOT", str(root))
+    monkeypatch.setattr(_build, "BUILD_ROOT", root)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "builds", 0)
+    _build.function.cache_clear()
+    keys, ts, rows = _shard_data()
+    wal_dir = tempfile.mkdtemp(prefix="card-wal-")
+    se = ShardedEngine(ShardConfig(n_shards=2, backend="process",
+                                   wal_dir=wal_dir, standby_workers=1),
+                       device="cuda")
+    assert _build.builds == 1
+    assert len(list(root.glob("*/librepro_torch_kernels.so"))) == 1
+    ref = ShardedEngine(ShardConfig(n_shards=2), device="cuda")
+    try:
+        for eng in (ref, se):
+            eng.create_table(TableSchema("events", "user", "ts",
+                                         ("amount", "lat", "lon",
+                                          "merchant")),
+                             max_keys=64, capacity=64, bucket_size=8)
+            pipe = eng.attach_stream("events", flush_interval_s=0.02)
+            pipe.push_batch(keys, ts, rows)
+            pipe.flush()
+            eng.deploy("w", SHARD_SQL["windows"])
+        rk = np.unique(keys)[:40].tolist()
+        rts = [float(ts.max()) + 1.0] * len(rk)
+        want = ref.request("w", rk, rts)
+        deadline = time.monotonic() + 120.0
+        while se.backend.standby.n_warm == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        proc = se.shards[1].proc.proc
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        while se.worker_restarts < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert se.worker_restarts == 1 and se._await_ready(120.0)
+        assert se.backend.recovery_stats["last_adopted"] == 1.0
+        got = se.request("w", rk, rts)
+        np.testing.assert_array_equal(got.status, want.status)
+        for c in want:
+            np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+        assert [c.ping()["kernel_builds"] for c in se.shards] == [0, 0]
+        assert _build.builds == 1
+    finally:
+        se.close()
+        ref.close()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+        _build.function.cache_clear()   # the next test looks up its own
+    assert all(_gone(p) for p in se.backend.pids)
 
 
 def test_extract_events_device_gather_equals_host_enumeration(table):

@@ -13,7 +13,9 @@ shutdown drains), the degraded ladder of ``tests/test_chaos.py`` and the
 results are compared. So do the ring's hashes and owners, the migration
 primitives, a reshard whose keys wrap their rings, the placement
 function, ``DeploymentHandle.request(n_live=)`` and
-``ServerConfig.hedge_after_s``.
+``ServerConfig.hedge_after_s``. The process backend's scenarios are in
+``tests/test_torch_shard_proc.py`` and ``tests/test_torch_chaos.py``;
+here only the three ways to select it.
 
 Tolerances: exact for routing, owners, status, versions, version
 vectors, counters, counts, min/max, first/last and joined columns, and
@@ -26,6 +28,7 @@ pre-aggregate buckets group other events: its sums there are held to
 Threaded tests wait on events and bounded joins; none sleeps and then
 asserts on timing alone.
 """
+import os
 import threading
 import time
 import types
@@ -908,20 +911,41 @@ def test_sharded_engine_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["argument", "config", "env"])
-def test_process_backend_is_not_ported(how, monkeypatch):
+def test_process_backend_from_argument_config_or_env(how, monkeypatch):
+    """Each of the three ways to ask for the process backend runs one
+    worker subprocess per shard, with a lane of its own; ``close`` stops
+    it."""
     if how == "env":
         monkeypatch.setenv("REPRO_SHARD_BACKEND", "process")
-        make = lambda: ShardedEngine(ShardConfig(), device="cpu")
+        cfg, kw = ShardConfig(n_shards=1), {}
     elif how == "config":
-        make = lambda: ShardedEngine(ShardConfig(backend="process"),
-                                     device="cpu")
+        cfg, kw = ShardConfig(n_shards=1, backend="process"), {}
     else:
-        make = lambda: ShardedEngine(ShardConfig(), backend="process",
-                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        make()
+        cfg, kw = ShardConfig(n_shards=1), {"backend": "process"}
+    se = ShardedEngine(cfg, device="cpu", **kw)
+    try:
+        assert se.backend_kind == "process"
+        info = se.shards[0].ping()
+        assert info["pid"] == se.shards[0].proc.pid != os.getpid()
+        assert info["device"] == "cpu"
+        assert se.router.n_lanes == 1
+    finally:
+        se.close()
+    assert se.backend.clients[0].proc.proc.poll() is not None
+
+
+def test_unknown_shard_backend_raises():
     with pytest.raises(ValueError, match="unknown shard backend"):
         ShardedEngine(ShardConfig(backend="threads"), device="cpu")
+
+
+def test_compile_cache_dir_has_no_counterpart():
+    """The JAX workers' XLA cache directory: the port compiles nothing
+    per worker, so a value is refused before any worker spawns."""
+    with pytest.raises(ValueError, match="compile_cache_dir"):
+        ShardedEngine(ShardConfig(backend="process",
+                                  compile_cache_dir="/nonexistent"),
+                      device="cpu")
 
 
 @pytest.mark.parametrize("n_live", [0, 5, 16])

@@ -5,8 +5,9 @@ Every assigned architecture is a ``ModelConfig`` in its own module under
 ids to them. ``reduced(cfg)`` shrinks any config to a CPU-runnable smoke
 variant of the same family. The schema and the config modules are the JAX
 package's (``repro.configs``), kept field for field so both packages read
-the same configs; the fields that steer only the JAX package's mesh and
-dry-run lowering (``remat``, ``scan_layers``, ``attn_block_k``,
+the same configs. ``remat`` steers training's rematerialisation here as
+there (``models/blocks.py``); the fields that steer only the JAX
+package's mesh and dry-run lowering (``scan_layers``, ``attn_block_k``,
 ``act_dp``, ``act_sp``, ``moe_groups``) are carried and ignored here.
 """
 from __future__ import annotations
@@ -75,7 +76,7 @@ class ModelConfig:
     frontend_len: int = 256          # prefix length of precomputed embeddings
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    remat: str = "none"              # JAX package only
+    remat: str = "none"              # none | dots | full (training)
     long_context_ok: bool = False    # sub-quadratic path exists (long_500k)
     source: str = ""                 # provenance note
     scan_layers: bool = True         # JAX package only (lax.scan vs loop)

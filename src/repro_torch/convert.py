@@ -23,11 +23,12 @@ import torch
 
 from repro_torch.models import blocks, lm
 from repro_torch.models.tree import tree_map
+from repro_torch.optim.adamw import OptState
 from repro_torch.featurestore.table import (PreAggState, Table,
                                             TableSnapshot, TableState)
 
 __all__ = ["table_state", "preagg_state", "load_table", "to_tensors",
-           "lm_params", "lm_cache"]
+           "lm_params", "lm_cache", "opt_state"]
 
 _PREAGG_FIELDS = ("sum", "sumsq", "min", "max", "count")
 
@@ -144,3 +145,15 @@ def lm_cache(tree: Any, cfg, device) -> Any:
         raise ValueError(f"cache has {len(tree)} pattern positions, "
                          f"{cfg.name} has {len(pattern)}")
     return tuple(_tree_tensors(dict(c), device) for c in tree)
+
+
+def opt_state(state: Any, cfg, device) -> OptState:
+    """The JAX package's ``OptState`` (``m``, ``v``, ``count``,
+    ``master``, as numpy: ``jax.tree_util.tree_map(np.asarray, state)``)
+    as the port's on ``device``. ``m``, ``v`` and ``master`` are parameter
+    trees (f32), ``count`` the int32 step counter."""
+    return OptState(
+        m=lm_params(state.m, cfg, device), v=lm_params(state.v, cfg, device),
+        count=torch.tensor(np.asarray(state.count, np.int32), device=device),
+        master=(None if state.master is None
+                else lm_params(state.master, cfg, device)))

@@ -28,7 +28,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -301,6 +301,8 @@ class Table:
         self._published = TableSnapshot(state=state, preagg=preagg,
                                         version=0)
         self._last_ts: Dict[int, float] = {}
+        # first-event positions of keys not held yet (``seat``)
+        self._seats: Dict[object, int] = {}
         # freshness/drift instrumentation: the event-time write frontier
         # plus ingest-side distribution sketches — one quantile sketch
         # per value column and a KMV distinct-key estimator, updated per
@@ -381,6 +383,19 @@ class Table:
                 for k, i in self.key_to_idx.items()}
 
     # -- ingest ------------------------------------------------------------
+    def seat(self, positions: Mapping[object, int]) -> None:
+        """Give keys this table does not hold yet the ring position of
+        their first event (0 otherwise): the first insert that brings such
+        a key places its events from there, in the same publish. A key
+        migrated from another table keeps its source's positions, hence
+        its ring slots and its pre-aggregate bucket grouping. Keys already
+        held are left alone; nothing is written to the device here."""
+        for k, p in positions.items():
+            if int(p) < 0:
+                raise ValueError(f"negative position {p} for key {k!r}")
+            if k not in self.key_to_idx:
+                self._seats[k] = int(p)
+
     def insert(self, keys: Sequence, ts: Sequence[float],
                rows: np.ndarray, *, donate: bool = True) -> None:
         """Append events. ``rows`` is (B, V) in schema column order. Events
@@ -389,7 +404,8 @@ class Table:
         ``donate=True`` (default) updates the device tensors in place —
         no copy of the table per batch, but a snapshot taken earlier sees
         the new events. ``donate=False`` ingests into a copy of the state,
-        so snapshots already handed out stay unchanged."""
+        so snapshots already handed out stay unchanged. A new key that
+        was given a position by :meth:`seat` starts there."""
         keys = list(keys)
         ts_arr = np.asarray(ts, np.float32)
         rows = np.asarray(rows, np.float32)
@@ -406,6 +422,8 @@ class Table:
                             ts_arr[s:s + self.capacity],
                             rows[s:s + self.capacity], donate=donate)
             return
+        seat = {k: self._seats[k] for k in dict.fromkeys(keys)
+                if k in self._seats and k not in self.key_to_idx}
         kidx = self.key_indices(keys, create=True)
         # validate first, commit _last_ts only after the device update —
         # last_ts_by_key() must reflect delivered data only
@@ -426,11 +444,17 @@ class Table:
         if not donate:
             state = state.clone()
             preagg = preagg.clone() if preagg is not None else None
+        if seat:
+            state.total[self.put(np.asarray(
+                [self.key_to_idx[k] for k in seat], np.int64))] = \
+                self.put(np.asarray(list(seat.values()), np.int32))
         if B:
             ingest(state, preagg, self.put(kidx), self.put(ts_arr),
                    self.put(rows), bucket_size=self.bucket_size)
             self._watermark = max(self._watermark, float(ts_arr.max()))
         self.publish(state, preagg)
+        for k in seat:
+            self._seats.pop(k, None)
         self._last_ts.update(pending)
         # the sketches commit only on success (the same contract as
         # _last_ts)

@@ -4,6 +4,14 @@
 Counterpart of the TPU kernel ``flash_attention_pallas``; the plain version
 is :func:`repro_torch.kernels.ref.flash_attention_ref`. ``launches``
 counts the kernel launches this process made.
+
+The kernel computes the forward pass only. ``flash_attention_train`` is
+the autograd path: a ``torch.autograd.Function`` whose forward launches the
+kernel and saves q, k and v, and whose backward recomputes the attention
+through the plain version in f32 and differentiates that (the JAX package
+has no backward kernel either; a hand-written one is open work). Calling
+``flash_attention_cuda`` itself on inputs that need a gradient raises, so
+no path drops the gradient quietly.
 """
 from __future__ import annotations
 
@@ -13,10 +21,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
-__all__ = ["flash_attention_cuda", "launches", "HEAD_DIMS", "DTYPES",
-           "check_query", "require_aligned"]
+__all__ = ["flash_attention_cuda", "flash_attention_train", "launches",
+           "HEAD_DIMS", "DTYPES", "check_query", "require_aligned"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P,) * 4 + (_I,) * 9 + (_F, _P)
@@ -61,6 +69,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version does; f32 stays in full f32 on the FMA units.
     """
     dev = _build.require_cuda(q, "flash_attention_cuda")
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda computes no gradient: inputs that "
+            "require grad go through flash_attention_train (or "
+            "ops.flash_attention, which routes them there)")
     D = check_query(q, 4, "flash_attention_cuda")
     B, Sq, Hq, _ = q.shape
     if not isinstance(k, torch.Tensor) or k.dim() != 4:
@@ -90,3 +105,40 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(code, "flash_attention")
     _build.count_launch(sys.modules[__name__])
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: the plain version recomputed
+    in f32 under autograd, gradients returned in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        # autograd runs this with grad mode off, so the kernel takes it
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, scale = ctx.opts
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            o = ref.flash_attention_ref(qf, kf, vf, causal=causal,
+                                        window=window, scale=scale)
+            dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf),
+                                             dout.float())
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention_cuda` with a gradient: the kernel forward,
+    and the plain version's f32 gradient for dq, dk and dv."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale)

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_train)
 from repro_torch.kernels.fused_window import fused_window_cuda
 from repro_torch.kernels.last_join import last_join_cuda
 from repro_torch.kernels.preagg_window import preagg_window_cuda
@@ -106,8 +107,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention.
-    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
-    fn = flash_attention_cuda if _on_cuda(q) else ref.flash_attention_ref
+    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D). On the card,
+    inputs that need a gradient (grad mode on) take the kernel inside
+    its autograd Function."""
+    if not _on_cuda(q):
+        fn = ref.flash_attention_ref
+    elif torch.is_grad_enabled() and any(t.requires_grad
+                                         for t in (q, k, v)):
+        fn = flash_attention_train
+    else:
+        fn = flash_attention_cuda
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 

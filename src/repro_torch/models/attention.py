@@ -1,18 +1,20 @@
 """GQA attention block with RoPE/M-RoPE, QKV bias, sliding window, KV cache.
 
-Two entry points sharing one parameter set (as in the JAX package's
+Three entry points sharing one parameter set (as in the JAX package's
 ``repro.models.attention``):
 
-* ``attend_prefill`` — causal attention over a prompt (the flash kernel),
-  also returning the KV cache padded to ``cache_len``;
+* ``attend_train``   — full-sequence causal attention (the flash kernel,
+  inside its autograd Function on the card when a gradient is wanted);
+* ``attend_prefill`` — the same attention over a prompt, also returning
+  the KV cache padded to ``cache_len``;
 * ``attend_decode``  — one token against a cache (the decode kernel).
 
 Cache layout (per layer): ``k/v (B, S_max, Hkv, D)``; position ``p`` sits
 at slot ``p`` (``p % S_max`` for a sliding-window ring). ``attend_decode``
 writes the new token's K/V into the cache in place at its slot; a slot past
 ``S_max`` (no window, position at or beyond the cache) is dropped, as the
-JAX package's one-hot write drops it. The training entry point and the
-cross-attention of the encoder-decoder models come with their own slices.
+JAX package's one-hot write drops it. The cross-attention of the
+encoder-decoder models comes with its own slice.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from repro_torch.models.layers import (apply_linear, apply_rope, init_linear,
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
-__all__ = ["init_attention", "attend_prefill", "attend_decode"]
+__all__ = ["init_attention", "attend_train", "attend_prefill",
+           "attend_decode"]
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -52,6 +55,16 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
+
+
+def attend_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, causal: bool = True
+                 ) -> torch.Tensor:
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = ops.flash_attention(q, k, v, causal=causal,
+                            window=cfg.sliding_window if causal else None)
+    B, S = x.shape[:2]
+    return apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
 
 
 def attend_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,

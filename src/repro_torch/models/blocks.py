@@ -7,19 +7,28 @@ package's ``repro.models.blocks``):
     ffn:    'd' = dense MLP, 'e' = MoE, '-' = none (pure mixer block)
 
 The port runs the ``ad`` kind (every dense attention model); the others
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+raise ``NotImplementedError`` naming the module still to port.
 
 Layers are stacked as in the JAX package: for a pattern of period R over L
 layers, the params (and caches) of pattern position r are stacked along a
 leading ``L/R`` axis, so parameters and caches carry across one to one.
 Where the JAX package runs one ``lax.scan`` over the stack, the port loops
 over layers in Python and hands each block views of its slice.
+
+Training (``run_blocks_train``) rematerialises each super-block as
+``cfg.remat`` says, as the JAX package's ``jax.checkpoint`` does: ``full``
+keeps only the block's input and recomputes the rest in the backward pass;
+``dots`` also keeps the outputs of the matrix products
+(``checkpoint_dots``), through a selective checkpoint.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -29,13 +38,14 @@ from repro_torch.models.tree import layer_slice, tree_map
 
 Params = Dict[str, Any]
 
-__all__ = ["init_block", "init_stacked_blocks", "block_prefill",
-           "block_decode", "run_blocks_prefill", "run_blocks_decode",
-           "init_block_cache", "normalize_pattern", "check_supported"]
+__all__ = ["init_block", "init_stacked_blocks", "block_train",
+           "block_prefill", "block_decode", "run_blocks_train",
+           "run_blocks_prefill", "run_blocks_decode", "init_block_cache",
+           "normalize_pattern", "check_supported"]
 
 _NOT_PORTED = {
-    "m": "Mamba-2 blocks (ROADMAP Queue 1 item 10: models/ssm.py)",
-    "e": "MoE blocks (ROADMAP Queue 1 item 10: models/moe.py)",
+    "m": "Mamba-2 blocks (models/ssm.py)",
+    "e": "MoE blocks (models/moe.py)",
 }
 
 
@@ -64,7 +74,7 @@ def check_supported(token: str) -> None:
                 f"yet")
     if token != "ad":
         raise NotImplementedError(f"block kind {token!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 10)")
+                                  f"(models/blocks.py runs 'ad' only)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +94,15 @@ def _ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
                ) -> torch.Tensor:
     h = apply_norm(p["norm2"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h, cfg.act)
+
+
+def block_train(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One block's training forward: (x, MoE metrics — none for 'ad')."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    x = x + attn.attend_train(p["attn"], h, cfg, positions)
+    return _ffn_apply(p, x, cfg), {}
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
@@ -143,6 +162,55 @@ def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig
 
 def _reps(stacked: Tuple[Params, ...]) -> int:
     return next(iter(stacked[0]["norm1"].values())).shape[0]
+
+
+# matrix products at the dispatcher level: what ``checkpoint_dots`` keeps
+_DOTS = frozenset(op for op in (
+    getattr(torch.ops.aten, n, None) for n in (
+        "mm", "bmm", "addmm", "baddbmm", "matmul", "linear", "dot"))
+    if op is not None)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    del ctx, args, kwargs
+    packet = getattr(op, "overloadpacket", op)
+    return (CheckpointPolicy.MUST_SAVE if packet in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``cfg.remat``: ``none`` as it is, ``full`` under a
+    checkpoint that keeps its inputs only, ``dots`` under a selective
+    checkpoint that also keeps every matrix product's output."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return fn
+
+
+def run_blocks_train(stacked: Tuple[Params, ...], x: torch.Tensor,
+                     cfg: ModelConfig, positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Every layer's training forward; the MoE losses are zero for the
+    block kinds the port runs."""
+    pattern = normalize_pattern(cfg)
+
+    def superblock(x, layer_params):
+        for r, token in enumerate(pattern):
+            x, _ = block_train(layer_params[r], x, cfg, token, positions)
+        return x
+
+    body = _maybe_remat(superblock, cfg)
+    for i in range(_reps(stacked)):
+        x = body(x, tuple(layer_slice(s, i) for s in stacked))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"moe_aux": zero, "moe_zloss": zero}
 
 
 def run_blocks_prefill(stacked: Tuple[Params, ...], x: torch.Tensor,

@@ -1,9 +1,11 @@
 """Decoder-only language model: embed → stacked blocks → norm → logits.
 
-Entry points of the serving path (as in the JAX package's
-``repro.models.lm``, same parameter and cache layouts):
+Entry points (as in the JAX package's ``repro.models.lm``, same parameter
+and cache layouts):
 
     init_lm(gen, cfg)                         -> params
+    forward_train(params, cfg, tokens, ...)   -> (logits, aux)
+    loss_fn(params, cfg, batch)               -> (loss, metrics)
     prefill(params, cfg, tokens, cache_len)   -> (last_logits, caches)
     decode_step(params, cfg, caches, token, position) -> (logits, caches)
     init_cache(cfg, batch, cache_len, device) -> zero caches
@@ -11,14 +13,17 @@ Entry points of the serving path (as in the JAX package's
 ``decode_step`` writes the caches in place (and returns them). Logits are
 f32, from the f32 product of the final hidden state with the head; a caller
 that runs many steps passes ``with_f32_head(params, cfg)``, which converts
-the head to f32 once instead of on every call. The training entry points,
-the encoder-decoder models and the frontends come with their own slices.
+the head to f32 once instead of on every call. Training passes the
+parameters as they are: the head is converted inside the graph, so its
+gradient reaches the bf16 ``embed``/``lm_head``. The encoder-decoder
+models and the frontends come with their own slices.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
@@ -28,20 +33,20 @@ from repro_torch.models.tree import tree_map
 
 Params = Dict[str, Any]
 
-__all__ = ["init_lm", "prefill", "decode_step", "init_cache",
-           "with_f32_head", "check_supported"]
+__all__ = ["init_lm", "forward_train", "loss_fn", "prefill", "decode_step",
+           "init_cache", "with_f32_head", "check_supported"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a model the port does not run yet."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models (ROADMAP Queue 1 item 10: "
-            f"models/encdec.py) are not ported yet")
+            f"{cfg.name}: encoder-decoder models (models/encdec.py) are "
+            f"not ported yet")
     if cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.frontend} frontend embeddings (ROADMAP "
-            f"Queue 1 item 10: models/frontend.py) are not ported yet")
+            f"{cfg.name}: {cfg.frontend} frontend embeddings "
+            f"(models/frontend.py) are not ported yet")
     for token in B.normalize_pattern(cfg):
         B.check_supported(token)
 
@@ -79,8 +84,10 @@ def _positions(cfg: ModelConfig, B_: int, S: int, device: torch.device,
 
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    # gather first, then convert: the same values as converting the table
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    # gather first, then convert: the same values as converting the table.
+    # F.embedding's backward sums each row's gradient in a fixed order on
+    # the card (an indexed gather's would use atomics)
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
     if embeds is not None:
         x = torch.cat([embeds.to(cfg.compute_dtype), x], dim=1)
     return x
@@ -93,6 +100,41 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
     if head is None:
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return x.float() @ head.float().T
+
+
+def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  embeds: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B, S_txt) [+ embeds (B, F, d)] -> logits (B, S, V) f32."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    B_, S = x.shape[:2]
+    pos = _positions(cfg, B_, S, x.device)
+    x, aux = B.run_blocks_train(params["blocks"], x, cfg, pos)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (f32).
+
+    batch: tokens (B, S_txt), targets (B, S_txt) with -100 = masked,
+    optional embeds (B, F, d_model)."""
+    tokens = batch["tokens"]
+    targets = batch["targets"]
+    embeds = batch.get("embeds")
+    logits, _aux = forward_train(params, cfg, tokens, embeds)
+    if embeds is not None:
+        logits = logits[:, embeds.shape[1]:, :]   # loss on text positions
+    mask = (targets >= 0).to(torch.float32)
+    tgt = targets.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    return loss, {"nll": loss, "loss": loss}
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,12 +1,21 @@
 """Nested dict/tuple/list trees of tensors: the port's parameter and cache
-containers, in the JAX package's pytree layouts."""
+containers, in the JAX package's pytree layouts.
+
+``tree_flatten_with_path`` and ``tree_unflatten`` walk a tree as
+``jax.tree_util`` does: dict keys in sorted order, dataclass fields in
+declaration order, ``None`` as an empty subtree. A path is a tuple of dict
+keys and field names (strings) and sequence indices (ints), so the
+optimizer's weight-decay mask and the checkpoint's leaf names come out as
+the JAX package's do."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+import dataclasses
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "layer_slice"]
+__all__ = ["tree_map", "tree_leaves", "layer_slice",
+           "tree_flatten_with_path", "tree_unflatten"]
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
@@ -31,3 +40,46 @@ def layer_slice(stacked: Any, i: int) -> Any:
     """Layer ``i`` of a tree stacked on a leading ``reps`` axis: views,
     so writes into a slice land in the stacked tree."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def tree_flatten_with_path(tree: Any, path: Tuple = ()
+                           ) -> List[Tuple[Tuple, Any]]:
+    """``[(path, leaf), ...]`` in JAX's leaf order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_flatten_with_path(v, path + (i,))]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [pl for f in dataclasses.fields(tree)
+                for pl in tree_flatten_with_path(getattr(tree, f.name),
+                                                 path + (f.name,))]
+    return [(path, tree)]
+
+
+def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
+    """A tree shaped like ``like`` holding ``leaves`` in
+    ``tree_flatten_with_path(like)``'s order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{
+                f.name: build(getattr(t, f.name))
+                for f in dataclasses.fields(t)})
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

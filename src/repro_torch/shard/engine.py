@@ -253,6 +253,11 @@ class ShardedDeploymentHandle:
         # possibly stale, never wrong-key
         self._stale: "collections.OrderedDict" = collections.OrderedDict()
         self._stale_cap = int(engine.cfg.degraded_cache_keys)
+        # each output column's per-row shape, from the last fresh batch
+        self._widths: Dict[str, Tuple[int, ...]] = {}
+        # the table versions of slots retired under this handle (their
+        # handles and tables are released, their entries stay)
+        self._retired_versions: Dict[int, int] = {}
 
     # ------------------------------------------------------------ identity
     @property
@@ -290,9 +295,23 @@ class ShardedDeploymentHandle:
                    if h is not None)
 
     def version_vector(self) -> Tuple[int, ...]:
-        """Per-shard table versions (shard order, active slots) now."""
-        return tuple(h.table.version for h in self.handles
-                     if h is not None)
+        """Per-shard table versions in slot order: each active slot's
+        now, and a slot retired under this handle with the version its
+        table had when it was retired."""
+        return tuple(h.table.version if h is not None
+                     else self._retired_versions[s]
+                     for s, h in enumerate(self.handles)
+                     if h is not None or s in self._retired_versions)
+
+    def _release_slot(self, s: int) -> None:
+        """Drop retired slot ``s``'s handle, and with it its tables and
+        executors, keeping its version-vector entry."""
+        with self._lock:
+            h = self.handles[s] if s < len(self.handles) else None
+            if h is None:
+                return
+            self._retired_versions[s] = h.table.version
+            self.handles = self.handles[:s] + (None,) + self.handles[s + 1:]
 
     def join_staleness(self) -> Dict[str, Dict[str, float]]:
         """Cross-shard rollup of the per-shard staleness metrics. Age
@@ -462,8 +481,7 @@ class ShardedDeploymentHandle:
         return FeatureFrame(
             columns, status=status, deployment=self.name,
             version=self.version, trace_id=trace,
-            table_version=max((h.table.version for h in self.handles
-                               if h is not None), default=-1),
+            table_version=max(vv, default=-1),
             latency={"serve_s": wall},
             version_vector=vv, watermark=wm, feature_age=age)
 
@@ -472,37 +490,54 @@ class ShardedDeploymentHandle:
     def _ckey(key):
         return key.item() if isinstance(key, np.generic) else key
 
+    def _out_names(self) -> Tuple[str, ...]:
+        """A served frame's columns: the features, then the PREDICT
+        output when the query has one."""
+        names = tuple(self.phys.feature_names)
+        pred = self.query.predict if self.query is not None else None
+        return names + ((pred.output,) if pred is not None else ())
+
     def _remember(self, karr, columns, status) -> None:
         """Refresh the stale tier from a fully-computed batch: every
-        STATUS_OK row's features, keyed by request key, LRU-evicted."""
+        STATUS_OK row of every output column (the PREDICT output
+        included), keyed by request key, LRU-evicted."""
         if self._stale_cap <= 0:
             return
-        names = self.phys.feature_names
-        mat = np.stack([np.asarray(columns[n], np.float32)
-                        for n in names], axis=1)
+        cols = [np.asarray(columns[n], np.float32)
+                for n in self._out_names()]
         st = np.asarray(status)
         with self._lock:
+            self._widths = {n: c.shape[1:]
+                            for n, c in zip(self._out_names(), cols)}
             cache = self._stale
             for i in np.flatnonzero(st == STATUS_OK):
                 k = self._ckey(karr[int(i)])
-                cache[k] = mat[int(i)]
+                cache[k] = tuple(c[int(i)] for c in cols)
                 cache.move_to_end(k)
             while len(cache) > self._stale_cap:
                 cache.popitem(last=False)
+
+    def _zero_columns(self, B: int) -> Dict[str, np.ndarray]:
+        """Zero-filled output columns for ``B`` rows, each as wide as
+        the last fresh batch served (one value per row before any)."""
+        return {n: np.zeros((B,) + tuple(self._widths.get(n, ())),
+                            np.float32)
+                for n in self._out_names()}
 
     def _degraded_frame(self, parts, B: int, trace
                         ) -> Optional[FeatureFrame]:
         """Assemble a mixed frame: completed sub-batches keep their
         fresh rows/statuses; worker_down sub-batches answer from the
-        stale tier with STATUS_DEGRADED. Returns ``None`` — meaning
-        fall back to a whole-batch shed — if ANY down-shard key has no
-        cached row (a partially-degradable batch would otherwise need
-        per-row shed statuses, which the shed contract forbids)."""
-        names = self.phys.feature_names
-        columns = {n: np.zeros((B,), np.float32) for n in names}
+        stale tier with STATUS_DEGRADED, every output column (the
+        PREDICT output included) as last served. Returns ``None`` —
+        meaning fall back to a whole-batch shed — if ANY down-shard key
+        has no cached row (a partially-degradable batch would otherwise
+        need per-row shed statuses, which the shed contract forbids)."""
+        names = self._out_names()
         status = np.zeros(B, np.int8)
         n_deg = 0
         with self._lock:
+            columns = self._zero_columns(B)
             for idx, it in parts:
                 if not it.shed:
                     for kname, v in it.columns.items():
@@ -514,31 +549,29 @@ class ShardedDeploymentHandle:
                     row = self._stale.get(self._ckey(key))
                     if row is None:
                         return None
-                    for fi, n in enumerate(names):
-                        columns[n][int(j)] = row[fi]
+                    for n, v in zip(names, row):
+                        columns[n][int(j)] = v
                     status[int(j)] = STATUS_DEGRADED
                     n_deg += 1
             self.metrics.degraded_requests += n_deg
             self.metrics.degraded_batches += 1
+        vv = self.version_vector()
         return FeatureFrame(
             columns, status=status, deployment=self.name,
             version=self.version, trace_id=trace,
-            table_version=max((h.table.version for h in self.handles
-                               if h is not None), default=-1),
-            version_vector=self.version_vector())
+            table_version=max(vv, default=-1), version_vector=vv)
 
     def _shed_frame(self, B: int, trace,
                     kind: str = "shed") -> FeatureFrame:
         with self._lock:
             self.metrics.shed_requests += B
             self.metrics.shed_batches += 1
+            columns = self._zero_columns(B)
         self.engine.flight.record("shed", trace=trace,
                                   deployment=self.tag, rows=B,
                                   shed_kind=kind)
         return FeatureFrame(
-            {n: np.zeros((B,), np.float32)
-             for n in self.phys.feature_names},
-            status=np.full(B, STATUS_SHED, np.int8),
+            columns, status=np.full(B, STATUS_SHED, np.int8),
             deployment=self.name, version=self.version, trace_id=trace,
             version_vector=self.version_vector())
 
@@ -1263,7 +1296,27 @@ class ShardedEngine:
             if self.backend is not None:
                 self.shards[s].retired = True   # supervisor: no respawn
             self.shards[s].close()
+            # every retained version drops the slot's handle, and each
+            # stream facade its closed pipeline, so the shard's tables can
+            # be freed (its version entries stay)
+            for sh in self._retained_handles():
+                sh._release_slot(s)
+            for facade in self.streams.values():
+                if s < len(facade.pipes):
+                    facade.pipes[s] = None
             return moved
+
+    def _retained_handles(self) -> List[ShardedDeploymentHandle]:
+        """Every sharded handle the engine still holds: live, canary,
+        retained versions and history, each once."""
+        seen: Dict[int, ShardedDeploymentHandle] = {}
+        for sh in list(self.deployments.values()) + [
+                h for vs in self._versions.values() for h in vs.values()
+        ] + [h for hs in self._history.values() for h in hs]:
+            seen[id(sh)] = sh
+            if sh._canary is not None:
+                seen[id(sh._canary[0])] = sh._canary[0]
+        return list(seen.values())
 
     def _seed_replicas(self, s: int) -> None:
         """Copy every replicated table's full contents onto shard ``s``
@@ -1293,9 +1346,10 @@ class ShardedEngine:
         if self.backend is not None:
             return eng.list_keys, eng.extract_events, eng.migrate_in
         return ((lambda t: _migrate.list_keys(eng, t)),
-                (lambda t, ks: _migrate.extract_events(eng, t, ks)),
-                (lambda t, ks, tsv, rws: _migrate.migrate_in(eng, t, ks,
-                                                             tsv, rws)))
+                (lambda t, ks, **kw: _migrate.extract_events(eng, t, ks,
+                                                             **kw)),
+                (lambda t, ks, tsv, rws, totals=None: _migrate.migrate_in(
+                    eng, t, ks, tsv, rws, totals)))
 
     def _reshard(self, new_ring: HashRing, *,
                  batch_arcs: Optional[int] = None) -> int:
@@ -1376,10 +1430,12 @@ class ShardedEngine:
                         np.isin(in_arc, arcset))]
                     if not sel:
                         continue
-                    ks, tsv, rws = ex(tname, sel)
+                    # with each key's total: a key new on the target
+                    # keeps its ring positions there
+                    ks, tsv, rws, tot = ex(tname, sel, with_totals=True)
                     if len(ks):
                         _lk, _ex, mi = self._mig_ops(dst)
-                        moved += mi(tname, ks, tsv, rws)
+                        moved += mi(tname, ks, tsv, rws, tot)
                 rt.set_owner(arcs, dst)
         return moved
 

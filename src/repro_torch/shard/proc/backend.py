@@ -656,14 +656,17 @@ class ProcEngineClient:
     def list_keys(self, table: str) -> List:
         return self.proc.call("list_keys", table=table)
 
-    def extract_events(self, table: str, keys: Sequence):
+    def extract_events(self, table: str, keys: Sequence, *,
+                       with_totals: bool = False):
         return self.proc.call("extract_events", table=table,
-                              keys=list(keys))
+                              keys=list(keys), with_totals=with_totals)
 
-    def migrate_in(self, table: str, keys: Sequence, ts, rows) -> int:
+    def migrate_in(self, table: str, keys: Sequence, ts, rows,
+                   totals=None) -> int:
         return self.proc.call("migrate_in", table=table, keys=list(keys),
                               ts=np.asarray(ts, np.float32),
-                              rows=np.asarray(rows, np.float32))
+                              rows=np.asarray(rows, np.float32),
+                              totals=totals)
 
     # ------------------------------------------------------------- intro
     def latency_decomposition(self) -> Dict[str, float]:

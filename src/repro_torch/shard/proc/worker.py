@@ -304,14 +304,16 @@ class WorkerServer:
         from repro_torch.shard.migrate import list_keys
         return list_keys(self.engine, table)
 
-    def rpc_extract_events(self, table=None, keys=None):
+    def rpc_extract_events(self, table=None, keys=None, with_totals=False):
         from repro_torch.shard.migrate import extract_events
-        ks, ts, rows = extract_events(self.engine, table, keys)
-        return ks, to_host(ts), to_host(rows)
+        out = extract_events(self.engine, table, keys,
+                             with_totals=with_totals)
+        return (out[0], to_host(out[1]), to_host(out[2])) + out[3:]
 
-    def rpc_migrate_in(self, table=None, keys=None, ts=None, rows=None):
+    def rpc_migrate_in(self, table=None, keys=None, ts=None, rows=None,
+                       totals=None):
         from repro_torch.shard.migrate import migrate_in
-        n = migrate_in(self.engine, table, keys, ts, rows)
+        n = migrate_in(self.engine, table, keys, ts, rows, totals)
         self._release_cached()
         return n
 

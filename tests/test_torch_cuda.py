@@ -588,6 +588,101 @@ def test_attention_launch_counters(card):
     assert decode_attention.launches == d0 + 1
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 64, 64, 4, 2, 64), (1, 128, 128, 12, 2, 128), (2, 37, 53, 6, 2, 80),
+    (1, 512, 512, 12, 2, 128)])        # qwen2-1.5b's training shape
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradient(card, B, Sq, Sk, Hq, Hkv, D, causal,
+                                  window, dtype):
+    """Inputs that need a gradient go through the kernel inside its
+    autograd Function: the forward is the kernel's (one launch), the
+    gradients are the plain version's f32 gradients, in the inputs'
+    dtype."""
+    from repro_torch.kernels import flash_attention
+    if not causal:
+        window = None
+    q = _randn((B, Sq, Hq, D), dtype, card, 20).requires_grad_()
+    k = _randn((B, Sk, Hkv, D), dtype, card, 21).requires_grad_()
+    v = _randn((B, Sk, Hkv, D), dtype, card, 22).requires_grad_()
+    dout = _randn((B, Sq, Hq, D), dtype, card, 23)
+    n0 = flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n0 + 1 and out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    with torch.no_grad():
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+    ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    wgrads = torch.autograd.grad(
+        ref.flash_attention_ref(*ins, causal=causal, window=window),
+        ins, dout.float())
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                               atol=tol)
+    for g, w, t in zip(grads, wgrads, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        torch.testing.assert_close(g.float(), w, rtol=tol, atol=tol)
+
+
+def test_flash_attention_cuda_refuses_inputs_that_need_a_gradient(card):
+    from repro_torch.kernels import flash_attention
+    q = _randn((1, 16, 4, 64), torch.float32, card, 24).requires_grad_()
+    k = _randn((1, 16, 2, 64), torch.float32, card, 25)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention.flash_attention_cuda(q, k, k)
+    with torch.no_grad():                 # no gradient asked: it runs
+        flash_attention.flash_attention_cuda(q, k, k)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_train_step_on_the_card_equals_the_cpu(card, remat):
+    """One train step of a reduced qwen2-1.5b (f32) on the card and on
+    the CPU from the same parameters: loss ``rtol 1e-4``, the new
+    parameters within ``1e-2·lr``, and within ``2·lr`` where the gradient
+    is within ``100·eps`` of 0 (the first Adam step is
+    ``lr·g/(|g|+eps)``), through the flash kernel's Function."""
+    import dataclasses
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.tree import tree_flatten_with_path, tree_map
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(reduced(get_config("qwen2-1.5b")),
+                              remat=remat)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                                    dtype=torch.int32),
+             "targets": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                                     dtype=torch.int32)}
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = steps.make_train_step(cfg, ocfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev), params)
+        n0 = flash_attention.launches
+        p2, s2, m = step(p, adamw.adamw_init(p, ocfg),
+                         {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(m["loss"]),
+                    [a.cpu() for _, a in tree_flatten_with_path(p2)],
+                    [a.cpu() for _, a in tree_flatten_with_path(s2.m)],
+                    flash_attention.launches - n0)
+    assert out["cpu"][3] == 0 and out["cuda"][3] >= cfg.n_layers
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for a, b, m in zip(out["cuda"][1], out["cpu"][1], out["cpu"][2]):
+        # a gradient within 100·eps of 0 moves its element by up to lr
+        # either way; the others agree to 1e-2·lr
+        near = m.abs() / (1.0 - ocfg.b1) < 100 * ocfg.eps
+        torch.testing.assert_close(a[~near], b[~near], rtol=0,
+                                   atol=1e-2 * ocfg.lr)
+        assert bool(((a - b).abs()[near] <= 2 * ocfg.lr).all())
+
+
 def test_attention_wrappers_reject_bad_inputs(card):
     q = _randn((1, 16, 4, 64), torch.bfloat16, card, 11)
     k = _randn((1, 16, 2, 64), torch.bfloat16, card, 12)

@@ -21,17 +21,20 @@ Tolerances: exact for routing, owners, status, versions, version
 vectors, counters, counts, min/max, first/last and joined columns, and
 for the port against its own unsharded engine; ``rtol 2e-4`` (atol
 1e-5) for sums and averages against JAX. After a reshard, a key whose
-ring had wrapped lands on its new shard at other ring positions, so its
-pre-aggregate buckets group other events: its sums there are held to
-``rtol 2e-4``, against either engine.
+ring had wrapped keeps its ring positions on its new shard in the port,
+which then equals its unsharded engine bit for bit; JAX re-inserts it at
+other positions, so its pre-aggregate buckets group other events, and
+its sums there are held to ``rtol 2e-4``.
 
 Threaded tests wait on events and bounded joins; none sleeps and then
 asserts on timing alone.
 """
+import gc
 import os
 import threading
 import time
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -732,6 +735,116 @@ def test_degraded_ladder_stale_tier():
     assert got[2:] == want[2:]
 
 
+PREDICT_SQL = """SELECT SUM(amount) OVER w AS s, COUNT(amount) OVER w AS c,
+PREDICT(m, s, c) AS score
+FROM events
+WINDOW w AS (PARTITION BY user ORDER BY ts
+             ROWS BETWEEN 10 PRECEDING AND CURRENT ROW)"""
+
+
+def _scorer(p, feats):
+    """Column by column, so a row's score does not depend on its batch;
+    the same code runs on torch tensors and on JAX arrays."""
+    mu, sd, w, b = p
+    z = (feats - mu) / sd * w
+    acc = b + z[:, 0]
+    for j in range(1, z.shape[1]):
+        acc = acc + z[:, j]
+    return acc
+
+
+def _scorer_params(pk):
+    rng = np.random.default_rng(3)
+    params = (np.asarray([0.5, 3.0], np.float32),
+              np.asarray([2.0, 4.0], np.float32),
+              rng.normal(size=2).astype(np.float32), np.float32(0.25))
+    if pk is PORT:
+        return tuple(torch.tensor(np.asarray(p)) for p in params)
+    return params
+
+
+def _predict_ladder(pk):
+    """A fresh PREDICT frame, then shard 1's queue retired: a degraded
+    frame (its keys from the stale tier), then a shed one (a key of
+    shard 1 the tier never saw)."""
+    keys, ts, rows = _events()
+    se = _sharded(pk, n_shards=2, degraded_cache_keys=64)
+    se.create_table(_schema(pk), max_keys=64, capacity=64, bucket_size=8)
+    se.insert("events", keys.tolist(), ts.tolist(), rows)
+    se.register_model("m", _scorer, _scorer_params(pk))
+    se.deploy("p", PREDICT_SQL)
+    rk, rt = list(range(8)), [2000.0] * 8
+    fresh = se.request("p", rk, rt)
+    assert (np.asarray(fresh.status) == STATUS_OK).all()
+    down = [k in {s for s in rk if se.shard_of(s) == 1} for k in rk]
+    assert any(down) and not all(down)
+    se.router.retire_queue(1)
+    deg = se.request("p", rk, rt)
+    cold = next(k for k in range(8, 200)
+                if se.shard_of(k) == 1 and k not in rk)
+    shed = se.request("p", rk + [cold], rt + [2000.0])
+    se.close()
+    return fresh, deg, shed, np.asarray(down)
+
+
+def test_degraded_and_shed_frames_carry_the_predict_output():
+    """A degraded frame answers a down shard's keys with every column
+    they were last served with, the PREDICT output included, and a shed
+    frame has that column zero-filled. JAX's stale tier and shed frame
+    carry the features only, so its degraded and shed frames have no
+    ``score``: here the port differs from JAX on purpose."""
+    (pf, pd, ps, down), (jf, jd, js, jdown) = (
+        _predict_ladder(PORT), _predict_ladder(JAX))
+    assert down.tolist() == jdown.tolist()
+    _assert_close(_cols(pf), _cols(jf), "fresh")
+    st = np.asarray(pd.status)
+    assert (st[down] == STATUS_DEGRADED).all()
+    assert (st[~down] == STATUS_OK).all()
+    assert np.asarray(jd.status).tolist() == st.tolist()
+    assert sorted(pd.columns) == ["c", "s", "score"]
+    for n in pd.columns:            # the stale rows, bit for bit
+        np.testing.assert_array_equal(np.asarray(pd[n]),
+                                      np.asarray(pf[n]), err_msg=n)
+    assert "score" in jf.columns and "score" not in jd.columns
+    assert (np.asarray(ps.status) == STATUS_SHED).all()
+    assert sorted(ps.columns) == ["c", "s", "score"]
+    assert not np.asarray(ps["score"]).any()
+    assert "score" not in js.columns
+    _assert_close({n: np.asarray(pd[n]) for n in jd.columns},
+                  _cols(jd), "degraded features")
+
+
+def _retire_and_release(pk):
+    """Three shards; ``h`` is the first version of ``q``, retained after
+    a redeploy; shard 0 is removed."""
+    se = _loaded(pk, n_shards=3)
+    se.attach_stream("events", flush_interval_s=0.01)
+    h = se.handle("q")
+    se.deploy("q", SQL.replace("10 PRECEDING", "5 PRECEDING"))
+    tab = weakref.ref(se.shards[0].tables["events"])
+    se.remove_shard(0)
+    gc.collect()
+    rk, rt = list(range(16)), [2000.0] * 16
+    out = (h.version_vector(), se.handle("q").version_vector(),
+           _cols(se.request("q", rk, rt)), h, tab)
+    se.close()
+    return out
+
+
+def test_remove_shard_releases_the_retired_slot_tables():
+    """After ``remove_shard(0)`` no retained handle holds shard 0's
+    handle, nor the stream facade its pipeline, so its table is freed
+    (JAX keeps it), while every version vector still has shard 0's entry,
+    equal to JAX's."""
+    pold, pnew, pfr, ph, ptab = _retire_and_release(PORT)
+    jold, jnew, jfr, jh, jtab = _retire_and_release(JAX)
+    assert pold == jold and pnew == jnew
+    assert len(pold) == 3
+    _assert_close(pfr, jfr, "after remove_shard")
+    assert ph.handles[0] is None and ptab() is None
+    assert jh.handles[0] is not None and jtab() is not None
+
+
 def _prepare_ttl(pk):
     se = _sharded(pk, n_shards=2)
     se.create_table(_schema(pk), max_keys=16, capacity=64, bucket_size=8)
@@ -831,9 +944,13 @@ WINDOW w AS (PARTITION BY user ORDER BY ts
 
 def _wrapped_reshard(pk):
     """Capacity 16, bucket 4, keys far past 16 events, a RANGE window
-    the optimizer routes to the pre-aggregate tier; 2 -> 3 -> 2 shards.
-    Returns the unsharded frame and the sharded frames before and after,
-    and whether the keys that moved had wrapped."""
+    the optimizer routes to the pre-aggregate tier; 2 -> 3 -> 2 shards,
+    then one more event per key (which completes the newest bucket of a
+    key whose oldest one had lost its head). Returns the unsharded frame
+    and the sharded frames before and after, the same after the extra
+    events, the keys that moved, whether they had wrapped, and per key
+    whether its ring and tier on its shard equal the unsharded engine's
+    (None for JAX, whose state is not compared)."""
     keys, ts, rows = _wrapped_events()
     ref = pk.Engine(pk.Flags(), **pk.kw)
     se = _sharded(pk, n_shards=2)
@@ -854,29 +971,61 @@ def _wrapped_reshard(pk):
     tot = ref.tables["events"].state.total
     wrapped = {k: int(np.asarray(tot)[ref.tables["events"].key_to_idx[k]])
                > 16 for k in rk}
+    same_state = None
+    if pk is PORT:
+        rtab = ref.tables["events"]
+        same_state = {}
+        for k in rk:
+            tab = se.shards[se.shard_of(k)].tables["events"]
+            i, j = rtab.key_to_idx[k], tab.key_to_idx[k]
+            same_state[k] = all(
+                torch.equal(a[i], b[j]) for a, b in (
+                    (rtab.state.values, tab.state.values),
+                    (rtab.state.ts, tab.state.ts),
+                    (rtab.state.total, tab.state.total),
+                    (rtab.preagg.sum, tab.preagg.sum),
+                    (rtab.preagg.sumsq, tab.preagg.sumsq),
+                    (rtab.preagg.count, tab.preagg.count)))
+    rng = np.random.default_rng(5)
+    extra = rng.normal(size=(12, 2)).astype(np.float32)
+    for e in (ref, se):
+        e.insert("events", rk, [1000.25] * 12, extra)
+    want2 = _cols(ref.request("q", rk, rt))
+    after2 = _cols(se.request("q", rk, rt))
     ref.close()
     se.close()
-    return want, before, after, moved, wrapped
+    return want, before, after, want2, after2, moved, wrapped, same_state
 
 
 def test_reshard_of_keys_that_wrapped_their_rings():
-    (pw, pb, pa, pmoved, pwrap), (jw, jb, ja, jmoved, jwrap) = (
-        _wrapped_reshard(PORT), _wrapped_reshard(JAX))
+    """The port seats a migrated key at its source's ring positions, so
+    it equals its unsharded engine bit for bit after the reshard (ring,
+    tier and frames). JAX re-inserts at positions ``[0, n)``: its sums
+    of moved wrapped keys are held to ``rtol 2e-4``, and the port to JAX
+    likewise."""
+    port, jax_ = _wrapped_reshard(PORT), _wrapped_reshard(JAX)
+    pw, pb, pa, pw2, pa2, pmoved, pwrap, pstate = port
+    jw, jb, ja, jw2, ja2, jmoved, jwrap, _ = jax_
     assert pmoved == jmoved and pwrap == jwrap
     assert any(pwrap[k] for k in pmoved)     # a wrapped key did move
     # before the reshard each package's shards equal its unsharded engine
     _assert_equal(pb, pw, "port before")
     _assert_equal(jb, jw, "jax before")
-    # after it, counts, min and max stay exact on both packages and the
-    # sums of the moved wrapped keys stay inside rtol 2e-4 (the ring
-    # positions, hence the bucket grouping, changed)
-    for got, want, what in ((pa, pw, "port"), (ja, jw, "jax")):
+    # after it, the port's shards hold every key's state as the
+    # unsharded engine does, and serve the same frames, bit for bit
+    assert all(pstate.values()), pstate
+    _assert_equal(pa, pw, "port after reshard")
+    _assert_equal(pa2, pw2, "port after reshard and one more event")
+    # JAX: counts, min and max exact, sums of the moved wrapped keys
+    # within rtol 2e-4 (their bucket grouping changed), the rest exact
+    for got, want, what in ((ja, jw, "jax"), (ja2, jw2, "jax, one more")):
         _assert_close(got, want, f"{what} after reshard")
         stay = [i for i, k in enumerate(range(12)) if k not in pmoved]
         for n in want:
             np.testing.assert_array_equal(got[n][stay], want[n][stay],
                                           err_msg=f"{what} {n}")
     _assert_close(pa, ja, "port vs jax after")
+    _assert_close(pa2, ja2, "port vs jax after one more event")
 
 
 # ---------------------------------------------------------------------------

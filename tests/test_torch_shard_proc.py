@@ -511,6 +511,110 @@ def test_proc_registered_model_params_cross_as_numpy(tmp_path,
         sys.modules.pop("proc_scorer", None)
 
 
+def test_proc_degraded_and_shed_frames_carry_the_predict_output(
+        tmp_path, monkeypatch):
+    """Under the process backend too, a degraded frame answers a down
+    shard's keys with every column they were last served with, the
+    PREDICT output included, and a shed frame has it zero-filled (JAX's
+    frames lack ``score``: ``tests/test_torch_shard.py`` states the
+    difference). Shard 1's queue is retired, so its sub-batches shed
+    worker_down without a kill."""
+    import importlib
+    (tmp_path / "proc_scorer.py").write_text(SCORER)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(tmp_path)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    fn = importlib.import_module("proc_scorer").scorer
+    rng = np.random.default_rng(3)
+    params = tuple(torch.tensor(np.asarray(p)) for p in (
+        np.asarray([0.5, 3.0], np.float32),
+        np.asarray([2.0, 4.0], np.float32),
+        rng.normal(size=2).astype(np.float32), np.float32(0.25)))
+    keys, ts, rows = _events()
+    se = _proc(n_shards=2, degraded_cache_keys=64)
+    try:
+        se.create_table(_schema(PORT), max_keys=64, capacity=64,
+                        bucket_size=8)
+        se.insert("events", keys.tolist(), ts.tolist(), rows)
+        se.register_model("m", fn, params)
+        se.deploy("p", PREDICT_SQL)
+        rk, rt = list(range(8)), [2000.0] * 8
+        fresh = se.request("p", rk, rt)
+        assert (fresh.status == STATUS_OK).all()
+        down = np.asarray([se.shard_of(k) == 1 for k in rk])
+        assert down.any() and not down.all()
+        se.router.retire_queue(1)
+        deg = se.request("p", rk, rt)
+        assert (deg.status[down] == STATUS_DEGRADED).all()
+        assert (deg.status[~down] == STATUS_OK).all()
+        assert sorted(deg.columns) == ["c", "s", "score"]
+        for n in deg.columns:
+            np.testing.assert_array_equal(np.asarray(deg[n]),
+                                          np.asarray(fresh[n]), err_msg=n)
+        cold = next(k for k in range(8, 200)
+                    if se.shard_of(k) == 1 and k not in rk)
+        shed = se.request("p", rk + [cold], rt + [2000.0])
+        assert (shed.status == STATUS_SHED).all()
+        assert sorted(shed.columns) == ["c", "s", "score"]
+        assert not np.asarray(shed["score"]).any()
+    finally:
+        se.close()
+        sys.modules.pop("proc_scorer", None)
+
+
+WRAP_SQL = """SELECT SUM(amount) OVER w AS s, COUNT(amount) OVER w AS c,
+AVG(mkey) OVER w AS a, MAX(amount) OVER w AS mx, MIN(mkey) OVER w AS mn
+FROM events
+WINDOW w AS (PARTITION BY user ORDER BY ts
+             RANGE BETWEEN 600 PRECEDING AND CURRENT ROW)"""
+
+
+def test_proc_reshard_of_keys_that_wrapped_their_rings():
+    """Capacity 16, bucket 4, Zipf keys far past 16 events, a window on
+    the pre-aggregate tier; 2 -> 3 -> 2 worker processes, then one more
+    event per key. The workers carry each migrated key's total with its
+    rows and seat it at its source's ring positions, so the frames equal
+    the port's unsharded engine bit for bit throughout."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.optimizer import OptFlags
+    rng = np.random.default_rng(3)
+    n, n_keys = 1500, 12
+    p = 1.0 / np.arange(1, n_keys + 1)
+    keys = rng.choice(n_keys, n, p=p / p.sum())
+    ts = np.sort(rng.uniform(0, 1000.0, n)).astype(np.float32)
+    rows = np.stack([rng.normal(size=n), rng.uniform(0, 8, n)],
+                    -1).astype(np.float32)
+    ref = Engine(OptFlags(), device="cpu")
+    se = _proc(n_shards=2)
+    try:
+        for eng in (ref, se):
+            eng.create_table(_schema(PORT), max_keys=16, capacity=16,
+                             bucket_size=4)
+            eng.insert("events", keys.tolist(), ts.tolist(), rows)
+            eng.deploy("q", WRAP_SQL)
+        rk, rt = list(range(n_keys)), [1000.5] * n_keys
+        owners0 = [se.shard_of(k) for k in rk]
+        _equal(se.request("q", rk, rt), ref.request("q", rk, rt),
+               "before")
+        se.add_shard()
+        se.remove_shard(0)
+        moved = [k for k, o in zip(rk, owners0) if se.shard_of(k) != o]
+        tot = ref.tables["events"].state.total
+        assert any(int(tot[ref.tables["events"].key_to_idx[k]]) > 16
+                   for k in moved)
+        _equal(se.request("q", rk, rt), ref.request("q", rk, rt),
+               "after reshard")
+        extra = np.random.default_rng(5).normal(
+            size=(n_keys, 2)).astype(np.float32)
+        for eng in (ref, se):
+            eng.insert("events", rk, [1000.25] * n_keys, extra)
+        _equal(se.request("q", rk, rt), ref.request("q", rk, rt),
+               "after reshard and one more event")
+    finally:
+        se.close()
+        ref.close()
+
+
 def test_process_engine_defaults_to_cuda_and_spawns_nothing_without_it(
         monkeypatch):
     """``ShardedEngine(backend="process")`` asks for the card by default

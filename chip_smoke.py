@@ -129,8 +129,10 @@ then:
    f32 (MHA/GQA/MQA; causal, windowed and full; Sq < Sk and ragged
    lengths, query counts around the 64-row tiles; decode in prefix mode
    with and without a window, at lengths around its split edges, past
-   the cache, and in ring mode past the window): ``rtol = atol = 2e-2``
-   in bf16, ``2e-5`` in f32;
+   the cache, and in ring mode past the window; and the families' head
+   shapes: 24/8 heads of 64 (granite), 32/8 and 28/4 of 128 over 1,088
+   rows (jamba, qwen2-vl), mixtral's 48/8 of 128 in a 4096-slot ring
+   past its window): ``rtol = atol = 2e-2`` in bf16, ``2e-5`` in f32;
 14. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
@@ -144,7 +146,28 @@ then:
    tokens/s, peak device memory and the device-busy share of one decode
    step; then times each attention kernel, its plain version and
    ``scaled_dot_product_attention`` on the main path's arguments;
-16. runs ``python -m repro_torch.launch.serve --decode`` with its defaults.
+16. runs ``python -m repro_torch.launch.serve --decode`` with its defaults;
+17. the other decoder-only families (``families``, about 300 s; each
+   model freed before the next): card against CPU in f32 (mamba2-780m,
+   granite-moe-3b-a800m and qwen2-vl-7b at full width, 2 layers, the
+   last with 256 patch embeddings; jamba's period of 8 at d_model 512
+   with its 16 experts top-2; mixtral at reduced width, a 4090-token
+   prompt decoded past its 4096 window): logits within ``1e-4``, greedy
+   tokens and every router's chosen experts equal, a training loss
+   within ``1e-4`` and gradients within ``1e-4`` relative L2; then each
+   served at full width in bf16 with seeded random weights (jamba one
+   period of 8 with 8 slots, mamba2-780m at full depth with 16 slots,
+   granite at full depth with 16 slots, qwen2-vl at full depth through
+   ``make_prefill_step`` with 1,024 patch embeddings ahead of 64 tokens
+   for 4 sequences, mixtral 2 layers with 4 slots past its window):
+   prefill ms, decode step p50/p99, tokens/s, the device's busy share of
+   a step, peak memory, ``moe_drop_frac``, and flash and decode launches
+   equal to its attention layers times the calls (none for mamba2, whose
+   cache bytes do not grow with ``cache_len``); then mamba2-780m (full
+   depth) and granite (8 of 32 layers) trained 10 steps on 4 x 512
+   tokens in bf16: a falling loss, no skipped step, the MoE losses in the
+   metrics, step p50, tokens/s, the model-FLOPs share of the bf16 peak
+   over active parameters and peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -3956,7 +3979,11 @@ def attention_cases(device) -> Dict[str, float]:
                                       (1, 200, 200, 12, 2, 128),
                                       (1, 33, 70, 4, 2, 96),
                                       (2, 65, 65, 12, 2, 128),
-                                      (1, 127, 127, 6, 2, 16)):
+                                      (1, 127, 127, 6, 2, 16),
+                                      # granite, jamba, qwen2-vl heads
+                                      (1, 512, 512, 24, 8, 64),
+                                      (1, 1088, 1088, 32, 8, 128),
+                                      (1, 1088, 1088, 28, 4, 128)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
@@ -3970,7 +3997,9 @@ def attention_cases(device) -> Dict[str, float]:
                         f"flash {dtype} {(B, Sq, Sk, Hq, Hkv, D)} {kw}"))
         for B, S, Hq, Hkv, D in ((4, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                                  (3, 64, 4, 1, 32), (16, 1024, 12, 2, 128),
-                                 (2, 100, 9, 3, 80), (6, 300, 12, 2, 128)):
+                                 (2, 100, 9, 3, 80), (6, 300, 12, 2, 128),
+                                 (8, 1024, 24, 8, 64), (8, 1024, 32, 8, 128),
+                                 (4, 1120, 28, 4, 128)):
             q = _randn((B, Hq, D), dtype, device, 4)
             kc = _randn((B, S, Hkv, D), dtype, device, 5)
             vc = _randn((B, S, Hkv, D), dtype, device, 6)
@@ -4003,6 +4032,18 @@ def attention_cases(device) -> Dict[str, float]:
                     ref.decode_attention_ref(q, kc, vc, pos, window=window,
                                              ring=True),
                     f"decode ring {dtype} S={S} window={window}"))
+        # mixtral: 48/8 heads of 128 in its 4096-slot ring, past the window
+        q = _randn((4, 48, 128), dtype, device, 10)
+        kc = _randn((4, 4096, 8, 128), dtype, device, 11)
+        vc = _randn((4, 4096, 8, 128), dtype, device, 12)
+        pos = torch.tensor([4000, 4095, 4096, 4200], dtype=torch.int32,
+                           device=device)
+        errs["decode_attention"] = max(
+            errs["decode_attention"], _attn_err(
+                ops.decode_attention(q, kc, vc, pos, window=4096, ring=True),
+                ref.decode_attention_ref(q, kc, vc, pos, window=4096,
+                                         ring=True),
+                f"decode ring {dtype} mixtral heads S=4096 window=4096"))
     torch.cuda.synchronize()
     return errs
 
@@ -4266,20 +4307,23 @@ def model_main_path(ms: ModelSizes, device) -> Dict[str, object]:
         f"{report['decode_tokens_per_s']:.2f} tokens/s; peak device memory "
         f"above the parameters {peak} bytes against cache {cache_bytes} + "
         f"f32 head {head_f32} bytes; launches {launches}")
-    report["busy"] = decode_busy(srv, report["decode_step_p50_ms"])
+    report["busy"] = decode_busy(lambda: srv.decode(1),
+                                 report["decode_step_p50_ms"])
     del srv
     return {"report": report, "launches": launches, "calls": calls}
 
 
-def decode_busy(srv, p50_ms: float) -> Dict[str, object]:
-    """Device time of one decode step from a torch.profiler trace (after a
-    warm step), and its share of the unprofiled step p50."""
+def decode_busy(step: Callable[[], object], p50_ms: float
+                ) -> Dict[str, object]:
+    """Device time of one decode step (``step()``) from a torch.profiler
+    trace (after a warm step), and its share of the unprofiled step
+    p50."""
     from torch.profiler import ProfilerActivity, profile
-    srv.decode(1)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        srv.decode(1)
+        step()
         torch.cuda.synchronize()
     per_kernel: Dict[str, float] = {}
     launches, host_ops = 0, 0
@@ -4363,6 +4407,532 @@ def run_model(device, ms: ModelSizes) -> Dict[str, object]:
             "model_cuda_vs_cpu": cmp, "serve_cli": cli}
 
 
+# ---------------------------------------------------------------------------
+# the other decoder-only families: Mamba-2, MoE, the hybrid, vision
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FamilyCheck:
+    """One family's card-against-CPU check (f32): the config's fields
+    changed by ``changes`` (and its MoE fields by ``moe``)."""
+    arch: str
+    changes: tuple = ()
+    moe: tuple = ()
+    prompts: int = 2
+    prompt_len: int = 64
+    steps: int = 8               # teacher-forced decode steps
+    cache_len: int = 128
+    patches: int = 0             # stub frontend embeddings ahead of prompts
+    train_len: int = 32          # tokens per sequence of the training check
+    train_patches: int = 0
+    # logits rtol = atol and gradients' relative L2; above 1e-4 the check
+    # also measures the CPU's own spread (the same passes on 1 thread
+    # against all of them)
+    tol: float = 1e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyRun:
+    """One family's serving main path at full width (bf16)."""
+    arch: str
+    layers: int
+    slots: int
+    cache_len: int
+    prompt_len: int
+    steps: int
+    patches: int = 0             # > 0: make_prefill_step with embeddings
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilySizes:
+    checks: tuple = (
+        FamilyCheck("mamba2-780m", (("n_layers", 2),)),
+        FamilyCheck("granite-moe-3b-a800m", (("n_layers", 2),)),
+        FamilyCheck("qwen2-vl-7b", (("n_layers", 2),), patches=256,
+                    cache_len=384, train_patches=32),
+        # one period of 8 at d_model 512, its 16 experts top-2; eight
+        # random f32 layers move its logits and gradients by ~1e-4 between
+        # two CPU thread counts, so they are held to 1e-3, that spread
+        # printed beside
+        FamilyCheck("jamba-v0.1-52b", (("d_model", 512), ("d_ff", 1792)),
+                    (("d_ff_expert", 1792),), tol=1e-3),
+        # reduced width, its window of 4096 and heads 6 per KV head
+        FamilyCheck("mixtral-8x22b",
+                    (("n_layers", 2), ("d_model", 1024), ("n_heads", 12),
+                     ("n_kv_heads", 2), ("d_ff", 2048)),
+                    (("d_ff_expert", 2048),), prompts=1, prompt_len=4090,
+                    steps=12, cache_len=8192),
+    )
+    runs: tuple = (
+        FamilyRun("jamba-v0.1-52b", 8, 8, 1024, 512, 32),
+        FamilyRun("mamba2-780m", 48, 16, 1024, 1024, 32),
+        FamilyRun("granite-moe-3b-a800m", 32, 16, 1024, 512, 32),
+        FamilyRun("qwen2-vl-7b", 28, 4, 1120, 64, 32, patches=1024),
+        FamilyRun("mixtral-8x22b", 2, 4, 8192, 4000, 200),
+    )
+    # (arch, layers) trained at full width, bf16, 4 x 512 tokens
+    train: tuple = (("mamba2-780m", 48), ("granite-moe-3b-a800m", 8))
+    train_batch: int = 4
+    train_seq: int = 512
+    train_steps: int = 10
+
+
+def family_config(arch: str, changes=(), moe=()):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    kw = dict(changes)
+    if moe:
+        kw["moe"] = dataclasses.replace(cfg.moe, **dict(moe))
+    return dataclasses.replace(cfg, **kw)
+
+
+def _n_attention_layers(cfg) -> int:
+    from repro_torch.models.blocks import normalize_pattern
+    pattern = normalize_pattern(cfg)
+    return (sum(t[0] == "a" for t in pattern)
+            * (cfg.n_layers // len(pattern)))
+
+
+ROUTE_TIE = 1e-3    # a logit gap under which two experts are a near-tie
+
+
+def family_cuda_vs_cpu(fc: FamilyCheck, device) -> Dict[str, object]:
+    """The same seeded f32 parameters on the CPU and on the card: a
+    prefill (through ModelServer, or ``make_prefill_step`` with stub
+    embeddings for a vision model) and teacher-forced decode steps, then
+    one ``loss_fn`` with its gradients.
+
+    Routing: each router call on the card computes its own top-k, which
+    must equal the CPU's except where the CPU's router logits of the two
+    experts lie within ``ROUTE_TIE`` of each other (a near-tie that f32
+    noise may order either way: the card's router input differs from the
+    CPU's by ~1e-5 relative after a few layers); the card then routes
+    with the CPU's choice, so that one near-tie does not change every
+    later layer's input. Logits within rtol = atol = ``tol`` with equal
+    greedy tokens, the loss and the MoE losses within 1e-4 relative,
+    every gradient within ``tol`` relative L2: 1e-4, but 1e-3 for
+    jamba's eight layers, whose CPU spread is measured and printed
+    beside."""
+    from repro_torch.launch.steps import (_value_and_grad, init_params,
+                                          make_prefill_step)
+    from repro_torch.models import frontend, lm, moe
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving.server import ModelServer
+    cfg = dataclasses.replace(family_config(fc.arch, fc.changes, fc.moe),
+                              dtype="float32", param_dtype="float32")
+    params = init_params(torch.Generator(device=device).manual_seed(7), cfg)
+    rng = np.random.default_rng(23)
+    n, L, steps = fc.prompts, fc.prompt_len, fc.steps
+    toks = rng.integers(0, cfg.vocab_size, (n, L + steps)).astype(np.int32)
+    tt = rng.integers(0, cfg.vocab_size, (2, fc.train_len + 1))
+    batch = {"tokens": torch.tensor(tt[:, :-1], dtype=torch.int32),
+             "targets": torch.tensor(tt[:, 1:], dtype=torch.int32)}
+    emb = None
+    if fc.patches:
+        emb = frontend.stub_frontend(
+            torch.Generator(device=device).manual_seed(8), cfg, n,
+            fc.patches)
+        batch["embeds"] = frontend.stub_frontend(
+            torch.Generator(device=device).manual_seed(9), cfg, 2,
+            fc.train_patches).cpu()
+    def serve_logits(p, dev) -> torch.Tensor:
+        """Prefill, then teacher-forced steps: every call's logits."""
+        logits = []
+        if emb is None:
+            srv = ModelServer(cfg, p, batch=n, cache_len=fc.cache_len)
+            srv.prefill(toks[:, :L])
+            logits.append(srv.logits.cpu())
+            for i in range(steps):
+                srv.tokens = torch.as_tensor(toks[:, L + i], device=dev)
+                srv.decode(1)
+                logits.append(srv.logits.cpu())
+        else:
+            ph = lm.with_f32_head(p, cfg)
+            lg, caches = make_prefill_step(cfg, fc.cache_len)(
+                ph, torch.as_tensor(toks[:, :L], device=dev), emb.to(dev))
+            logits.append(lg.cpu())
+            for i in range(steps):
+                pos = torch.full((n,), fc.patches + L + i,
+                                 dtype=torch.int32, device=dev)
+                lg, caches = lm.decode_step(
+                    ph, cfg, caches,
+                    torch.as_tensor(toks[:, L + i], device=dev), pos)
+                logits.append(lg.cpu())
+        return torch.stack(logits).double()
+
+    orig = moe.route
+    cpu_routes: List[tuple] = []
+    res = {}
+    ties = {"calls": 0, "tokens": 0, "max_gap": 0.0}
+    for dev in ("cpu", device):
+        p = tree_map(lambda t: t.to(dev), params)
+        calls = [0]
+
+        def rec(router, xf, k):
+            logits, probs, gates, eidx = orig(router, xf, k)
+            if dev == "cpu":
+                cpu_routes.append((eidx, logits))
+                return logits, probs, gates, eidx
+            want, want_logits = cpu_routes[calls[0]]
+            calls[0] += 1
+            own = eidx.cpu()
+            diff = (own != want).any(-1)
+            if bool(diff.any()):
+                rows = torch.nonzero(diff)[:, 0]
+                lg = want_logits[rows]
+                gap = (lg.gather(-1, own[rows]).sort(-1).values
+                       - lg.gather(-1, want[rows]).sort(-1).values).abs()
+                g = float(gap.max())
+                if g >= ROUTE_TIE:
+                    raise AssertionError(
+                        f"{fc.arch}: router call {calls[0] - 1} chose "
+                        f"other experts than the CPU for {len(rows)} "
+                        f"tokens, logit gap {g} (not a near-tie)")
+                ties["calls"] += 1
+                ties["tokens"] += len(rows)
+                ties["max_gap"] = max(ties["max_gap"], g)
+            eidx = want.to(dev)
+            gates = probs.gather(-1, eidx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            return logits, probs, gates, eidx
+
+        moe.route = rec
+        try:
+            logits = serve_logits(p, dev)
+            loss, metrics, grads = _value_and_grad(
+                p, cfg, {k: v.to(dev) for k, v in batch.items()})
+        finally:
+            moe.route = orig
+        if dev != "cpu" and calls[0] != len(cpu_routes):
+            raise AssertionError(f"{fc.arch}: {calls[0]} router calls on the "
+                                 f"card, {len(cpu_routes)} on the CPU")
+        res[dev] = (logits, float(loss),
+                    {k: float(v) for k, v in metrics.items()},
+                    [g.cpu() for g in _leaves_of(grads)])
+        del p, grads
+    (la, lossa, ma, ga), (lb, lossb, mb, gb) = res[device], res["cpu"]
+
+    def rel_l2(ga, gb) -> float:
+        return max(float((a.double() - b.double()).norm()
+                         / b.double().norm().clamp_min(1e-30))
+                   for a, b in zip(ga, gb))
+
+    max_abs = float((la - lb).abs().max())
+    spread = None
+    if fc.tol > 1e-4:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            p = tree_map(lambda t: t.cpu(), params)
+            one = serve_logits(p, "cpu")
+            _, _, g1 = _value_and_grad(p, cfg, batch)
+            spread = {"logits_max_abs": float((one - lb).abs().max()),
+                      "grad_rel_l2": rel_l2(_leaves_of(g1), gb)}
+            del p, g1
+        finally:
+            torch.set_num_threads(threads)
+    tol = fc.tol
+    if not torch.allclose(la, lb, rtol=tol, atol=tol):
+        raise AssertionError(f"{fc.arch} f32 logits card vs CPU: max abs "
+                             f"diff {max_abs} (tolerance {tol}; the CPU's "
+                             f"own spread {spread})")
+    if not torch.equal(la.argmax(-1), lb.argmax(-1)):
+        raise AssertionError(f"{fc.arch} greedy tokens card vs CPU")
+    for k in ("loss",) + (("moe_aux", "moe_zloss") if cfg.moe else ()):
+        a, b = (lossa, lossb) if k == "loss" else (ma[k], mb[k])
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"{fc.arch} train {k} card {a} vs CPU {b}")
+    g_rel = rel_l2(ga, gb)
+    if g_rel > tol:
+        raise AssertionError(f"{fc.arch} gradients card vs CPU: relative "
+                             f"L2 {g_rel} (tolerance {tol}; the CPU's own "
+                             f"spread {spread})")
+    out = {"logits_max_abs": max_abs, "tol": tol,
+           "cpu_spread_1_thread": spread, "router_calls": len(cpu_routes),
+           "near_tie_calls": ties["calls"],
+           "near_tie_tokens": ties["tokens"],
+           "near_tie_max_logit_gap": ties["max_gap"],
+           "loss_card": lossa, "loss_cpu": lossb, "grad_rel_l2": g_rel}
+    ahead = f" after {fc.patches} patch embeddings" if fc.patches else ""
+    log(f"family card==cpu {fc.arch} {dict(fc.changes)} f32: {n} prompts "
+        f"of {L}{ahead}, {steps} teacher-forced steps; logits max abs diff "
+        f"{max_abs} "
+        f"(tolerance {tol}"
+        + (f"; the CPU on 1 thread against {torch.get_num_threads()}: "
+           f"{spread}" if spread is not None else "")
+        + f"), same greedy tokens; {len(cpu_routes)} router calls, the card's "
+        f"experts the CPU's but for {ties['tokens']} near-tie tokens in "
+        f"{ties['calls']} calls (largest logit gap {ties['max_gap']}); "
+        f"train loss {lossa} vs {lossb}, gradients relative L2 {g_rel}")
+    return out
+
+
+def family_serve(run: FamilyRun, device) -> Dict[str, object]:
+    """One family at full width (bf16, seeded random weights, ``layers``
+    layers): a prefill of every slot, then ``steps`` decode steps, timed;
+    the flash and decode launch counts must be the attention layers times
+    the prefill and decode calls."""
+    from repro_torch.launch.steps import init_params, make_prefill_step
+    from repro_torch.models import frontend, lm, moe
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.serving.server import ModelServer
+    cfg = family_config(run.arch, (("n_layers", run.layers),))
+    n_attn = _n_attention_layers(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(31)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (run.slots, run.prompt_len)).astype(np.int32)
+    state: Dict[str, object] = {}
+    if run.patches:
+        ph = lm.with_f32_head(params, cfg)
+        emb = frontend.stub_frontend(
+            torch.Generator(device=device).manual_seed(1), cfg, run.slots,
+            run.patches)
+        toks = torch.as_tensor(prompts, device=device)
+        prefill = make_prefill_step(cfg, run.cache_len)
+        warm = make_prefill_step(cfg, 64)(ph, toks[:2, :16], emb[:2, :16])
+        lm.decode_step(ph, cfg, warm[1], toks[:2, 0], torch.full(
+            (2,), 32, dtype=torch.int32, device=device))
+        del warm
+
+        def do_prefill():
+            state["logits"], state["caches"] = prefill(ph, toks, emb)
+            state["tok"] = torch.argmax(state["logits"], -1).to(torch.int32)
+            state["pos"] = torch.full((run.slots,),
+                                      run.patches + run.prompt_len,
+                                      dtype=torch.int32, device=device)
+
+        def step():
+            state["logits"], state["caches"] = lm.decode_step(
+                ph, cfg, state["caches"], state["tok"], state["pos"])
+            state["tok"] = torch.argmax(state["logits"], -1).to(torch.int32)
+            state["pos"] = state["pos"] + 1
+            return state["tok"].cpu()
+
+        def logits():
+            return state["logits"]
+    else:
+        warm = ModelServer(cfg, params, batch=2, cache_len=64)
+        warm.prefill(np.ones((2, 16), np.int32))
+        warm.decode(2)
+        del warm
+        srv = ModelServer(cfg, params, batch=run.slots,
+                          cache_len=run.cache_len)
+
+        def do_prefill():
+            srv.prefill(prompts)
+
+        def step():
+            return srv.decode(1)
+
+        def logits():
+            return srv.logits
+    torch.cuda.synchronize()
+    drops: Dict[str, List[torch.Tensor]] = {"prefill": [], "decode": []}
+    phase = ["prefill"]
+    orig = moe.apply_moe
+
+    def rec(p, x, c):
+        y, m = orig(p, x, c)
+        drops[phase[0]].append(m["moe_drop_frac"])
+        return y, m
+
+    step_ms: List[float] = []
+    bad = []
+    reset_launch_counts()
+    moe.apply_moe = rec
+    try:
+        t0 = time.perf_counter()
+        do_prefill()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(logits()).all()):
+            bad.append("prefill")
+        phase[0] = "decode"
+        for _ in range(run.steps):
+            t0 = time.perf_counter()
+            step()                       # ends in a device->host copy
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(logits()).all()):
+                bad.append("decode step")
+    finally:
+        moe.apply_moe = orig
+    launches = {k: v for k, v in launch_counts().items()
+                if k in ATTN_KERNELS}
+    if bad:
+        raise AssertionError(f"{run.arch}: non-finite logits after "
+                             f"{bad[:3]}")
+    if tuple(logits().shape) != (run.slots, cfg.vocab_size):
+        raise AssertionError(f"{run.arch}: logits {tuple(logits().shape)}")
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * run.steps}
+    if launches != want:
+        raise AssertionError(f"{run.arch}: launches {launches}, want "
+                             f"{want} ({n_attn} attention layers, 1 prefill,"
+                             f" {run.steps} decode calls)")
+    sa = np.asarray(step_ms)
+    report = {
+        "arch": run.arch, "layers": cfg.n_layers, "params": n_params,
+        "param_bytes": _tensor_bytes(params), "param_init_s": init_s,
+        "slots": run.slots, "prompt_len": run.prompt_len,
+        "patches": run.patches, "cache_len": run.cache_len,
+        "prefill_ms": prefill_ms,
+        "decode_step_p50_ms": float(np.percentile(sa, 50)),
+        "decode_step_p99_ms": float(np.percentile(sa, 99)),
+        "decode_steps": run.steps,
+        "decode_tokens_per_s": run.slots * run.steps / (sa.sum() / 1e3),
+        "attention_layers": n_attn, "launches": launches}
+    if cfg.moe is not None:
+        report["moe_drop_frac"] = {
+            k: float(torch.stack(v).float().mean()) for k, v in drops.items()}
+    if run.patches:
+        report["cache_bytes"] = _tensor_bytes(state["caches"])
+        report["positions_last"] = int(state["pos"].max())
+    else:
+        report["cache_bytes"] = _tensor_bytes(srv.caches)
+        report["positions_last"] = int(srv.positions.max())
+    if cfg.sliding_window:
+        ring = srv.caches[0]["k"].shape[2]
+        if ring != cfg.sliding_window or not (
+                report["positions_last"] > cfg.sliding_window):
+            raise AssertionError(f"{run.arch}: ring {ring}, last position "
+                                 f"{report['positions_last']}: decode did "
+                                 f"not pass the window")
+        report["ring_slots"] = ring
+    if n_attn == 0:
+        sizes = {L: _tensor_bytes(lm.init_cache(cfg, run.slots, L, device))
+                 for L in (run.cache_len, 32768)}
+        if len(set(sizes.values())) != 1:
+            raise AssertionError(f"{run.arch}: cache bytes grow with "
+                                 f"cache_len: {sizes}")
+        report["cache_bytes_by_cache_len"] = sizes
+    report["busy"] = decode_busy(step, report["decode_step_p50_ms"])
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"family serve {run.arch} ({cfg.n_layers} layers, full width, "
+        f"bf16): {n_params} params ({report['param_bytes']} bytes, drawn in "
+        f"{init_s:.3f} s); prefill {run.slots}x{run.prompt_len}"
+        f"{f' after {run.patches} patch embeddings' if run.patches else ''}"
+        f" {prefill_ms:.3f} ms; decode step p50 "
+        f"{report['decode_step_p50_ms']:.4f} ms, p99 "
+        f"{report['decode_step_p99_ms']:.4f} ms over {run.steps} steps; "
+        f"{report['decode_tokens_per_s']:.2f} tokens/s; busy share "
+        f"{report['busy']['busy_share_of_p50']}; peak device memory "
+        f"{report['peak_bytes']} bytes; cache {report['cache_bytes']} bytes; "
+        f"launches {launches} = {n_attn} attention layers x calls"
+        + (f"; moe_drop_frac {report['moe_drop_frac']}" if cfg.moe else "")
+        + f"; {card_line()}")
+    del state, params
+    if not run.patches:
+        del srv
+    return report
+
+
+def family_train(arch: str, layers: int, fs: FamilySizes, device
+                 ) -> Dict[str, object]:
+    """``arch`` at full width, ``layers`` layers (bf16, its config's
+    remat), ``train_steps`` AdamW steps on one batch of ``train_batch`` x
+    ``train_seq`` tokens: a finite falling loss, no skipped step, the MoE
+    losses in the metrics of an MoE model."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = family_config(arch, (("n_layers", layers),))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                              total_steps=fs.train_steps),
+                     seed=0, device=device)
+    rng = np.random.default_rng(37)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (fs.train_batch, fs.train_seq + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "targets": toks[:, 1:].astype(np.int32)}
+    lat: List[float] = []
+    t = [time.perf_counter()]
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        lat.append(now - t[0])
+        t[0] = now
+
+    reset_launch_counts()
+    hist = loop.run(iter([batch] * fs.train_steps), steps=fs.train_steps,
+                    log_every=0, on_metrics=on_metrics)["history"]
+    flash = launch_counts()["flash_attention"]
+    losses = [m["loss"] for m in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training loss did not fall: {losses}")
+    if any(m["skipped"] for m in hist):
+        raise AssertionError(f"{arch}: a skipped step")
+    if cfg.moe is not None and not all("moe_aux" in m and "moe_zloss" in m
+                                       for m in hist):
+        raise AssertionError(f"{arch}: MoE losses missing from the metrics")
+    n_attn = _n_attention_layers(cfg)
+    if (flash == 0) != (n_attn == 0):
+        raise AssertionError(f"{arch}: {flash} flash launches for {n_attn} "
+                             f"attention layers")
+    step_ms = float(np.percentile(np.asarray(lat[1:]) * 1e3, 50))
+    tokens = fs.train_batch * fs.train_seq
+    active = param_count(cfg, active=True)
+    flops = (6 * active * tokens + 6 * fs.train_batch * cfg.n_heads
+             * fs.train_seq * fs.train_seq * cfg.hd * n_attn)
+    out = {"arch": arch, "layers": cfg.n_layers, "remat": cfg.remat,
+           "active_params": active, "losses": losses,
+           "step_ms_p50": step_ms, "first_step_ms": lat[0] * 1e3,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu_bf16_dense_peak": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "flash_launches": flash}
+    if cfg.moe is not None:
+        out["moe_aux_last"] = hist[-1]["moe_aux"]
+        out["moe_zloss_last"] = hist[-1]["moe_zloss"]
+    log(f"family train {arch} ({cfg.n_layers} layers, full width, bf16, "
+        f"remat {cfg.remat}, B={fs.train_batch} S={fs.train_seq}, "
+        f"{fs.train_steps} steps): loss {losses[0]:.4f} -> {losses[-1]:.4f};"
+        f" step p50 {step_ms:.3f} ms (first {lat[0] * 1e3:.3f} ms); "
+        f"{out['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4e}/step "
+        f"over {active} active params = {out['mfu_bf16_dense_peak']:.4f} of "
+        f"the 989 TFLOP/s bf16 dense peak; peak device memory "
+        f"{out['peak_bytes']} bytes; flash launches {flash}"
+        + (f"; moe_aux {out['moe_aux_last']:.4f}, moe_zloss "
+           f"{out['moe_zloss_last']:.4f}" if cfg.moe else "")
+        + f"; {card_line()}")
+    del loop
+    return out
+
+
+def families_phase(device, fs: FamilySizes = FamilySizes()
+                   ) -> Dict[str, object]:
+    """Mamba-2, MoE, the jamba hybrid and the vision frontend on the card:
+    card against CPU, serving at full width, training; each model freed
+    before the next. Budget: about 300 s."""
+    t_phase = time.perf_counter()
+    out: Dict[str, object] = {"cuda_vs_cpu": {}, "serve": {}, "train": {}}
+    for fc in fs.checks:
+        out["cuda_vs_cpu"][fc.arch] = family_cuda_vs_cpu(fc, device)
+        torch.cuda.empty_cache()
+    for run in fs.runs:
+        out["serve"][run.arch] = family_serve(run, device)
+        torch.cuda.empty_cache()
+    for arch, layers in fs.train:
+        out["train"][arch] = family_train(arch, layers, fs, device)
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"][k] for r in out["serve"].values())
+                       for k in ATTN_KERNELS}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"families phase: {out['seconds']:.3f} s; {card_line()}")
+    return out
+
+
 def main() -> int:
     calls_only = sys.argv[1:] == ["--calls"]
     if sys.argv[1:] and not calls_only:
@@ -4403,6 +4973,8 @@ def main() -> int:
     trained = train_phase("cuda")
     torch.cuda.empty_cache()
     mres = run_model("cuda", ModelSizes())
+    torch.cuda.empty_cache()
+    fam = families_phase("cuda")
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
@@ -4414,10 +4986,12 @@ def main() -> int:
     log(json.dumps({"train": trained}))
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))
+    log(json.dumps({"families": fam}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
-             "train": {"flash_attention": trained["main"]["flash_launches"]}}
+             "train": {"flash_attention": trained["main"]["flash_launches"]},
+             "families": fam["launches"]}
     kernels = res["kernels"] + mres["kernels"]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()

@@ -6,9 +6,10 @@ ids to them. ``reduced(cfg)`` shrinks any config to a CPU-runnable smoke
 variant of the same family. The schema and the config modules are the JAX
 package's (``repro.configs``), kept field for field so both packages read
 the same configs. ``remat`` steers training's rematerialisation here as
-there (``models/blocks.py``); the fields that steer only the JAX
-package's mesh and dry-run lowering (``scan_layers``, ``attn_block_k``,
-``act_dp``, ``act_sp``, ``moe_groups``) are carried and ignored here.
+there (``models/blocks.py``), and ``moe_groups`` the MoE dispatch groups
+(``models/moe.py``); the fields that steer only the JAX package's mesh and
+dry-run lowering (``scan_layers``, ``attn_block_k``, ``act_dp``,
+``act_sp``) are carried and ignored here.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ class ModelConfig:
     attn_block_k: int = 0            # JAX package only (dry-run lowering)
     act_dp: Tuple[str, ...] = ()     # JAX package only (mesh pinning)
     act_sp: Optional[str] = None     # JAX package only (mesh pinning)
-    moe_groups: int = 0              # JAX package only (MoE dispatch groups)
+    moe_groups: int = 0              # MoE dispatch groups (per-group capacity)
 
     @property
     def hd(self) -> int:

@@ -7,12 +7,12 @@ helpers rebuild the same table in the port on a given device, and turn
 PREDICT parameters given as numpy into tensors — so both packages can
 compute on identical state.
 
-The model tier's parameters and KV caches are pytrees of arrays; the port
-keeps the JAX layouts (linear weights ``(d_in, d_out)``, blocks and caches
-stacked per pattern position on a leading ``reps`` axis), so ``lm_params``
-and ``lm_cache`` map a tree of numpy arrays (``jax.tree_util.tree_map(
-np.asarray, tree)``) leaf for leaf onto tensors, keeping each dtype (bf16
-included).
+The model tier's parameters and caches (KV and SSM) are pytrees of
+arrays; the port keeps the JAX layouts (linear weights
+``(d_in, d_out)``, blocks and caches stacked per pattern position on a
+leading ``reps`` axis), so ``lm_params`` and ``lm_cache`` map a tree of
+numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``) leaf for
+leaf onto tensors, keeping each dtype (bf16 included).
 """
 from __future__ import annotations
 
@@ -126,7 +126,9 @@ def _tree_tensors(tree: Any, device) -> Any:
 
 def lm_params(tree: Mapping[str, Any], cfg, device) -> Dict[str, Any]:
     """The JAX package's ``lm.init_lm`` parameters (as numpy) as the
-    port's parameters on ``device``."""
+    port's parameters on ``device``: every block kind's leaves (``attn``,
+    ``mlp``, ``mamba``, ``moe`` with its ``experts``/``shared`` stacked on
+    the expert axis) keep their layouts and dtypes."""
     lm.check_supported(cfg)
     want = {"embed", "blocks", "final_norm"} | (
         set() if cfg.tie_embeddings else {"lm_head"})
@@ -137,13 +139,19 @@ def lm_params(tree: Mapping[str, Any], cfg, device) -> Dict[str, Any]:
 
 
 def lm_cache(tree: Any, cfg, device) -> Any:
-    """A JAX KV-cache tree (``lm.init_cache`` / ``lm.prefill`` layout: a
-    tuple per pattern position of ``{"k", "v"}`` stacked on ``reps``, as
-    numpy) as the port's cache on ``device``."""
+    """A JAX cache tree (``lm.init_cache`` / ``lm.prefill`` layout: a
+    tuple per pattern position of ``{"k", "v"}`` for attention layers or
+    ``{"conv", "ssm"}`` for Mamba layers, stacked on ``reps``, as numpy)
+    as the port's cache on ``device``."""
     pattern = blocks.normalize_pattern(cfg)
     if len(tree) != len(pattern):
         raise ValueError(f"cache has {len(tree)} pattern positions, "
                          f"{cfg.name} has {len(pattern)}")
+    for token, c in zip(pattern, tree):
+        want = {"k", "v"} if token[0] == "a" else {"conv", "ssm"}
+        if set(c) != want:
+            raise ValueError(f"cache of block kind {token!r} has "
+                             f"{sorted(c)}, expected {sorted(want)}")
     return tuple(_tree_tensors(dict(c), device) for c in tree)
 
 

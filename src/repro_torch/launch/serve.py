@@ -3,8 +3,10 @@
 Pipeline (paper Figure 4/5): synthetic event stream -> feature tables ->
 deployed SQL window queries -> real-time feature vectors; ``--decode``
 adds LM token generation with a reduced assigned architecture through
-``ModelServer`` (prefill through the flash-attention kernel, decode steps
-through the decode-attention kernel).
+``ModelServer`` (``--arch``: any decoder-only family — dense, MoE, Mamba-2,
+the jamba hybrid, qwen2-vl's backbone on tokens; attention layers prefill
+through the flash-attention kernel and decode through the
+decode-attention kernel).
 
 Reports the paper's headline metrics: QPS, latency percentiles, and the
 L = L_parse + L_plan + L_exec decomposition.

@@ -7,7 +7,7 @@ trainer and the serving runtime call (the JAX package's
   with optional gradient accumulation (``accum`` microbatches).
 * ``prefill_step(params, tokens[, embeds]) -> (last_logits, caches)``.
 * ``serve_step(params, caches, token, position) -> (logits, caches)`` —
-  one decode token against the KV cache, which it writes in place.
+  one decode token against the KV/SSM cache, which it writes in place.
 * Non-finite-gradient guard: a step whose global grad norm is non-finite
   applies no update (params and optimizer state come back unchanged) and
   reports ``skipped = 1``.

@@ -35,7 +35,7 @@ from repro_torch.data.pipeline import HostPipeline, PipelineConfig
 from repro_torch.data.synthetic import token_batch_stream
 from repro_torch.featurestore.table import resolve_device
 from repro_torch.launch.steps import init_params, make_train_step
-from repro_torch.models import lm
+from repro_torch.models import frontend, lm
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
 __all__ = ["TrainLoop", "make_batches", "main"]
@@ -125,16 +125,23 @@ class TrainLoop:
 
 def make_batches(cfg: ModelConfig, *, batch: int, seq: int, seed: int,
                  pipeline: bool = True):
-    """Token batches from a cycled pool of 8 (deterministic). Models with
-    frontend embeddings or an encoder need the frontend stubs, which are
-    not ported yet: they raise, as the model does."""
+    """Token batches from a cycled pool of 8 (deterministic). A model with
+    a frontend also gets ``embeds`` (f32 numpy, the stub's embeddings drawn
+    from a CPU generator seeded by the batch index, as the JAX package
+    seeds them by ``PRNGKey(i)``). Encoder-decoders raise, as the model
+    does."""
     lm.check_supported(cfg)
     gen = token_batch_stream(vocab=cfg.vocab_size, batch=batch, seq=seq,
                              seed=seed)
     raw = list(next(gen) for _ in range(8))     # cycled pool
 
     def producer(i):
-        return dict(raw[i % len(raw)])
+        b = dict(raw[i % len(raw)])
+        if cfg.frontend:
+            b["embeds"] = frontend.stub_frontend(
+                torch.Generator().manual_seed(i), cfg, batch
+            ).float().numpy()
+        return b
 
     if pipeline:
         return HostPipeline(producer, n_batches=None,

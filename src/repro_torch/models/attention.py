@@ -30,7 +30,7 @@ from repro_torch.models.layers import (apply_linear, apply_rope, init_linear,
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 __all__ = ["init_attention", "attend_train", "attend_prefill",
-           "attend_decode"]
+           "attend_decode", "ring_len"]
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -67,19 +67,40 @@ def attend_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
 
 
+def ring_len(cfg: ModelConfig, cache_len: int) -> int:
+    """Slots of an attention layer's cache: ``cache_len``, or with a
+    sliding window a rolling ring of ``min(cache_len, window)``."""
+    if cfg.sliding_window:
+        return min(cache_len, cfg.sliding_window)
+    return cache_len
+
+
 def attend_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor, cache_len: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (output, kv-cache padded to ``cache_len``)."""
+    """Returns (output, kv-cache of ``ring_len(cfg, cache_len)`` slots).
+
+    Position ``p`` sits at slot ``p`` (``p % ring`` for a sliding-window
+    ring, which keeps the prompt's last ``ring`` positions), so the cache
+    has the shape ``init_block_cache`` gives a slot's. The JAX package pads
+    to ``cache_len`` whatever the window, which its ModelServer then
+    cannot copy into a ring shorter than ``cache_len``.
+    """
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     B, S = x.shape[:2]
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-    kc = k.new_zeros((B, cache_len) + tuple(k.shape[2:]))
-    vc = v.new_zeros((B, cache_len) + tuple(v.shape[2:]))
-    kc[:, :S] = k
-    vc[:, :S] = v
+    R = ring_len(cfg, cache_len)
+    kc = k.new_zeros((B, R) + tuple(k.shape[2:]))
+    vc = v.new_zeros((B, R) + tuple(v.shape[2:]))
+    if S <= R:
+        kc[:, :S] = k
+        vc[:, :S] = v
+    else:
+        slots = torch.arange(S - R, S, device=k.device) % R
+        kc[:, slots] = k[:, S - R:]
+        vc[:, slots] = v[:, S - R:]
     out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
     return out, {"k": kc, "v": vc}
 

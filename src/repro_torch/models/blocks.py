@@ -6,8 +6,8 @@ package's ``repro.models.blocks``):
     mixer:  'a' = GQA attention, 'm' = Mamba-2 SSD
     ffn:    'd' = dense MLP, 'e' = MoE, '-' = none (pure mixer block)
 
-The port runs the ``ad`` kind (every dense attention model); the others
-raise ``NotImplementedError`` naming the module still to port.
+e.g. qwen2 = ('ad',), mamba2 = ('m-',), mixtral = ('ae',), jamba's period-8
+pattern = ('md','me','md','me','ad','me','md','me').
 
 Layers are stacked as in the JAX package: for a pattern of period R over L
 layers, the params (and caches) of pattern position r are stacked along a
@@ -19,7 +19,9 @@ Training (``run_blocks_train``) rematerialises each super-block as
 ``cfg.remat`` says, as the JAX package's ``jax.checkpoint`` does: ``full``
 keeps only the block's input and recomputes the rest in the backward pass;
 ``dots`` also keeps the outputs of the matrix products
-(``checkpoint_dots``), through a selective checkpoint.
+(``checkpoint_dots``), through a selective checkpoint. The recompute
+routes every token to the experts the forward pass chose: the routing is
+a function of the block's input alone.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm)
 from repro_torch.models.tree import layer_slice, tree_map
@@ -41,12 +45,7 @@ Params = Dict[str, Any]
 __all__ = ["init_block", "init_stacked_blocks", "block_train",
            "block_prefill", "block_decode", "run_blocks_train",
            "run_blocks_prefill", "run_blocks_decode", "init_block_cache",
-           "normalize_pattern", "check_supported"]
-
-_NOT_PORTED = {
-    "m": "Mamba-2 blocks (models/ssm.py)",
-    "e": "MoE blocks (models/moe.py)",
-}
+           "normalize_pattern"]
 
 
 def normalize_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -65,71 +64,90 @@ def normalize_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def check_supported(token: str) -> None:
-    """Raise for a block kind the port does not run yet."""
-    for part in token:
-        if part in _NOT_PORTED:
-            raise NotImplementedError(
-                f"block kind {token!r}: {_NOT_PORTED[part]} is not ported "
-                f"yet")
-    if token != "ad":
-        raise NotImplementedError(f"block kind {token!r} is not ported yet "
-                                  f"(models/blocks.py runs 'ad' only)")
-
-
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, token: str) -> Params:
-    check_supported(token)
+    mixer, ffn = token[0], token[1]
     dtype = cfg.torch_param_dtype
-    return {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
-            "attn": attn.init_attention(gen, cfg),
-            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)}
+    p: Params = {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, gen.device)}
+    if mixer == "a":
+        p["attn"] = attn.init_attention(gen, cfg)
+    else:
+        p["mamba"] = ssm.init_mamba(gen, cfg)
+    if ffn == "d":
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)
+    elif ffn == "e":
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
+        p["moe"] = moe_mod.init_moe(gen, cfg)
+    return p
 
 
-def _ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
+def _ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The block's feed-forward half: (x, MoE metrics — none for 'd' and
+    '-')."""
+    ffn = token[1]
+    if ffn == "-":
+        return x, {}
     h = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    if ffn == "d":
+        return x + apply_mlp(p["mlp"], h, cfg.act), {}
+    y, metrics = moe_mod.apply_moe(p["moe"], h, cfg)
+    return x + y, metrics
 
 
 def block_train(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One block's training forward: (x, MoE metrics — none for 'ad')."""
+    """One block's training forward: (x, MoE metrics)."""
     h = apply_norm(p["norm1"], x, cfg.norm)
-    x = x + attn.attend_train(p["attn"], h, cfg, positions)
-    return _ffn_apply(p, x, cfg), {}
+    if token[0] == "a":
+        x = x + attn.attend_train(p["attn"], h, cfg, positions)
+    else:
+        x = x + ssm.mamba_train(p["mamba"], h, cfg)
+    return _ffn_apply(p, x, cfg, token)
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
                   positions: torch.Tensor, cache_len: int
                   ) -> Tuple[torch.Tensor, Params]:
+    """A prompt through one block: (x, its cache — the KV cache of
+    ``attention.ring_len(cfg, cache_len)`` slots, or the Mamba block's
+    conv tail and final SSD state)."""
     h = apply_norm(p["norm1"], x, cfg.norm)
-    o, cache = attn.attend_prefill(p["attn"], h, cfg, positions, cache_len)
-    return _ffn_apply(p, x + o, cfg), cache
+    if token[0] == "a":
+        o, cache = attn.attend_prefill(p["attn"], h, cfg, positions,
+                                       cache_len)
+    else:
+        o, cache = ssm.mamba_prefill(p["mamba"], h, cfg)
+    x, _ = _ffn_apply(p, x + o, cfg, token)
+    return x, cache
 
 
 def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
                  cache: Params, position: torch.Tensor
                  ) -> Tuple[torch.Tensor, Params]:
-    """x (B, d) single token; ``cache`` is updated in place."""
+    """x (B, d) single token; ``cache`` is updated in place. The MoE takes
+    the whole batch as one (B, 1, d) call, so every slot's token, an idle
+    slot's too, takes expert capacity, as in the JAX package."""
     h = apply_norm(p["norm1"], x, cfg.norm)
-    o, cache = attn.attend_decode(p["attn"], h, cfg, cache, position)
-    return _ffn_apply(p, x + o, cfg), cache
+    if token[0] == "a":
+        o, cache = attn.attend_decode(p["attn"], h, cfg, cache, position)
+    else:
+        o, cache = ssm.mamba_decode(p["mamba"], h, cfg, cache)
+    x2, _ = _ffn_apply(p, (x + o)[:, None, :], cfg, token)
+    return x2[:, 0, :], cache
 
 
 def init_block_cache(cfg: ModelConfig, token: str, batch: int,
                      cache_len: int, dtype: torch.dtype,
                      device: torch.device) -> Params:
-    check_supported(token)
-    S = cache_len
-    if cfg.sliding_window:
-        S = min(cache_len, cfg.sliding_window)  # rolling ring
-    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    if token[0] != "a":
+        return ssm.init_mamba_cache(cfg, batch, dtype, device)
+    shape = (batch, attn.ring_len(cfg, cache_len), cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -197,20 +215,28 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
 def run_blocks_train(stacked: Tuple[Params, ...], x: torch.Tensor,
                      cfg: ModelConfig, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Every layer's training forward; the MoE losses are zero for the
-    block kinds the port runs."""
+    """Every layer's training forward: (x, the MoE load-balance and
+    router z losses summed over the layers — zero without MoE blocks)."""
     pattern = normalize_pattern(cfg)
 
     def superblock(x, layer_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        zl = torch.zeros((), dtype=torch.float32, device=x.device)
         for r, token in enumerate(pattern):
-            x, _ = block_train(layer_params[r], x, cfg, token, positions)
-        return x
+            x, m = block_train(layer_params[r], x, cfg, token, positions)
+            if "moe_aux" in m:
+                aux = aux + m["moe_aux"]
+                zl = zl + m["moe_zloss"]
+        return x, aux, zl
 
     body = _maybe_remat(superblock, cfg)
+    auxs, zls = [], []
     for i in range(_reps(stacked)):
-        x = body(x, tuple(layer_slice(s, i) for s in stacked))
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"moe_aux": zero, "moe_zloss": zero}
+        x, aux, zl = body(x, tuple(layer_slice(s, i) for s in stacked))
+        auxs.append(aux)
+        zls.append(zl)
+    return x, {"moe_aux": torch.stack(auxs).sum(),
+               "moe_zloss": torch.stack(zls).sum()}
 
 
 def run_blocks_prefill(stacked: Tuple[Params, ...], x: torch.Tensor,

@@ -15,8 +15,15 @@ f32, from the f32 product of the final hidden state with the head; a caller
 that runs many steps passes ``with_f32_head(params, cfg)``, which converts
 the head to f32 once instead of on every call. Training passes the
 parameters as they are: the head is converted inside the graph, so its
-gradient reaches the bf16 ``embed``/``lm_head``. The encoder-decoder
-models and the frontends come with their own slices.
+gradient reaches the bf16 ``embed``/``lm_head``.
+
+Every decoder-only block kind runs: attention or Mamba-2 mixers with a
+dense, MoE or no feed-forward half (``models/blocks.py``); the caches are
+``{k, v}`` for attention layers and ``{conv, ssm}`` for Mamba layers. The
+[vlm]/[audio] archs prepend stub frontend embeddings (``models/frontend.py``:
+precomputed patch / frame vectors) to the token embeddings; the loss is
+masked to the token positions. The encoder-decoder models
+(``models/encdec.py``) come with their own slice.
 """
 from __future__ import annotations
 
@@ -38,17 +45,12 @@ __all__ = ["init_lm", "forward_train", "loss_fn", "prefill", "decode_step",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model the port does not run yet."""
+    """Raise for a model the port does not run yet: the
+    encoder-decoders."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models (models/encdec.py) are "
             f"not ported yet")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.frontend} frontend embeddings "
-            f"(models/frontend.py) are not ported yet")
-    for token in B.normalize_pattern(cfg):
-        B.check_supported(token)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -117,14 +119,14 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross entropy (f32).
+    """Next-token cross entropy (f32), the MoE aux losses folded in.
 
     batch: tokens (B, S_txt), targets (B, S_txt) with -100 = masked,
     optional embeds (B, F, d_model)."""
     tokens = batch["tokens"]
     targets = batch["targets"]
     embeds = batch.get("embeds")
-    logits, _aux = forward_train(params, cfg, tokens, embeds)
+    logits, aux = forward_train(params, cfg, tokens, embeds)
     if embeds is not None:
         logits = logits[:, embeds.shape[1]:, :]   # loss on text positions
     mask = (targets >= 0).to(torch.float32)
@@ -134,7 +136,13 @@ def loss_fn(params: Params, cfg: ModelConfig,
     nll = (lse - gold) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
-    return loss, {"nll": loss, "loss": loss}
+    metrics = {"nll": loss}
+    if cfg.moe is not None:
+        loss = (loss + cfg.moe.aux_coef * aux["moe_aux"] / cfg.n_layers
+                + cfg.moe.router_z_coef * aux["moe_zloss"] / cfg.n_layers)
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -163,13 +163,19 @@ class ModelServer:
 
     ``prefill(tokens (B,S)) -> slot ids``; ``decode() -> (B,) next tokens``;
     ``logits`` holds the f32 logits of the last call (the admitted prompts'
-    after ``prefill``, every slot's after ``decode``). The KV caches live
-    on the parameters' device; requests join/leave slots (continuous
-    batching at slot granularity). Prefilled caches are copied
-    into their slots in place, and each decode step writes one position per
-    slot in place: no step copies the whole cache. Every slot advances on
-    each step, active or not; an idle slot whose position runs past the
-    cache writes nothing (as in the JAX package).
+    after ``prefill``, every slot's after ``decode``). The caches (an
+    attention layer's ``{k, v}``, a Mamba layer's ``{conv, ssm}``; the slot
+    is dim 1 of each, after the layer axis) live on the parameters'
+    device; requests join/leave slots (continuous batching at slot
+    granularity). Prefilled caches are copied into their slots in place,
+    and each decode step writes one position (or state) per slot in
+    place: no step copies the whole cache. Every slot advances on each
+    step, active or not, as in the JAX package: an idle slot whose
+    position runs past the cache writes nothing to a KV cache, its token
+    still takes MoE capacity in the step, and a Mamba layer's state of an
+    idle slot is overwritten by the next admission. Tokens only: a vision
+    prompt goes through ``launch.steps.make_prefill_step`` and
+    ``lm.decode_step``, as in the JAX package.
     """
 
     def __init__(self, cfg, params, *, batch: int, cache_len: int):

@@ -2,7 +2,8 @@
 the live-serving path on the card against the CPU (a streamed load, the
 execution modes, a hot swap under a request thread, the chunked
 pre-aggregate rebuild and compaction, first launches from several
-threads).
+threads); the model tier's Mamba-2, MoE and hybrid blocks, mixtral's ring
+decode and a jamba train step on the card against the CPU.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 there is none. The file imports no JAX, so it runs on a GPU machine that
@@ -677,6 +678,162 @@ def test_train_step_on_the_card_equals_the_cpu(card, remat):
     for a, b, m in zip(out["cuda"][1], out["cpu"][1], out["cpu"][2]):
         # a gradient within 100·eps of 0 moves its element by up to lr
         # either way; the others agree to 1e-2·lr
+        near = m.abs() / (1.0 - ocfg.b1) < 100 * ocfg.eps
+        torch.testing.assert_close(a[~near], b[~near], rtol=0,
+                                   atol=1e-2 * ocfg.lr)
+        assert bool(((a - b).abs()[near] <= 2 * ocfg.lr).all())
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2, MoE and hybrid blocks: card against CPU
+# ---------------------------------------------------------------------------
+
+def _family(arch, **changes):
+    import dataclasses
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+    return cfg, lm.init_lm(torch.Generator().manual_seed(0), cfg)
+
+
+def _on(tree, dev):
+    from repro_torch.models.tree import tree_map
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_ssd_prefill_and_decode_card_equals_cpu(card, arch):
+    """A prefill of 21 tokens (two chunks of 8 and a padded tail), then 6
+    decode steps, f32: logits and the {conv, ssm} caches within 1e-4, the
+    same greedy tokens."""
+    from repro_torch.models import lm
+    from repro_torch.models.tree import tree_leaves
+    cfg, params = _family(arch)
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 27)), dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _on(params, dev)
+        logits, caches = lm.prefill(p, cfg, toks[:, :21].to(dev), 32)
+        steps = [logits.cpu()]
+        for i in range(21, 27):
+            logits, caches = lm.decode_step(
+                p, cfg, caches, toks[:, i].to(dev),
+                torch.full((3,), i, dtype=torch.int32, device=dev))
+            steps.append(logits.cpu())
+        out[dev] = (torch.stack(steps), [c.cpu() for c in tree_leaves(caches)])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][0].argmax(-1), out["cpu"][0].argmax(-1))
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_moe_card_equals_cpu_and_repeats_bit_for_bit(card, groups, dtype):
+    """``apply_moe`` of reduced granite (4 experts, top-2, capacity factor
+    0.5 so assignments drop): the chosen experts and the dropped share
+    exactly the CPU's, f32 outputs within 1e-5; two runs on the card give
+    the same bits (the combine gathers, it adds with no atomics)."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.models.tree import tree_map
+    cfg, _ = _family("granite-moe-3b-a800m", moe_groups=groups)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p = moe.init_moe(torch.Generator().manual_seed(3), cfg)
+    x = torch.tensor(np.random.default_rng(3).standard_normal(
+        (4, 32, cfg.d_model)), dtype=torch.float32)
+    p = tree_map(lambda a: a.to(dtype), p)
+    x = x.to(dtype)
+    ys, ms, routes = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        pd = _on(p, dev)
+        ys[dev], ms[dev] = moe.apply_moe(pd, x.to(dev), cfg)
+        routes[dev] = moe.route(pd["router"], x.reshape(-1, cfg.d_model)
+                                .to(dev), cfg.moe.top_k)[3].cpu()
+    again, _ = moe.apply_moe(_on(p, "cuda"), x.to("cuda"), cfg)
+    assert torch.equal(again, ys["cuda"])
+    assert torch.equal(routes["cuda"], routes["cpu"])
+    drop = float(ms["cpu"]["moe_drop_frac"])
+    assert float(ms["cuda"]["moe_drop_frac"]) == drop > 0
+    if dtype == torch.float32:
+        torch.testing.assert_close(ys["cuda"].cpu(), ys["cpu"], rtol=1e-5,
+                                   atol=1e-5)
+        for k in ("moe_aux", "moe_zloss"):
+            torch.testing.assert_close(ms["cuda"][k].cpu(), ms["cpu"][k],
+                                       rtol=1e-5, atol=1e-5)
+    else:
+        a, b = ys["cuda"].cpu().double(), ys["cpu"].double()
+        assert float((a - b).norm() / b.norm()) < 2e-2
+
+
+def test_mixtral_ring_decode_past_the_window_card_equals_cpu(card):
+    """Reduced mixtral (window 16) through ModelServer with cache_len 24:
+    the 16-slot ring, admissions at two times and an idle slot, decoding
+    to position 40; the same greedy tokens on the card as on the CPU, f32
+    logits within 1e-4, and the decode kernel launched."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.serving.server import ModelServer
+    cfg, params = _family("mixtral-8x22b")
+    rng = np.random.default_rng(4)
+    p1 = rng.integers(0, cfg.vocab_size, (2, 14)).astype(np.int32)
+    p2 = rng.integers(0, cfg.vocab_size, (1, 9)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        srv = ModelServer(cfg, _on(params, dev), batch=4, cache_len=24)
+        assert tuple(srv.caches[0]["k"].shape[2:3]) == (16,)
+        n0 = decode_attention.launches
+        srv.prefill(p1)
+        srv.decode(6)
+        srv.prefill(p2)
+        srv.decode(20)
+        out[dev] = (srv.generated, srv.logits.cpu(),
+                    decode_attention.launches - n0)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert max(len(g) for g in out["cuda"][0]) == 27     # to position 40
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-4)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == 26 * cfg.n_layers
+
+
+def test_jamba_train_step_with_remat_dots_card_equals_cpu(card):
+    """One train step of a reduced jamba (one period: Mamba-2, MoE and
+    attention blocks; remat ``dots``, its config's) on the card and on the
+    CPU from the same parameters: loss and MoE losses ``rtol 1e-4``, the
+    new parameters within the first Adam step's bounds, as the dense
+    model's train-step test holds them."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim import adamw
+    cfg, params = _family("jamba-v0.1-52b")
+    assert cfg.remat == "dots"
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                                    dtype=torch.int32),
+             "targets": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                                     dtype=torch.int32)}
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = steps.make_train_step(cfg, ocfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _on(params, dev)
+        n0 = flash_attention.launches
+        p2, s2, m = step(p, adamw.adamw_init(p, ocfg),
+                         {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({k: float(m[k]) for k in ("loss", "moe_aux",
+                                              "moe_zloss")},
+                    [a.cpu() for _, a in tree_flatten_with_path(p2)],
+                    [a.cpu() for _, a in tree_flatten_with_path(s2.m)],
+                    flash_attention.launches - n0)
+    assert out["cpu"][3] == 0 and out["cuda"][3] >= 1
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=1e-4,
+                                   err_msg=k)
+    for a, b, m in zip(out["cuda"][1], out["cpu"][1], out["cpu"][2]):
         near = m.abs() / (1.0 - ocfg.b1) < 100 * ocfg.eps
         torch.testing.assert_close(a[~near], b[~near], rtol=0,
                                    atol=1e-2 * ocfg.lr)

@@ -6,7 +6,11 @@ package's on the same numpy inputs, on the CPU.
 Parameters are drawn by the JAX package and carried across with
 ``repro_torch.convert.lm_params`` (optimizer state with
 ``convert.opt_state``); batches are numpy. Configs are the reduced
-qwen2-1.5b and qwen1.5-0.5b (f32, 2 layers, d 64).
+qwen2-1.5b and qwen1.5-0.5b (f32, 2 layers, d 64), and for the other
+decoder-only families the reduced granite-moe-3b-a800m (MoE, its aux
+losses folded into the loss), jamba-v0.1-52b (one period: Mamba-2, MoE
+and attention blocks), mamba2-780m and qwen2-vl-7b (frontend embeddings,
+the loss on the text positions).
 
 Tolerances: loss ``rtol 1e-4`` and every gradient within ``1e-4``
 relative L2 (f32; the model tier's logits tolerance); optimizer updates,
@@ -55,6 +59,7 @@ from repro_torch.optim import adamw
 torch.set_num_threads(1)
 
 ARCHS = ("qwen2-1.5b", "qwen1.5-0.5b")
+FAMILIES = ("granite-moe-3b-a800m", "jamba-v0.1-52b", "mamba2-780m")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -77,7 +82,12 @@ def _batch(cfg, b=4, s=16, seed=0, masked=True):
     tgt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     if masked:
         tgt[0, :3] = -100
-    return {"tokens": toks, "targets": tgt}
+    out = {"tokens": toks, "targets": tgt}
+    if cfg.frontend:        # unit-RMS stand-ins for the stub's embeddings
+        e = rng.standard_normal((b, cfg.frontend_len, cfg.d_model))
+        out["embeds"] = (e / np.sqrt((e * e).mean(-1, keepdims=True))
+                         ).astype(np.float32)
+    return out
 
 
 def _t(batch):
@@ -132,6 +142,47 @@ def test_loss_and_gradients_equal_jax(arch, remat):
                        np.asarray(jgv, np.float64)) < 1e-4, name
 
 
+def _grads_equal_jax(jc, tc, jp, batch):
+    (jl, jm), jg = jax.value_and_grad(jlm.loss_fn, has_aux=True)(
+        jp, jc, _j(batch))
+    tp = convert.lm_params(jp, tc, "cpu")
+    flat = tree_flatten_with_path(tp)
+    leaves = [p.requires_grad_() for _, p in flat]
+    tl, tm = lm.loss_fn(tree_unflatten(tp, leaves), tc, _t(batch))
+    grads = torch.autograd.grad(tl, leaves)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-4)
+    assert sorted(tm) == sorted(jm)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]),
+                                   rtol=1e-4, err_msg=k)
+    jflat = jax.tree_util.tree_flatten_with_path(jg)[0]
+    assert len(jflat) == len(grads)
+    for (jpath, jgv), (path, _), g in zip(jflat, flat, grads):
+        name = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in jpath)
+        assert name == "/".join(str(k) for k in path)
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_l2(g.numpy().astype(np.float64),
+                       np.asarray(jgv, np.float64)) < 1e-4, name
+    return tm
+
+
+@pytest.mark.parametrize("arch", FAMILIES + ("qwen2-vl-7b",))
+def test_family_loss_and_gradients_equal_jax(arch):
+    """``loss_fn`` (with the MoE fold ``aux_coef·moe_aux/n_layers +
+    router_z_coef·moe_zloss/n_layers`` and its metrics) and the gradient
+    of every parameter, Mamba, expert and router leaves included."""
+    jc, tc = _cfgs(arch)
+    batch = _batch(jc)
+    tm = _grads_equal_jax(jc, tc, _jparams(jc), batch)
+    assert ("moe_aux" in tm) == (tc.moe is not None)
+    if tc.moe is not None:
+        folded = (tm["nll"] + tc.moe.aux_coef * tm["moe_aux"] / tc.n_layers
+                  + tc.moe.router_z_coef * tm["moe_zloss"] / tc.n_layers)
+        assert float(tm["loss"].detach()) == float(folded.detach())
+        assert float(tm["loss"].detach()) > float(tm["nll"].detach())
+
+
 def test_remat_changes_no_value():
     _, tc = _cfgs("qwen2-1.5b")
     jc, _ = _cfgs("qwen2-1.5b")
@@ -148,6 +199,29 @@ def test_remat_changes_no_value():
     for remat in ("full", "dots"):
         assert out[remat][0] == out["none"][0]
         for a, b in zip(out[remat][1:], out["none"][1:]):
+            np.testing.assert_array_equal(a, b, err_msg=remat)
+
+
+def test_remat_dots_with_moe_chooses_the_same_experts():
+    """jamba (remat ``dots``): the selective checkpoint recomputes the
+    router's top-k, the sort and the gathers in the backward pass; the
+    loss and every gradient are those of remat ``none``, bit for bit."""
+    jc, tc = _cfgs("jamba-v0.1-52b")
+    assert get_config("jamba-v0.1-52b").remat == "dots"
+    jp = _jparams(jc, seed=2)
+    batch = _t(_batch(jc, seed=2))
+    out = {}
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(tc, remat=remat)
+        tp = convert.lm_params(jp, cfg, "cpu")
+        leaves = [p.requires_grad_() for _, p in tree_flatten_with_path(tp)]
+        loss, m = lm.loss_fn(tree_unflatten(tp, leaves), cfg, batch)
+        out[remat] = [float(loss.detach()),
+                      float(m["moe_aux"].detach())] + [
+            g.numpy() for g in torch.autograd.grad(loss, leaves)]
+    for remat in ("dots", "full"):
+        assert out[remat][:2] == out["none"][:2]
+        for a, b in zip(out[remat][2:], out["none"][2:]):
             np.testing.assert_array_equal(a, b, err_msg=remat)
 
 
@@ -314,6 +388,37 @@ def test_train_step_equals_jax(arch, accum):
     # the caller's parameters are left as they were
     for a, b in zip(_leaves(tp), _jleaves(jp)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_step_equals_jax(arch, accum):
+    """One ``make_train_step`` step: the loss, the grad norm and the MoE
+    metrics (each microbatch's, averaged) as JAX's, and the new
+    parameters within the first Adam step's bounds."""
+    jc, tc = _cfgs(arch)
+    jp = _jparams(jc)
+    ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    jo, to = jadamw.AdamWConfig(**ocfg), adamw.AdamWConfig(**ocfg)
+    batch = _batch(jc)
+    jp2, js2, jm = jsteps.make_train_step(jc, jo, accum=accum)(
+        jp, jadamw.adamw_init(jp, jo), _j(batch))
+    tp = convert.lm_params(jp, tc, "cpu")
+    tp2, ts2, tm = steps.make_train_step(tc, to, accum=accum)(
+        tp, adamw.adamw_init(tp, to), _t(batch))
+    assert sorted(tm) == sorted(jm)
+    for k in ("loss", "nll", "grad_norm") + (
+            ("moe_aux", "moe_zloss") if tc.moe else ()):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   err_msg=k)
+    assert float(tm["skipped"]) == float(jm["skipped"]) == 0.0
+    for a, b in zip(_leaves(ts2.m), _jleaves(js2.m)):
+        assert _rel_l2(a, b) < 1e-4
+    for a, b, m in zip(_leaves(tp2), _jleaves(jp2), _jleaves(js2.m)):
+        near = np.abs(m) / (1.0 - to.b1) < 100 * to.eps
+        np.testing.assert_allclose(a[~near], b[~near], rtol=0,
+                                   atol=1e-2 * to.lr)
+        assert np.all(np.abs(a - b)[near] <= 2 * to.lr)
 
 
 def test_nonfinite_guard_in_train_step():
@@ -592,15 +697,49 @@ def test_supervisor_rolls_back_on_nan(tmp_path):
 
 
 def test_make_batches_equal_jax_and_refuse_unported_frontends():
-    jc, tc = _cfgs("qwen2-1.5b")
-    for a, b in zip(_pool(tc, 3), _pool(jc, 3)):
-        for k in b:
-            np.testing.assert_array_equal(a[k], b[k])
-    for arch, what in (("qwen2-vl-7b", "frontend.py"),
-                       ("seamless-m4t-medium", "encdec.py")):
-        with pytest.raises(NotImplementedError, match=what):
-            train.make_batches(reduced(get_config(arch)), batch=2, seq=8,
-                               seed=0)
+    """Tokens and targets equal to the JAX package's; a vision model's
+    batches also carry ``embeds`` (f32, (batch, frontend_len, d_model),
+    unit RMS, drawn anew for each batch index, the same on a second
+    pass). Encoder-decoders still raise, naming models/encdec.py."""
+    for arch in ("qwen2-1.5b", "qwen2-vl-7b"):
+        jc, tc = _cfgs(arch)
+        got = _pool(tc, 3)
+        want = [b for b, _ in zip(jtrain.make_batches(
+            jc, batch=4, seq=16, seed=0, pipeline=False), range(3))]
+        for a, b in zip(got, want):
+            assert sorted(a) == sorted(b)
+            for k in ("tokens", "targets"):
+                np.testing.assert_array_equal(a[k], b[k])
+        if arch == "qwen2-vl-7b":
+            shape = (4, tc.frontend_len, tc.d_model)
+            assert all(b["embeds"].shape == shape
+                       and b["embeds"].dtype == np.float32 for b in got)
+            rms = np.sqrt((got[0]["embeds"] ** 2).mean(-1))
+            np.testing.assert_allclose(rms, 1.0, rtol=1e-4)
+            assert not np.array_equal(got[0]["embeds"], got[1]["embeds"])
+            again = _pool(tc, 2)
+            np.testing.assert_array_equal(again[1]["embeds"],
+                                          got[1]["embeds"])
+    with pytest.raises(NotImplementedError, match="encdec.py"):
+        train.make_batches(reduced(get_config("seamless-m4t-medium")),
+                           batch=2, seq=8, seed=0)
+
+
+def test_vision_train_loop_on_the_cpu():
+    """A TrainLoop of reduced qwen2-vl-7b on ``make_batches`` (through the
+    host pipeline): the embeddings reach the loss, which stays finite and
+    falls over the steps on the repeated pool."""
+    _, tc = _cfgs("qwen2-vl-7b")
+    loop = train.TrainLoop(tc, opt_cfg=adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=1, total_steps=16), device="cpu")
+    batches = train.make_batches(tc, batch=2, seq=16, seed=0)
+    try:
+        hist = loop.run(batches, steps=16, log_every=0)["history"]
+    finally:
+        batches.close()
+    losses = [m["loss"] for m in hist]
+    assert np.all(np.isfinite(losses))
+    assert np.mean(losses[-4:]) < np.mean(losses[:4])
 
 
 def test_train_loop_defaults_to_cuda(monkeypatch):

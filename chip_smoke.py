@@ -132,7 +132,11 @@ then:
    the cache, and in ring mode past the window; and the families' head
    shapes: 24/8 heads of 64 (granite), 32/8 and 28/4 of 128 over 1,088
    rows (jamba, qwen2-vl), mixtral's 48/8 of 128 in a 4096-slot ring
-   past its window): ``rtol = atol = 2e-2`` in bf16, ``2e-5`` in f32;
+   past its window, and seamless's 16/16 of 64 at the ``encdec`` phase's
+   shapes: flash non-causal at Sq > Sk, 64 over 1024 and 1024 over 1024,
+   the decoder's and the training calls, decode over 1024 rows at every
+   length 1024 and at 65-93): ``rtol = atol = 2e-2`` in bf16, ``2e-5``
+   in f32;
 14. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
@@ -167,7 +171,25 @@ then:
    depth) and granite (8 of 32 layers) trained 10 steps on 4 x 512
    tokens in bf16: a falling loss, no skipped step, the MoE losses in the
    metrics, step p50, tokens/s, the model-FLOPs share of the bf16 peak
-   over active parameters and peak memory.
+   over active parameters and peak memory;
+18. the encoder-decoder and the pod axis (``encdec``, about 150 s):
+   seamless-m4t-medium at full width with 2 + 2 layers in f32, card
+   against CPU (ModelServer over 256 frames, 2 prompts of 32 tokens, 8
+   teacher-forced steps: logits within ``1e-4``, equal greedy tokens; the
+   loss within ``1e-4`` and gradients within ``1e-4`` relative L2); at
+   full width and depth in bf16, ModelServer with 8 slots, a 1024-long
+   cache and 1024 frames a slot (8 prompts of 64, 32 decode steps:
+   prefill ms, step p50/p99, tokens/s, busy share, peak memory; flash
+   launches 12 encoder + 12 self + 12 cross a prefill and decode launches
+   12 self + 12 cross a step, asserted) and a TrainLoop on
+   ``make_batches`` (4 x 512 tokens over 512 frames, 10 steps: finite
+   losses, step p50, tokens/s, the model-FLOPs share, 36 flash launches
+   a step); then the int8-compressed train step of reduced qwen1.5-0.5b
+   on a one-rank NCCL group's (1, 1, 1) CUDA mesh over ("pod", "data",
+   "model"): the round trip within half a quantization step and not the
+   identity, the step AdamW of it, its first step within what the int8
+   error allows of the plain step's, and held to the CPU port's steps on
+   a one-rank gloo mesh.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -3961,13 +3983,18 @@ def _attn_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 def attention_cases(device) -> Dict[str, float]:
     """Both attention kernels against their plain versions, bf16 and f32:
     MHA, GQA and MQA; causal, causal with a window and full; Sq < Sk and
-    ragged lengths; decode in prefix mode with and without a window, a
-    length past the cache, and in ring mode past the window. No case has a
-    query that keeps no key (the kernels write 0 there, the plain versions
-    the uniform average). Flash also runs query counts one past and one
-    short of its 64-row tiles and a window of 8; decode also runs lengths
-    on and around its split edges. Returns the largest absolute
-    difference."""
+    ragged lengths, and Sq > Sk non-causal (cross-attention); decode in
+    prefix mode with and without a window, a length past the cache, and
+    in ring mode past the window. No case has a query that keeps no key
+    (the kernels write 0 there, the plain versions the uniform average).
+    Flash also runs query counts one past and one short of its 64-row
+    tiles and a window of 8; decode also runs lengths on and around its
+    split edges. Every family's main-path shapes are here, seamless's
+    among them: its encoder, decoder and cross flash calls as the
+    ``encdec`` phase serves (8 x 64 tokens over 1024 frames) and trains
+    (4 x 512 over 512), and its decode calls at 8 x 1024 rows, the cross
+    call at every length 1024 and the self-attention cache at 65-93.
+    Returns the largest absolute difference."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import SPLIT
     errs = {k: 0.0 for k in ATTN_KERNELS}
@@ -3983,12 +4010,24 @@ def attention_cases(device) -> Dict[str, float]:
                                       # granite, jamba, qwen2-vl heads
                                       (1, 512, 512, 24, 8, 64),
                                       (1, 1088, 1088, 32, 8, 128),
-                                      (1, 1088, 1088, 28, 4, 128)):
+                                      (1, 1088, 1088, 28, 4, 128),
+                                      # seamless's cross-attention heads,
+                                      # the decoder longer than the encoder
+                                      (2, 200, 37, 16, 16, 64),
+                                      # seamless served: the decoder's
+                                      # self and cross calls, the encoder
+                                      (8, 64, 64, 16, 16, 64),
+                                      (8, 64, 1024, 16, 16, 64),
+                                      (8, 1024, 1024, 16, 16, 64),
+                                      # seamless trained: all three calls
+                                      (4, 512, 512, 16, 16, 64)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
             for causal, window in ((True, None), (True, 32), (True, 8),
                                    (False, None)):
+                if causal and Sq > Sk:
+                    continue     # its first queries would keep no key
                 kw = dict(causal=causal, window=window)
                 errs["flash_attention"] = max(
                     errs["flash_attention"], _attn_err(
@@ -4032,6 +4071,21 @@ def attention_cases(device) -> Dict[str, float]:
                     ref.decode_attention_ref(q, kc, vc, pos, window=window,
                                              ring=True),
                     f"decode ring {dtype} S={S} window={window}"))
+        # seamless: 16/16 heads of 64 over 1024 rows, the cross call at
+        # every length 1024 and the self-attention cache after a 64-token
+        # prompt
+        q = _randn((8, 16, 64), dtype, device, 13)
+        kc = _randn((8, 1024, 16, 64), dtype, device, 14)
+        vc = _randn((8, 1024, 16, 64), dtype, device, 15)
+        for lengths in (np.full(8, 1024), np.arange(65, 97, 4)):
+            lengths = torch.tensor(lengths, dtype=torch.int32,
+                                   device=device)
+            errs["decode_attention"] = max(
+                errs["decode_attention"], _attn_err(
+                    ops.decode_attention(q, kc, vc, lengths),
+                    ref.decode_attention_ref(q, kc, vc, lengths),
+                    f"decode prefix {dtype} seamless heads S=1024 "
+                    f"lengths {lengths.tolist()}"))
         # mixtral: 48/8 heads of 128 in its 4096-slot ring, past the window
         q = _randn((4, 48, 128), dtype, device, 10)
         kc = _randn((4, 4096, 8, 128), dtype, device, 11)
@@ -4933,6 +4987,531 @@ def families_phase(device, fs: FamilySizes = FamilySizes()
     return out
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder (seamless-m4t-medium) and the compressed pod step
+# ---------------------------------------------------------------------------
+
+ENCDEC = "seamless-m4t-medium"
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecSizes:
+    check_layers: int = 2        # card vs CPU: full width, 2 + 2 layers, f32
+    check_frames: int = 256
+    check_prompts: int = 2
+    check_len: int = 32
+    check_steps: int = 8
+    slots: int = 8               # serve: full width and depth, bf16
+    cache_len: int = 1024
+    enc_len: int = 1024
+    prompt_len: int = 64
+    steps: int = 32
+    train_batch: int = 4         # train: full width and depth, bf16
+    train_seq: int = 512         # tokens per sequence, and as many frames
+    train_steps: int = 10
+    pod_arch: str = "qwen1.5-0.5b"   # the compressed step: reduced, f32
+    pod_batch: int = 4
+    pod_seq: int = 16
+    pod_steps: int = 3
+    pod_lr: float = 1e-3
+
+
+def _encdec_config(layers: int = 0, dtype: str = ""):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ENCDEC)
+    kw = {}
+    if layers:
+        kw.update(n_layers=layers, encoder_layers=layers)
+    if dtype:
+        kw.update(dtype=dtype, param_dtype=dtype)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _zero_grad_leaf(path) -> bool:
+    """The cross-attention's K bias: its gradient is zero in exact
+    arithmetic (it adds q·b to every logit of a query alike, which the
+    softmax cancels), so it is held absolutely, not relatively."""
+    return tuple(path[1:]) == ("cross_attn", "wk", "b")
+
+
+def encdec_cuda_vs_cpu(es: EncDecSizes, device) -> Dict[str, object]:
+    """seamless-m4t-medium at full width, ``check_layers`` encoder and
+    decoder layers, f32, the same seeded parameters on the CPU and the
+    card: ModelServer prefills ``check_prompts`` prompts of ``check_len``
+    tokens over ``check_frames`` frames, then ``check_steps``
+    teacher-forced steps; logits within rtol = atol = 1e-4 and equal
+    greedy tokens; then ``loss_fn`` and its gradients: the loss within
+    1e-4 relative, every gradient within 1e-4 relative L2 (the zero K-bias
+    gradient of the cross-attention within 1e-6 absolute). On a failure
+    the CPU's own spread (1 thread against all) is printed beside."""
+    from repro_torch.launch.steps import _value_and_grad, init_params
+    from repro_torch.models.frontend import stub_audio_frames
+    from repro_torch.models.tree import tree_flatten_with_path, tree_map
+    from repro_torch.serving.server import ModelServer
+    cfg = _encdec_config(es.check_layers, "float32")
+    params = init_params(torch.Generator().manual_seed(11), cfg)
+    rng = np.random.default_rng(41)
+    n, L, steps = es.check_prompts, es.check_len, es.check_steps
+    toks = rng.integers(0, cfg.vocab_size, (n, L + steps)).astype(np.int32)
+    frames = stub_audio_frames(torch.Generator().manual_seed(12), cfg, n,
+                               es.check_frames)
+    batch = {"enc_embeds": frames,
+             "tokens": torch.as_tensor(toks[:, :-1]),
+             "targets": torch.as_tensor(toks[:, 1:])}
+
+    def run(p, dev):
+        srv = ModelServer(cfg, p, batch=n, cache_len=L + steps,
+                          enc_len=es.check_frames)
+        srv.prefill(toks[:, :L], frames.to(dev))
+        got = [srv.logits.cpu()]
+        for i in range(steps):
+            srv.tokens = torch.as_tensor(toks[:, L + i], device=dev)
+            srv.decode(1)
+            got.append(srv.logits.cpu())
+        del srv
+        loss, _, grads = _value_and_grad(
+            p, cfg, {k: v.to(dev) for k, v in batch.items()})
+        return (torch.stack(got).double(), float(loss),
+                [(path, g.cpu()) for path, g in
+                 tree_flatten_with_path(grads)])
+
+    res = {}
+    for dev in (device, "cpu"):
+        p = params if dev == "cpu" else tree_map(lambda t: t.to(dev),
+                                                 params)
+        res[dev] = run(p, dev)
+        del p
+    (la, lossa, ga), (lb, lossb, gb) = res[device], res["cpu"]
+
+    def compare(la, lossa, ga, lb, lossb, gb):
+        g_rel, zero = 0.0, 0.0
+        for (path, a), (_, b) in zip(ga, gb):
+            if _zero_grad_leaf(path):
+                zero = max(zero, float(a.abs().max()), float(b.abs().max()))
+                continue
+            g_rel = max(g_rel, float((a.double() - b.double()).norm()
+                                     / b.double().norm().clamp_min(1e-30)))
+        return {"logits_max_abs": float((la - lb).abs().max()),
+                "same_greedy_tokens": bool(torch.equal(la.argmax(-1),
+                                                       lb.argmax(-1))),
+                "loss_rel": abs(lossa - lossb) / abs(lossb),
+                "grad_rel_l2": g_rel, "zero_grad_max_abs": zero}
+
+    out = compare(la, lossa, ga, lb, lossb, gb)
+    ok = (torch.allclose(la, lb, rtol=1e-4, atol=1e-4)
+          and out["same_greedy_tokens"] and out["loss_rel"] <= 1e-4
+          and out["grad_rel_l2"] <= 1e-4 and out["zero_grad_max_abs"] < 1e-6)
+    if not ok:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            spread = compare(*run(params, "cpu"), lb, lossb, gb)
+        finally:
+            torch.set_num_threads(threads)
+        raise AssertionError(f"{ENCDEC} card vs CPU: {out}; the CPU on 1 "
+                             f"thread against {threads}: {spread}")
+    out.update(loss_card=lossa, loss_cpu=lossb)
+    log(f"encdec card==cpu {ENCDEC} (full width, {es.check_layers} + "
+        f"{es.check_layers} layers, f32, {n} prompts of {L} over "
+        f"{es.check_frames} frames, {steps} teacher-forced steps): {out}")
+    return out
+
+
+def encdec_serve(es: EncDecSizes, device) -> Dict[str, object]:
+    """seamless-m4t-medium at full width and depth (bf16, seeded random
+    weights) through ModelServer: ``slots`` prompts of ``prompt_len``
+    tokens over ``enc_len`` stub audio frames each, then ``steps`` decode
+    steps. The flash launches of the prefill must be 12 encoder + 12
+    decoder self + 12 cross calls, and a decode step's decode launches 12
+    self + 12 cross."""
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models.frontend import stub_audio_frames
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.serving.server import ModelServer
+    cfg = _encdec_config()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(1)
+    warm = ModelServer(cfg, params, batch=2, cache_len=64, enc_len=64)
+    warm.prefill(np.ones((2, 16), np.int32),
+                 stub_audio_frames(gen, cfg, 2, 64))
+    warm.decode(2)
+    del warm
+    srv = ModelServer(cfg, params, batch=es.slots, cache_len=es.cache_len,
+                      enc_len=es.enc_len)
+    prompts = np.random.default_rng(43).integers(
+        0, cfg.vocab_size, (es.slots, es.prompt_len)).astype(np.int32)
+    frames = stub_audio_frames(gen, cfg, es.slots, es.enc_len)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    srv.prefill(prompts, frames)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = launch_counts()
+    bad = [] if bool(torch.isfinite(srv.logits).all()) else ["prefill"]
+    step_ms: List[float] = []
+    for _ in range(es.steps):
+        t0 = time.perf_counter()
+        srv.decode(1)                    # ends in a device->host copy
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(srv.logits).all()):
+            bad.append("decode step")
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ATTN_KERNELS}
+    if bad:
+        raise AssertionError(f"{ENCDEC}: non-finite logits after {bad[:3]}")
+    if tuple(srv.logits.shape) != (es.slots, cfg.vocab_size):
+        raise AssertionError(f"{ENCDEC}: logits {tuple(srv.logits.shape)}")
+    want_prefill = cfg.encoder_layers + 2 * cfg.n_layers
+    want = {"flash_attention": want_prefill,
+            "decode_attention": 2 * cfg.n_layers * es.steps}
+    got_prefill = {k: at_prefill[k] for k in ATTN_KERNELS}
+    if got_prefill != {"flash_attention": want_prefill,
+                       "decode_attention": 0} or launches != want:
+        raise AssertionError(
+            f"{ENCDEC}: launches {got_prefill} at the prefill and "
+            f"{launches} after {es.steps} steps, want {want_prefill} flash "
+            f"calls a prefill ({cfg.encoder_layers} encoder, "
+            f"{cfg.n_layers} self, {cfg.n_layers} cross) and "
+            f"{2 * cfg.n_layers} decode calls a step")
+    sa = np.asarray(step_ms)
+    # the cross K/V of every layer are projected from the encoder output
+    # anew on each step, as in the JAX package
+    cross_kv_flops = (cfg.n_layers * 2 * 2 * es.slots * es.enc_len
+                      * cfg.d_model * cfg.n_kv_heads * cfg.hd)
+    report = {
+        "arch": ENCDEC, "layers": [cfg.encoder_layers, cfg.n_layers],
+        "params": sum(t.numel() for t in tree_leaves(params)),
+        "param_bytes": _tensor_bytes(params), "param_init_s": init_s,
+        "slots": es.slots, "prompt_len": es.prompt_len,
+        "enc_len": es.enc_len, "cache_len": es.cache_len,
+        "prefill_ms": prefill_ms,
+        "decode_step_p50_ms": float(np.percentile(sa, 50)),
+        "decode_step_p99_ms": float(np.percentile(sa, 99)),
+        "decode_steps": es.steps,
+        "decode_tokens_per_s": es.slots * es.steps / (sa.sum() / 1e3),
+        "launches_prefill": got_prefill,
+        "launches_per_step": {k: (launches[k] - got_prefill[k]) / es.steps
+                              for k in ATTN_KERNELS},
+        "launches": launches,
+        "cross_kv_flops_per_step": cross_kv_flops,
+        "cache_bytes": _tensor_bytes(srv.caches),
+        "enc_out_bytes": _tensor_bytes(srv.enc_out)}
+    report["busy"] = decode_busy(lambda: srv.decode(1),
+                                 report["decode_step_p50_ms"])
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"encdec serve {ENCDEC} ({cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers, full width, bf16): "
+        f"{report['params']} params ({report['param_bytes']} bytes, drawn "
+        f"in {init_s:.3f} s); prefill {es.slots}x{es.prompt_len} tokens "
+        f"over {es.slots}x{es.enc_len} frames {prefill_ms:.3f} ms; decode "
+        f"step p50 {report['decode_step_p50_ms']:.4f} ms, p99 "
+        f"{report['decode_step_p99_ms']:.4f} ms over {es.steps} steps; "
+        f"{report['decode_tokens_per_s']:.2f} tokens/s; busy share "
+        f"{report['busy']['busy_share_of_p50']}; cross K/V projection "
+        f"{cross_kv_flops:.4e} FLOP a step; peak device memory "
+        f"{report['peak_bytes']} bytes; launches {got_prefill} a prefill, "
+        f"{report['launches_per_step']} a step; {card_line()}")
+    del srv, params
+    return report
+
+
+def encdec_train(es: EncDecSizes, device) -> Dict[str, object]:
+    """seamless-m4t-medium at full width and depth (bf16) in a TrainLoop
+    on ``make_batches`` (``train_batch`` x ``train_seq`` tokens over as
+    many frames), ``train_steps`` steps: finite losses, no skipped step,
+    the flash launches of each step 12 encoder + 12 self + 12 cross."""
+    from repro_torch.launch.train import TrainLoop, make_batches
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = _encdec_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                              total_steps=es.train_steps),
+                     seed=0, device=device)
+    n_params = sum(t.numel() for t in tree_leaves(loop.params))
+    batches = [b for b, _ in zip(make_batches(
+        cfg, batch=es.train_batch, seq=es.train_seq, seed=0,
+        pipeline=False), range(es.train_steps))]
+    if batches[0]["enc_embeds"].shape != (es.train_batch, es.train_seq,
+                                          cfg.d_model):
+        raise AssertionError(f"enc_embeds {batches[0]['enc_embeds'].shape}")
+    lat: List[float] = []
+    t = [time.perf_counter()]
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        lat.append(now - t[0])
+        t[0] = now
+
+    reset_launch_counts()
+    hist = loop.run(iter(batches), steps=es.train_steps, log_every=0,
+                    on_metrics=on_metrics)["history"]
+    flash = launch_counts()["flash_attention"]
+    losses = [m["loss"] for m in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{ENCDEC} training loss not finite: {losses}")
+    if any(m["skipped"] for m in hist):
+        raise AssertionError(f"{ENCDEC}: a skipped step")
+    per_step = cfg.encoder_layers + 2 * cfg.n_layers
+    if flash != per_step * es.train_steps:
+        raise AssertionError(f"{ENCDEC}: {flash} flash launches in "
+                             f"{es.train_steps} steps, want {per_step} a "
+                             f"step")
+    step_ms = float(np.percentile(np.asarray(lat[1:]) * 1e3, 50))
+    B, S, F_ = es.train_batch, es.train_seq, es.train_seq
+    d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    enc_w = sum(t[0].numel() for t in tree_leaves(loop.params["enc_blocks"])
+                if t.dim() == 3)
+    dec_w = sum(t[0].numel() for t in tree_leaves(loop.params["dec_blocks"])
+                if t.dim() == 3)
+    # the matrices of the encoder act on the frames, the decoder's self
+    # and MLP matrices on the tokens, the cross-attention's K/V on the
+    # frames and its Q/O on the tokens; the head on the tokens
+    cross_kv = 2 * d * cfg.n_kv_heads * hd * cfg.n_layers
+    mat = (enc_w * cfg.encoder_layers * B * F_
+           + (dec_w * cfg.n_layers - cross_kv) * B * S + cross_kv * B * F_
+           + d * cfg.vocab_size * B * S)
+    attn = (4 * B * H * hd * (F_ * F_ * cfg.encoder_layers
+                              + S * S // 2 * cfg.n_layers
+                              + S * F_ * cfg.n_layers))
+    flops = 3 * (2 * mat + attn)
+    tokens = B * S
+    out = {"arch": ENCDEC, "params": n_params, "losses": losses,
+           "step_ms_p50": step_ms, "first_step_ms": lat[0] * 1e3,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "frames_per_step": B * F_,
+           "model_flops_per_step": flops,
+           "mfu_bf16_dense_peak": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "flash_launches": flash,
+           "flash_launches_per_step": flash / es.train_steps}
+    log(f"encdec train {ENCDEC} ({cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers, full width, bf16, "
+        f"B={B} x {S} tokens over {F_} frames, {es.train_steps} steps on "
+        f"make_batches): loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"p50 {step_ms:.3f} ms (first {lat[0] * 1e3:.3f} ms); "
+        f"{out['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4e}/step "
+        f"= {out['mfu_bf16_dense_peak']:.4f} of the 989 TFLOP/s bf16 dense "
+        f"peak; peak device memory {out['peak_bytes']} bytes; flash "
+        f"launches {flash / es.train_steps:.1f} a step; {card_line()}")
+    del loop
+    return out
+
+
+def _pod_steps(cfg, params, batch, es: EncDecSizes, mesh, compress: bool):
+    """``pod_steps`` train steps on ``mesh``: (losses, the parameters after
+    each step as CPU tensors)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    ocfg = AdamWConfig(lr=es.pod_lr, warmup_steps=0)
+    step = make_train_step(cfg, ocfg, mesh=mesh, compress_crosspod=compress)
+    p, s = params, adamw_init(params, ocfg)
+    losses, after = [], []
+    for _ in range(es.pod_steps):
+        p, s, m = step(p, s, batch)
+        losses.append(float(m["loss"]))
+        after.append([t.cpu().double()
+                      for _, t in tree_flatten_with_path(p)])
+    return losses, after
+
+
+def _steps_apart(a, b) -> Dict[str, float]:
+    """Largest element difference of two runs' parameters, and how many
+    elements differ by more than 1e-5."""
+    mx, far, total = 0.0, 0, 0
+    for x, y in zip(a, b):
+        for u, v in zip(x, y):
+            d = (u - v).abs()
+            mx = max(mx, float(d.max()))
+            far += int((d > 1e-5).sum())
+            total += d.numel()
+    return {"max_abs": mx, "beyond_1e-5": far, "elements": total}
+
+
+def _first_step_int8_share(g, gc, params, comp, plain, ocfg) -> float:
+    """The first compressed step's parameters against the plain step's,
+    as a share of what the int8 error allows (at most 1 passes). From the
+    same parameters and zero moments a first AdamW step moves an element
+    by ``lr·f(x)`` and the decay term, with ``f(x) = x / (|x| + eps)`` and
+    ``x = s·g`` the clipped gradient (``s = min(1, clip / |g|)``, the
+    global norm); the compressed step by ``lr·f(y)``, ``y = s_c·g_c``.
+    Each reduced element is within ``d``, half its leaf's quantization
+    step, of the f32 one, so ``|y - x| <= s_c·d + |s_c - s|·|g|`` and, f
+    increasing, the two steps differ by at most
+    ``lr·max(f(x + D) - f(x), f(x) - f(x - D))`` for that ``D``, plus the
+    f32 rounding of both new parameters (``2^-20·|p| + 1e-6·lr``)."""
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim.adamw import make_schedule
+    lr = float(make_schedule(ocfg)(torch.ones((), dtype=torch.int32)))
+    leaves = lambda t: [x.detach().cpu().double()
+                        for _, x in tree_flatten_with_path(t)]
+    gl, gcl, pl = leaves(g), leaves(gc), leaves(params)
+
+    def clip_scale(ls) -> float:
+        if ocfg.clip_norm is None:
+            return 1.0
+        norm = float(sum((x * x).sum() for x in ls)) ** 0.5
+        return min(1.0, ocfg.clip_norm / max(norm, 1e-9))
+
+    s, s_c = clip_scale(gl), clip_scale(gcl)
+    f = lambda x: x / (x.abs() + ocfg.eps)
+    worst = 0.0
+    for x0, p0, a, b in zip(gl, pl, comp, plain):
+        d = float(x0.abs().max()) / 127.0 * 0.5 * (1 + 1e-6)
+        x = s * x0
+        D = s_c * d + abs(s_c - s) * x0.abs()
+        allow = (lr * torch.maximum(f(x + D) - f(x), f(x) - f(x - D))
+                 + 2.0 ** -20 * p0.abs() + 1e-6 * lr)
+        worst = max(worst, float(((a - b).abs() / allow).max()))
+    return worst
+
+
+def encdec_pod(es: EncDecSizes, device) -> Dict[str, object]:
+    """The int8-compressed cross-pod step on the card: a one-rank NCCL
+    process group from a FileStore and a (1, 1, 1) CUDA mesh over ("pod",
+    "data", "model"). Reduced ``pod_arch`` (f32): the reduced gradient is
+    the int8 round trip, within half a quantization step of each gradient
+    element and not the identity; the compressed step applies AdamW to it
+    (bit for bit the update ``adamw_update`` computes from it); its first
+    step differs from the uncompressed step's by no more than the int8
+    error allows (``_first_step_int8_share``). The group is destroyed, a
+    one-rank gloo group made, and the same compressed steps of the CPU
+    port on a CPU mesh held to the card's: losses within 1e-4 relative,
+    every element within 2·lr a step, all but 1e-3 of them within
+    1e-2·lr (an element whose int8 code flips at a rounding boundary
+    moves by up to lr more or less)."""
+    import tempfile
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.collectives import crosspod_grad_mean
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import _value_and_grad, init_params
+    from repro_torch.models.tree import tree_flatten_with_path, tree_map
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update)
+    cfg = reduced(get_config(es.pod_arch))
+    params = init_params(torch.Generator().manual_seed(3), cfg)
+    rng = np.random.default_rng(47)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size,
+                                          (es.pod_batch, es.pod_seq)),
+                             dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    axes = ("pod", "data", "model")
+    tmp = tempfile.mkdtemp(prefix="smoke-pod-")
+    bound = 2 * es.pod_lr * es.pod_steps
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "nccl"), 1), rank=0, world_size=1,
+            timeout=timedelta(seconds=120))
+        try:
+            mesh = make_mesh((1, 1, 1), axes, device_type="cuda")
+            p = tree_map(lambda t: t.to(device), params)
+            b = {k: v.to(device) for k, v in batch.items()}
+            _, _, g = _value_and_grad(p, cfg, b)
+            gc = crosspod_grad_mean(g, mesh, compress=True)
+            worst, moved = 0.0, 0
+            for (_, a), (_, x) in zip(tree_flatten_with_path(gc),
+                                      tree_flatten_with_path(g)):
+                half = float(x.abs().max()) / 127.0 * 0.5
+                worst = max(worst, float((a - x).abs().max()) / half)
+                moved += int((a != x).sum())
+            if worst > 1 + 1e-6 or not moved:
+                raise AssertionError(f"int8 round trip: largest error "
+                                     f"{worst} half-steps, {moved} moved")
+            ocfg = AdamWConfig(lr=es.pod_lr, warmup_steps=0)
+            want, _, _ = adamw_update(gc, adamw_init(p, ocfg), p, ocfg)
+            comp_l, comp_p = _pod_steps(cfg, p, b, es, mesh, True)
+            if not all(torch.equal(x.cpu().double(), y) for (_, x), y in zip(
+                    tree_flatten_with_path(want), comp_p[0])):
+                raise AssertionError("the compressed step is not AdamW of "
+                                     "the int8 round trip")
+            plain_l, plain_p = _pod_steps(cfg, p, b, es, mesh, False)
+            vs_plain = _steps_apart(comp_p, plain_p)
+            int8_share = _first_step_int8_share(g, gc, p, comp_p[0],
+                                                plain_p[0], ocfg)
+            if int8_share > 1 or comp_l[0] != plain_l[0]:
+                raise AssertionError(f"compressed vs plain step: the first "
+                                     f"step at {int8_share} of the int8 "
+                                     f"allowance, {vs_plain}, losses "
+                                     f"{comp_l} vs {plain_l}")
+            del p, b, g, gc
+        finally:
+            dist.destroy_process_group()
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "gloo"), 1), rank=0, world_size=1,
+            timeout=timedelta(seconds=120))
+        try:
+            cpu_l, cpu_p = _pod_steps(cfg, params, batch, es,
+                                      make_mesh((1, 1, 1), axes,
+                                                device_type="cpu"), True)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    vs_cpu = _steps_apart(comp_p, cpu_p)
+    loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(comp_l, cpu_l))
+    flips = sum(int(((u - v).abs() > 1e-2 * es.pod_lr).sum())
+                for x, y in zip(comp_p, cpu_p) for u, v in zip(x, y))
+    if (loss_rel > 1e-4 or vs_cpu["max_abs"] > bound
+            or flips > 1e-3 * vs_cpu["elements"]):
+        raise AssertionError(f"compressed steps card vs CPU: losses "
+                             f"{comp_l} vs {cpu_l}, {vs_cpu}, {flips} "
+                             f"elements beyond 1e-2·lr")
+    out = {"arch": es.pod_arch, "backend_card": "nccl",
+           "backend_cpu": "gloo", "steps": es.pod_steps,
+           "losses_compressed": comp_l, "losses_plain": plain_l,
+           "losses_cpu": cpu_l, "roundtrip_max_err_half_steps": worst,
+           "roundtrip_elements_moved": moved,
+           "compressed_vs_plain": vs_plain,
+           "first_step_share_of_int8_allowance": int8_share,
+           "card_vs_cpu": vs_cpu,
+           "card_vs_cpu_beyond_1e-2_lr": flips,
+           "card_vs_cpu_loss_rel": loss_rel}
+    log(f"encdec pod step (one-rank NCCL mesh (1, 1, 1), reduced "
+        f"{es.pod_arch}, f32, {es.pod_steps} steps): the int8 round trip "
+        f"within {worst:.4f} half-steps, {moved} elements moved; "
+        f"compressed vs plain parameters {vs_plain}, the first step at "
+        f"{int8_share:.4f} of the int8 allowance; card vs the CPU port on"
+        f" a one-rank gloo mesh {vs_cpu}, {flips} beyond 1e-2·lr, losses "
+        f"{comp_l} vs {cpu_l}")
+    return out
+
+
+def encdec_phase(device, es: EncDecSizes = EncDecSizes()
+                 ) -> Dict[str, object]:
+    """seamless-m4t-medium on the card (card against CPU, serving and
+    training at full width) and the compressed pod step. Budget: about
+    150 s."""
+    t_phase = time.perf_counter()
+    out: Dict[str, object] = {"cuda_vs_cpu": encdec_cuda_vs_cpu(es, device)}
+    torch.cuda.empty_cache()
+    out["serve"] = encdec_serve(es, device)
+    torch.cuda.empty_cache()
+    out["train"] = encdec_train(es, device)
+    torch.cuda.empty_cache()
+    out["pod"] = encdec_pod(es, device)
+    out["launches"] = {
+        "flash_attention": (out["serve"]["launches"]["flash_attention"]
+                            + out["train"]["flash_launches"]),
+        "decode_attention": out["serve"]["launches"]["decode_attention"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"encdec phase: {out['seconds']:.3f} s; {card_line()}")
+    return out
+
+
 def main() -> int:
     calls_only = sys.argv[1:] == ["--calls"]
     if sys.argv[1:] and not calls_only:
@@ -4975,6 +5554,8 @@ def main() -> int:
     mres = run_model("cuda", ModelSizes())
     torch.cuda.empty_cache()
     fam = families_phase("cuda")
+    torch.cuda.empty_cache()
+    enc = encdec_phase("cuda")
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
@@ -4987,11 +5568,13 @@ def main() -> int:
     log(json.dumps({k: mres[k] for k in ("model", "model_cuda_vs_cpu",
                                          "serve_cli")}))
     log(json.dumps({"families": fam}))
+    log(json.dumps({"encdec": enc}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
              "train": {"flash_attention": trained["main"]["flash_launches"]},
-             "families": fam["launches"]}
+             "families": fam["launches"],
+             "encdec": enc["launches"]}
     kernels = res["kernels"] + mres["kernels"]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()

@@ -12,7 +12,9 @@ arrays; the port keeps the JAX layouts (linear weights
 ``(d_in, d_out)``, blocks and caches stacked per pattern position on a
 leading ``reps`` axis), so ``lm_params`` and ``lm_cache`` map a tree of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``) leaf for
-leaf onto tensors, keeping each dtype (bf16 included).
+leaf onto tensors, keeping each dtype (bf16 included); an
+encoder-decoder's trees (``encdec.init_encdec``, the decoder cache) go
+through the same two functions.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import blocks, lm
+from repro_torch.models import blocks
 from repro_torch.models.tree import tree_map
 from repro_torch.optim.adamw import OptState
 from repro_torch.featurestore.table import (PreAggState, Table,
@@ -128,10 +130,15 @@ def lm_params(tree: Mapping[str, Any], cfg, device) -> Dict[str, Any]:
     """The JAX package's ``lm.init_lm`` parameters (as numpy) as the
     port's parameters on ``device``: every block kind's leaves (``attn``,
     ``mlp``, ``mamba``, ``moe`` with its ``experts``/``shared`` stacked on
-    the expert axis) keep their layouts and dtypes."""
-    lm.check_supported(cfg)
-    want = {"embed", "blocks", "final_norm"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+    the expert axis) keep their layouts and dtypes. For an encoder-decoder
+    config, ``encdec.init_encdec``'s tree (``enc_blocks``, ``enc_norm``,
+    ``embed``, ``dec_blocks``, ``final_norm``), leaf for leaf."""
+    if cfg.is_encdec:
+        want = {"enc_blocks", "enc_norm", "embed", "dec_blocks",
+                "final_norm"}
+    else:
+        want = {"embed", "blocks", "final_norm"} | (
+            set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != want:
         raise ValueError(f"parameter tree has {sorted(tree)}, expected "
                          f"{sorted(want)} for {cfg.name}")
@@ -142,7 +149,14 @@ def lm_cache(tree: Any, cfg, device) -> Any:
     """A JAX cache tree (``lm.init_cache`` / ``lm.prefill`` layout: a
     tuple per pattern position of ``{"k", "v"}`` for attention layers or
     ``{"conv", "ssm"}`` for Mamba layers, stacked on ``reps``, as numpy)
-    as the port's cache on ``device``."""
+    as the port's cache on ``device``. For an encoder-decoder config, the
+    decoder's ``{"k", "v"}`` stacked on its layers
+    (``encdec.init_dec_cache`` / ``encdec.dec_prefill``)."""
+    if cfg.is_encdec:
+        if not isinstance(tree, Mapping) or set(tree) != {"k", "v"}:
+            raise ValueError(f"{cfg.name}: the decoder cache is a "
+                             f"{{'k', 'v'}} dict, got {type(tree).__name__}")
+        return _tree_tensors(dict(tree), device)
     pattern = blocks.normalize_pattern(cfg)
     if len(tree) != len(pattern):
         raise ValueError(f"cache has {len(tree)} pattern positions, "

@@ -3,10 +3,11 @@
 Pipeline (paper Figure 4/5): synthetic event stream -> feature tables ->
 deployed SQL window queries -> real-time feature vectors; ``--decode``
 adds LM token generation with a reduced assigned architecture through
-``ModelServer`` (``--arch``: any decoder-only family — dense, MoE, Mamba-2,
-the jamba hybrid, qwen2-vl's backbone on tokens; attention layers prefill
-through the flash-attention kernel and decode through the
-decode-attention kernel).
+``ModelServer`` (``--arch``: any registered config — dense, MoE, Mamba-2,
+the jamba hybrid, qwen2-vl's backbone on tokens, and the seamless-m4t
+encoder-decoder over stub audio frames; attention layers prefill through
+the flash-attention kernel and decode through the decode-attention
+kernel).
 
 Reports the paper's headline metrics: QPS, latency percentiles, and the
 L = L_parse + L_plan + L_exec decomposition.
@@ -36,6 +37,7 @@ from repro_torch.data.synthetic import (EventStreamConfig, generate_events,
                                         request_stream)
 from repro_torch.featurestore.table import TableSchema
 from repro_torch.launch.steps import init_params
+from repro_torch.models.frontend import stub_audio_frames
 from repro_torch.serving.server import ModelServer
 
 FEATURE_SQL = """
@@ -132,7 +134,12 @@ def main(argv=None) -> int:
         params = init_params(gen, cfg)
         srv = ModelServer(cfg, params, batch=8, cache_len=64)
         prompt = np.ones((4, 8), np.int32)
-        slots = srv.prefill(prompt)
+        frames = None
+        if cfg.is_encdec:
+            frames = stub_audio_frames(
+                torch.Generator(device=eng.device).manual_seed(1), cfg, 4,
+                n_frames=srv.enc_len)
+        slots = srv.prefill(prompt, frames)
         _sync(eng.device)
         t0 = time.perf_counter()
         srv.decode(steps=16)

@@ -2,8 +2,13 @@
 ``--reduced --device cpu``; the card by default).
 
 The port of the JAX package's ``repro.launch.train``: config -> model ->
-``train_step`` -> host data pipeline -> checkpoint manager -> supervisor,
-without a mesh (one device holds the whole model).
+``train_step`` -> host data pipeline -> checkpoint manager -> supervisor.
+One device holds the whole model; ``TrainLoop(mesh=...)`` is data
+parallel over the mesh's ``pod`` axis (one rank per pod, an f32 gradient
+mean, or with ``compress=True`` the int8-compressed one), and
+``--compress-grads`` without a mesh is the plain step, as in the JAX
+package. Every registered config trains, the encoder-decoder
+(seamless-m4t-medium) included.
 
 Fault tolerance in the loop:
 
@@ -35,7 +40,7 @@ from repro_torch.data.pipeline import HostPipeline, PipelineConfig
 from repro_torch.data.synthetic import token_batch_stream
 from repro_torch.featurestore.table import resolve_device
 from repro_torch.launch.steps import init_params, make_train_step
-from repro_torch.models import frontend, lm
+from repro_torch.models import frontend
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
 __all__ = ["TrainLoop", "make_batches", "main"]
@@ -46,7 +51,7 @@ class TrainLoop:
     defaults to the card and raises where there is none."""
 
     def __init__(self, cfg: ModelConfig, *, opt_cfg: AdamWConfig,
-                 accum: int = 1, compress: bool = False,
+                 accum: int = 1, mesh=None, compress: bool = False,
                  ckpt_dir: Optional[str] = None, retain: int = 3,
                  seed: int = 0, device="cuda"):
         self.cfg = cfg
@@ -58,6 +63,7 @@ class TrainLoop:
         self.params = init_params(gen, cfg)
         self.opt_state = adamw_init(self.params, opt_cfg)
         self.train_step = make_train_step(cfg, opt_cfg, accum=accum,
+                                          mesh=mesh,
                                           compress_crosspod=compress)
         self.ckpt = (CheckpointManager(ckpt_dir, retain=retain)
                      if ckpt_dir else None)
@@ -128,9 +134,9 @@ def make_batches(cfg: ModelConfig, *, batch: int, seq: int, seed: int,
     """Token batches from a cycled pool of 8 (deterministic). A model with
     a frontend also gets ``embeds`` (f32 numpy, the stub's embeddings drawn
     from a CPU generator seeded by the batch index, as the JAX package
-    seeds them by ``PRNGKey(i)``). Encoder-decoders raise, as the model
-    does."""
-    lm.check_supported(cfg)
+    seeds them by ``PRNGKey(i)``); an encoder-decoder also gets
+    ``enc_embeds`` (f32 numpy, ``(batch, seq, d_model)`` audio frames
+    drawn the same way)."""
     gen = token_batch_stream(vocab=cfg.vocab_size, batch=batch, seq=seq,
                              seed=seed)
     raw = list(next(gen) for _ in range(8))     # cycled pool
@@ -140,6 +146,10 @@ def make_batches(cfg: ModelConfig, *, batch: int, seq: int, seed: int,
         if cfg.frontend:
             b["embeds"] = frontend.stub_frontend(
                 torch.Generator().manual_seed(i), cfg, batch
+            ).float().numpy()
+        if cfg.is_encdec:
+            b["enc_embeds"] = frontend.stub_audio_frames(
+                torch.Generator().manual_seed(i), cfg, batch, n_frames=seq
             ).float().numpy()
         return b
 
@@ -164,7 +174,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8-compressed cross-pod gradient reduce; "
+                         "without a mesh (this CLI's single device) the "
+                         "plain step, as in the JAX trainer")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default=None)
     args = ap.parse_args(argv)

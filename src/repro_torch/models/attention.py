@@ -13,8 +13,13 @@ Cache layout (per layer): ``k/v (B, S_max, Hkv, D)``; position ``p`` sits
 at slot ``p`` (``p % S_max`` for a sliding-window ring). ``attend_decode``
 writes the new token's K/V into the cache in place at its slot; a slot past
 ``S_max`` (no window, position at or beyond the cache) is dropped, as the
-JAX package's one-hot write drops it. The cross-attention of the
-encoder-decoder models comes with its own slice.
+JAX package's one-hot write drops it.
+
+The encoder-decoder models add cross-attention (``init_cross_attention``,
+``cross_attend``, ``cross_attend_decode``): decoder queries over the
+encoder's output, with no rope and no mask, through the same two kernels
+(flash non-causal with ``Sq`` the decoder's length and ``Sk`` the
+encoder's; decode with every length the encoder's).
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from repro_torch.models.layers import (apply_linear, apply_rope, init_linear,
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 __all__ = ["init_attention", "attend_train", "attend_prefill",
-           "attend_decode", "ring_len"]
+           "attend_decode", "ring_len", "init_cross_attention",
+           "cross_attend", "cross_attend_decode"]
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -153,3 +159,47 @@ def attend_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
         o = ops.decode_attention(q[:, 0], kc, vc, position + 1, window=None)
     out = apply_linear(p["wo"], o.reshape(B, cfg.n_heads * hd))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return init_attention(gen, cfg)
+
+
+def _project_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V of the encoder's output (B, Se, Hkv, D): views of fresh
+    linear outputs, so contiguous with 16-byte aligned bases, as the
+    kernels take them."""
+    B, Se, _ = enc_out.shape
+    k = apply_linear(p["wk"], enc_out).view(B, Se, cfg.n_kv_heads, cfg.hd)
+    v = apply_linear(p["wv"], enc_out).view(B, Se, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attend(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Decoder queries x (B, S, d) over the encoder's output (B, Se, d):
+    no causal mask, no rope; S may be shorter or longer than Se."""
+    B, S, _ = x.shape
+    q = apply_linear(p["wq"], x).view(B, S, cfg.n_heads, cfg.hd)
+    k, v = _project_kv(p, enc_out, cfg)
+    o = ops.flash_attention(q, k, v, causal=False, window=None)
+    return apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
+
+
+def cross_attend_decode(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """One decoder token x (B, d) against the encoder's output (B, Se, d),
+    its K/V projected anew on every call, as in the JAX package: decode
+    attention with every length ``Se``."""
+    B, _ = x.shape
+    Se = enc_out.shape[1]
+    q = apply_linear(p["wq"], x).view(B, cfg.n_heads, cfg.hd)
+    k, v = _project_kv(p, enc_out, cfg)
+    lengths = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+    o = ops.decode_attention(q, k, v, lengths, window=None)
+    return apply_linear(p["wo"], o.reshape(B, cfg.n_heads * cfg.hd))

@@ -38,7 +38,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm)
-from repro_torch.models.tree import layer_slice, tree_map
+from repro_torch.models.tree import (layer_slice, stacked_init,
+                                     tree_map)
 
 Params = Dict[str, Any]
 
@@ -163,19 +164,8 @@ def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig
     into a preallocated stack (no second copy of the weights)."""
     pattern = normalize_pattern(cfg)
     reps = cfg.n_layers // len(pattern)
-    out = []
-    for token in pattern:
-        first = init_block(gen, cfg, token)
-        stacked = tree_map(
-            lambda a: torch.empty((reps,) + tuple(a.shape), dtype=a.dtype,
-                                  device=a.device), first)
-        tree_map(lambda s, a: s[0].copy_(a), stacked, first)
-        del first
-        for i in range(1, reps):
-            tree_map(lambda s, a: s[i].copy_(a), stacked,
-                     init_block(gen, cfg, token))
-        out.append(stacked)
-    return tuple(out)
+    return tuple(stacked_init(lambda: init_block(gen, cfg, token), reps)
+                 for token in pattern)
 
 
 def _reps(stacked: Tuple[Params, ...]) -> int:

@@ -22,8 +22,9 @@ dense, MoE or no feed-forward half (``models/blocks.py``); the caches are
 ``{k, v}`` for attention layers and ``{conv, ssm}`` for Mamba layers. The
 [vlm]/[audio] archs prepend stub frontend embeddings (``models/frontend.py``:
 precomputed patch / frame vectors) to the token embeddings; the loss is
-masked to the token positions. The encoder-decoder models
-(``models/encdec.py``) come with their own slice.
+masked to the token positions. The encoder-decoder models run in
+``models/encdec.py``; this module's entry points refuse them
+(``check_supported``).
 """
 from __future__ import annotations
 
@@ -41,16 +42,17 @@ from repro_torch.models.tree import tree_map
 Params = Dict[str, Any]
 
 __all__ = ["init_lm", "forward_train", "loss_fn", "prefill", "decode_step",
-           "init_cache", "with_f32_head", "check_supported"]
+           "init_cache", "with_f32_head", "check_supported", "masked_nll"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model the port does not run yet: the
-    encoder-decoders."""
+    """Raise for an encoder-decoder config: this module's functions would
+    build the wrong model for it."""
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models (models/encdec.py) are "
-            f"not ported yet")
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: models.encdec runs it "
+            f"(launch.steps.init_params dispatches on cfg.is_encdec), not "
+            f"the decoder-only models.lm")
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -116,6 +118,17 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x), aux
 
 
+def masked_nll(logits: torch.Tensor, targets: torch.Tensor
+               ) -> torch.Tensor:
+    """Mean next-token NLL of f32 ``logits`` (B, S, V) over the targets
+    (B, S) that are not negative."""
+    mask = (targets >= 0).to(torch.float32)
+    tgt = targets.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def loss_fn(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -129,13 +142,7 @@ def loss_fn(params: Params, cfg: ModelConfig,
     logits, aux = forward_train(params, cfg, tokens, embeds)
     if embeds is not None:
         logits = logits[:, embeds.shape[1]:, :]   # loss on text positions
-    mask = (targets >= 0).to(torch.float32)
-    tgt = targets.clamp(min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
-    nll = (lse - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = nll.sum() / denom
+    loss = masked_nll(logits, targets)
     metrics = {"nll": loss}
     if cfg.moe is not None:
         loss = (loss + cfg.moe.aux_coef * aux["moe_aux"] / cfg.n_layers

@@ -14,7 +14,7 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "layer_slice",
+__all__ = ["tree_map", "tree_leaves", "layer_slice", "stacked_init",
            "tree_flatten_with_path", "tree_unflatten"]
 
 
@@ -40,6 +40,19 @@ def layer_slice(stacked: Any, i: int) -> Any:
     """Layer ``i`` of a tree stacked on a leading ``reps`` axis: views,
     so writes into a slice land in the stacked tree."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def stacked_init(init_one: Callable[[], Any], n: int) -> Any:
+    """``n`` trees from ``init_one()``, drawn in order into a preallocated
+    stack on a leading axis (no second copy of the weights)."""
+    first = init_one()
+    stacked = tree_map(lambda a: torch.empty(
+        (n,) + tuple(a.shape), dtype=a.dtype, device=a.device), first)
+    tree_map(lambda s, a: s[0].copy_(a), stacked, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda s, a: s[i].copy_(a), stacked, init_one())
+    return stacked
 
 
 def tree_flatten_with_path(tree: Any, path: Tuple = ()

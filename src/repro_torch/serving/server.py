@@ -176,20 +176,42 @@ class ModelServer:
     idle slot is overwritten by the next admission. Tokens only: a vision
     prompt goes through ``launch.steps.make_prefill_step`` and
     ``lm.decode_step``, as in the JAX package.
+
+    An encoder-decoder config (``cfg.is_encdec``) is served too:
+    ``prefill(tokens, enc_embeds)`` encodes the admitted prompts' frames
+    ``(B, enc_len, d_model)``, copies each encoder output into its slot of
+    a ``(batch, enc_len, d_model)`` buffer on the device and the decoder
+    caches into their slots; ``decode`` passes the buffer to the serve
+    step. ``enc_len`` defaults to ``cfg.frontend_len``. The JAX package's
+    ModelServer raises here: it calls its encoder-decoder prefill step
+    with the tokens only.
     """
 
-    def __init__(self, cfg, params, *, batch: int, cache_len: int):
+    def __init__(self, cfg, params, *, batch: int, cache_len: int,
+                 enc_len: Optional[int] = None):
         from repro_torch.launch.steps import (make_prefill_step,
                                               make_serve_step)
-        from repro_torch.models import lm
+        from repro_torch.models import encdec, lm
         self.cfg = cfg
         self.device = params["embed"].device
         self.params = lm.with_f32_head(params, cfg)   # f32 head, once
         self.batch = batch
         self.cache_len = cache_len
-        self._prefill = make_prefill_step(cfg, cache_len)
+        self._prefill = make_prefill_step(cfg, cache_len,
+                                          with_enc_out=cfg.is_encdec)
         self._decode = make_serve_step(cfg)
-        self.caches = lm.init_cache(cfg, batch, cache_len, self.device)
+        if cfg.is_encdec:
+            self.enc_len = cfg.frontend_len if enc_len is None else enc_len
+            self.enc_out = torch.zeros(
+                (batch, self.enc_len, cfg.d_model), dtype=cfg.compute_dtype,
+                device=self.device)
+            self.caches = encdec.init_dec_cache(cfg, batch, cache_len,
+                                                self.device)
+        else:
+            if enc_len is not None:
+                raise ValueError(f"{cfg.name} has no encoder: enc_len is "
+                                 f"for encoder-decoder configs")
+            self.caches = lm.init_cache(cfg, batch, cache_len, self.device)
         self.positions = torch.zeros((batch,), dtype=torch.int32,
                                      device=self.device)
         self.tokens = torch.zeros((batch,), dtype=torch.int32,
@@ -198,17 +220,34 @@ class ModelServer:
         self.generated: List[List[int]] = [[] for _ in range(batch)]
         self.logits = None
 
-    def prefill(self, tokens: np.ndarray) -> List[int]:
-        """Admit ``tokens (B0, S)`` sequences into free slots."""
+    def prefill(self, tokens: np.ndarray,
+                enc_embeds: Optional[Any] = None) -> List[int]:
+        """Admit ``tokens (B0, S)`` sequences into free slots; an
+        encoder-decoder also takes their frames ``enc_embeds (B0, enc_len,
+        d_model)`` (numpy or a tensor)."""
         B0, S = tokens.shape
         free = [i for i in range(self.batch) if not self.active[i]][:B0]
         if len(free) < B0:
             raise RuntimeError("no free slots (admission control)")
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
                                device=self.device)
-        self.logits, caches = self._prefill(self.params, toks)
-        nxt = torch.argmax(self.logits, -1).to(torch.int32)
         idx = torch.as_tensor(free, dtype=torch.long, device=self.device)
+        if self.cfg.is_encdec:
+            want = (B0, self.enc_len, self.cfg.d_model)
+            if enc_embeds is None or tuple(enc_embeds.shape) != want:
+                raise ValueError(
+                    f"{self.cfg.name}: prefill takes enc_embeds of shape "
+                    f"{want}, got "
+                    f"{None if enc_embeds is None else tuple(enc_embeds.shape)}")
+            emb = torch.as_tensor(enc_embeds, device=self.device)
+            self.logits, caches, enc_out = self._prefill(self.params, emb,
+                                                         toks)
+            self.enc_out.index_copy_(0, idx, enc_out)
+        else:
+            if enc_embeds is not None:
+                raise ValueError(f"{self.cfg.name} has no encoder")
+            self.logits, caches = self._prefill(self.params, toks)
+        nxt = torch.argmax(self.logits, -1).to(torch.int32)
         for full, new in zip(tree_leaves(self.caches), tree_leaves(caches)):
             full.index_copy_(1, idx, new.to(full.dtype))
         self.tokens[idx] = nxt
@@ -221,9 +260,11 @@ class ModelServer:
 
     def decode(self, steps: int = 1) -> np.ndarray:
         """Advance every slot ``steps`` tokens (active ones record them)."""
+        extra = (self.enc_out,) if self.cfg.is_encdec else ()
         for _ in range(steps):
             self.logits, self.caches = self._decode(
-                self.params, self.caches, self.tokens, self.positions)
+                self.params, self.caches, self.tokens, self.positions,
+                *extra)
             self.tokens = torch.argmax(self.logits, -1).to(torch.int32)
             self.positions = self.positions + 1
             host = self.tokens.cpu().numpy()

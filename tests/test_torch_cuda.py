@@ -3,7 +3,8 @@ the live-serving path on the card against the CPU (a streamed load, the
 execution modes, a hot swap under a request thread, the chunked
 pre-aggregate rebuild and compaction, first launches from several
 threads); the model tier's Mamba-2, MoE and hybrid blocks, mixtral's ring
-decode and a jamba train step on the card against the CPU.
+decode, a jamba train step and the encoder-decoder on the card against
+the CPU; the int8-compressed train step on a one-rank NCCL group.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 there is none. The file imports no JAX, so it runs on a GPU machine that
@@ -838,6 +839,169 @@ def test_jamba_train_step_with_remat_dots_card_equals_cpu(card):
         torch.testing.assert_close(a[~near], b[~near], rtol=0,
                                    atol=1e-2 * ocfg.lr)
         assert bool(((a - b).abs()[near] <= 2 * ocfg.lr).all())
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder's attention shapes and model, and the compressed step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 200, 37, 16, 16, 64),     # cross-attention, decoder longer
+    (2, 64, 1024, 16, 16, 64),    # seamless: 64 tokens over 1024 frames
+    (1, 1024, 1024, 16, 16, 64)])  # its encoder's self-attention
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_noncausal_cross_shapes(card, B, Sq, Sk, Hq,
+                                                       Hkv, D, dtype):
+    """Non-causal flash attention with Sq != Sk (the query longer than the
+    keys too), as cross-attention runs it."""
+    q = _randn((B, Sq, Hq, D), dtype, card, 13)
+    k = _randn((B, Sk, Hkv, D), dtype, card, 14)
+    v = _randn((B, Sk, Hkv, D), dtype, card, 15)
+    got = ops.flash_attention(q, k, v, causal=False, window=None)
+    want = ref.flash_attention_ref(q, k, v, causal=False, window=None)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_over_the_whole_encoder(card, dtype):
+    """One decoder token per slot over 1024 encoder frames, 16/16 heads of
+    64, every length the encoder's: the cross-attention decode call, on
+    K/V that are views of a linear layer's output."""
+    from repro_torch.models.layers import apply_linear
+    B, Se, H, D = 8, 1024, 16, 64
+    enc = _randn((B, Se, H * D), dtype, card, 16)
+    w = {"w": _randn((H * D, H * D), dtype, card, 17) * 0.03,
+         "b": _randn((H * D,), dtype, card, 18)}
+    kc = apply_linear(w, enc).view(B, Se, H, D)
+    vc = apply_linear(w, enc * 0.5).view(B, Se, H, D)
+    q = _randn((B, H, D), dtype, card, 19)
+    lengths = torch.full((B,), Se, dtype=torch.int32, device=card)
+    got = ops.decode_attention(q, kc, vc, lengths, window=None)
+    want = ref.decode_attention_ref(q, kc, vc, lengths, window=None)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_encdec_card_equals_cpu(card):
+    """Reduced seamless-m4t-medium (2 + 2 layers, d 64, 8 frames, f32):
+    a prefill of 5 tokens and 6 decode steps, logits within 1e-4 and the
+    same greedy tokens; the loss within rtol 1e-4 and every gradient
+    within 1e-4 relative L2 (the cross-attention's K bias, zero in exact
+    arithmetic, within 1e-6 absolute)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    from repro_torch.models.tree import tree_flatten_with_path
+    cfg = reduced(get_config("seamless-m4t-medium"))
+    params = steps.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(3)
+    frames = torch.tensor(rng.standard_normal((2, 8, cfg.d_model)),
+                          dtype=torch.float32)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 11)),
+                        dtype=torch.int32)
+    batch = {"enc_embeds": frames, "tokens": toks[:, :10],
+             "targets": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _on(params, dev)
+        f0, d0 = flash_attention.launches, decode_attention.launches
+        logits, caches = steps.make_prefill_step(cfg, 16)(
+            p, frames.to(dev), toks[:, :5].to(dev))
+        enc = encdec.encode(p, cfg, frames.to(dev))
+        got = [logits.cpu()]
+        for i in range(5, 11):
+            logits, caches = steps.make_serve_step(cfg)(
+                p, caches, toks[:, i].to(dev),
+                torch.full((2,), i, dtype=torch.int32, device=dev), enc)
+            got.append(logits.cpu())
+        loss, _, grads = steps._value_and_grad(
+            p, cfg, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (torch.stack(got), float(loss),
+                    [(path, g.cpu()) for path, g in
+                     tree_flatten_with_path(grads)],
+                    (flash_attention.launches - f0,
+                     decode_attention.launches - d0))
+    assert out["cpu"][3] == (0, 0)
+    # flash: the prefill step (2 encoder + 2 self + 2 cross), the encoder
+    # for the serve steps (2), the training forward (2 + 2 + 2); decode:
+    # 6 steps x (2 self + 2 cross)
+    assert out["cuda"][3] == (14, 24)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][0].argmax(-1), out["cpu"][0].argmax(-1))
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    for (path, a), (_, b) in zip(out["cuda"][2], out["cpu"][2]):
+        if path[1:] == ("cross_attn", "wk", "b"):
+            assert float(a.abs().max()) < 1e-6
+            assert float(b.abs().max()) < 1e-6
+            continue
+        rel = float((a.double() - b.double()).norm()
+                    / b.double().norm().clamp_min(1e-30))
+        assert rel < 1e-4, (path, rel)
+
+
+def test_compressed_step_on_a_one_rank_nccl_group(card, tmp_path):
+    """A one-rank NCCL group (FileStore) and a (1, 1, 1) CUDA mesh over
+    ("pod", "data", "model"): ``crosspod_grad_mean(compress=True)`` is the
+    int8 round trip, within half a quantization step of each gradient and
+    not the identity; the compressed step's parameters equal AdamW applied
+    to that round trip, bit for bit, and the uncompressed step on the mesh
+    equals the meshless plain step bit for bit."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim import adamw
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    params = _on(steps.init_params(torch.Generator().manual_seed(1), cfg),
+                 "cuda")
+    rng = np.random.default_rng(4)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                             dtype=torch.int32, device=card)
+             for k in ("tokens", "targets")}
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=120))
+    try:
+        mesh = tmesh.make_mesh((1, 1, 1), ("pod", "data", "model"))
+        _, _, g = steps._value_and_grad(params, cfg, batch)
+        gc = collectives.crosspod_grad_mean(g, mesh, compress=True)
+        moved = 0
+        for (_, a), (_, b) in zip(tree_flatten_with_path(gc),
+                                  tree_flatten_with_path(g)):
+            half = float(b.abs().max()) / 127.0 * 0.5
+            assert float((a - b).abs().max()) <= half * (1 + 1e-6)
+            moved += int((a != b).sum())
+        assert moved > 0
+        step = steps.make_train_step(cfg, ocfg, mesh=mesh,
+                                     compress_crosspod=True)
+        p2, _, m = step(params, adamw.adamw_init(params, ocfg), batch)
+        want, _, _ = adamw.adamw_update(gc, adamw.adamw_init(params, ocfg),
+                                        params, ocfg)
+        assert np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0
+        for (_, a), (_, b) in zip(tree_flatten_with_path(p2),
+                                  tree_flatten_with_path(want)):
+            assert torch.equal(a, b)
+        # uncompressed: the f32 mean over one rank, the plain step
+        p3 = steps.make_train_step(cfg, ocfg, mesh=mesh)(
+            params, adamw.adamw_init(params, ocfg), batch)[0]
+        p4 = steps.make_train_step(cfg, ocfg)(
+            params, adamw.adamw_init(params, ocfg), batch)[0]
+        for (_, a), (_, b) in zip(tree_flatten_with_path(p3),
+                                  tree_flatten_with_path(p4)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_attention_wrappers_reject_bad_inputs(card):

@@ -122,10 +122,14 @@ def test_convert_keeps_bf16_bit_for_bit():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("seamless-m4t-medium", "encoder-decoder.*models/encdec.py")])
+    ("seamless-m4t-medium",
+     "encoder-decoder: models.encdec runs it.*launch.steps.init_params")])
 def test_unported_block_kinds_raise(arch, what):
+    """The decoder-only ``lm`` refuses an encoder-decoder config and names
+    where it runs (``tests/test_torch_encdec.py`` holds that against the
+    JAX package)."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         lm.init_lm(torch.Generator().manual_seed(0), cfg)
 
 

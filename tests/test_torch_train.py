@@ -446,10 +446,23 @@ def test_nonfinite_guard_in_train_step():
 
 
 def test_compress_crosspod_is_not_ported():
-    _, tc = _cfgs("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="collectives"):
-        steps.make_train_step(tc, adamw.AdamWConfig(),
-                              compress_crosspod=True)
+    """``compress_crosspod=True`` without a mesh is the plain step, as in
+    the JAX package (whose step compresses only over a mesh's ``pod``
+    axis): the same parameters, optimizer state and metrics, bit for
+    bit."""
+    jc, tc = _cfgs("qwen2-1.5b")
+    jp = _jparams(jc)
+    batch = _t(_batch(jc))
+    to = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    tp = convert.lm_params(jp, tc, "cpu")
+    out = [steps.make_train_step(tc, to, compress_crosspod=c)(
+        tp, adamw.adamw_init(tp, to), batch) for c in (True, False)]
+    (pc, sc, mc), (pp, sp, mp) = out
+    for a, b in zip(_leaves(pc) + _leaves(sc), _leaves(pp) + _leaves(sp)):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(mc) == sorted(mp)
+    for k in mp:
+        assert float(mc[k]) == float(mp[k]), k
 
 
 # ---------------------------------------------------------------------------
@@ -700,7 +713,9 @@ def test_make_batches_equal_jax_and_refuse_unported_frontends():
     """Tokens and targets equal to the JAX package's; a vision model's
     batches also carry ``embeds`` (f32, (batch, frontend_len, d_model),
     unit RMS, drawn anew for each batch index, the same on a second
-    pass). Encoder-decoders still raise, naming models/encdec.py."""
+    pass). An encoder-decoder's batches carry ``enc_embeds`` (f32,
+    (batch, seq, d_model)); ``tests/test_torch_encdec.py`` holds them
+    further."""
     for arch in ("qwen2-1.5b", "qwen2-vl-7b"):
         jc, tc = _cfgs(arch)
         got = _pool(tc, 3)
@@ -720,9 +735,9 @@ def test_make_batches_equal_jax_and_refuse_unported_frontends():
             again = _pool(tc, 2)
             np.testing.assert_array_equal(again[1]["embeds"],
                                           got[1]["embeds"])
-    with pytest.raises(NotImplementedError, match="encdec.py"):
-        train.make_batches(reduced(get_config("seamless-m4t-medium")),
-                           batch=2, seq=8, seed=0)
+    enc = _pool(reduced(get_config("seamless-m4t-medium")), 2, b=2, s=8)
+    assert all(b["enc_embeds"].shape == (2, 8, 64)
+               and b["enc_embeds"].dtype == np.float32 for b in enc)
 
 
 def test_vision_train_loop_on_the_cpu():

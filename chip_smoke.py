@@ -189,7 +189,22 @@ then:
    "model"): the round trip within half a quantization step and not the
    identity, the step AdamW of it, its first step within what the int8
    error allows of the plain step's, and held to the CPU port's steps on
-   a one-rank gloo mesh.
+   a one-rank gloo mesh;
+19. the sharded path (``mesh``, about 150 s): 4 processes share the card
+   as a (2, 2) mesh over ("data", "model"), talking over gloo (NCCL
+   takes one rank a device; DTensor's functional collectives on CUDA
+   tensors go through ``repro_torch.distributed.gloo_cuda``), each
+   holding only its shards of qwen2-1.5b at full width, 2 layers:
+   ``TrainLoop(mesh=)`` 3 steps in f32 against the meshless loop on the
+   card (losses within 1e-5 relative, parameters within 1e-4 relative
+   L2), each rank's parameter and optimizer bytes as
+   ``memory_allocated`` measures them beside the specs' share, the
+   prefill and decode bundles against ``ModelServer``, teacher-forced,
+   in f32 (every greedy token equal) and bf16 (logits' relative L2; a
+   greedy token may differ only at a near-tie), the flash and decode
+   kernels' launches on each rank's local heads, and a reduced
+   checkpoint saved on the world restored onto the meshless loop bit
+   for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -3993,7 +4008,10 @@ def attention_cases(device) -> Dict[str, float]:
     among them: its encoder, decoder and cross flash calls as the
     ``encdec`` phase serves (8 x 64 tokens over 1024 frames) and trains
     (4 x 512 over 512), and its decode calls at 8 x 1024 rows, the cross
-    call at every length 1024 and the self-attention cache at 65-93.
+    call at every length 1024 and the self-attention cache at 65-93;
+    and the ``mesh`` phase's calls on one rank's local heads (qwen2-1.5b
+    at model=2: 6 q heads over its one kv head, 128 wide), flash as it
+    trains (2 x 128) and prefills (2 x 64), decode over its 72-row cache.
     Returns the largest absolute difference."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import SPLIT
@@ -4020,7 +4038,11 @@ def attention_cases(device) -> Dict[str, float]:
                                       (8, 64, 1024, 16, 16, 64),
                                       (8, 1024, 1024, 16, 16, 64),
                                       # seamless trained: all three calls
-                                      (4, 512, 512, 16, 16, 64)):
+                                      (4, 512, 512, 16, 16, 64),
+                                      # the mesh phase's local heads:
+                                      # trained, prefilled
+                                      (2, 128, 128, 6, 1, 128),
+                                      (2, 64, 64, 6, 1, 128)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
@@ -4038,7 +4060,8 @@ def attention_cases(device) -> Dict[str, float]:
                                  (3, 64, 4, 1, 32), (16, 1024, 12, 2, 128),
                                  (2, 100, 9, 3, 80), (6, 300, 12, 2, 128),
                                  (8, 1024, 24, 8, 64), (8, 1024, 32, 8, 128),
-                                 (4, 1120, 28, 4, 128)):
+                                 (4, 1120, 28, 4, 128),
+                                 (2, 72, 6, 1, 128)):    # mesh local heads
             q = _randn((B, Hq, D), dtype, device, 4)
             kc = _randn((B, S, Hkv, D), dtype, device, 5)
             vc = _randn((B, S, Hkv, D), dtype, device, 6)
@@ -5512,7 +5535,447 @@ def encdec_phase(device, es: EncDecSizes = EncDecSizes()
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded path: a world of processes sharing the card
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshSizes:
+    arch: str = "qwen2-1.5b"
+    shape: tuple = (2, 2)          # ("data", "model"): 4 processes
+    layers: int = 2                # full width, depth cut to 2 of 28
+    train_batch: int = 4
+    train_seq: int = 128
+    train_steps: int = 3
+    lr: float = 1e-3
+    serve_batch: int = 4
+    prompt_len: int = 64
+    serve_steps: int = 8
+    ckpt_steps: int = 2            # the reshard check, reduced width
+    join_s: float = 400.0
+
+
+def _mesh_cfg(ms: MeshSizes, dtype: str):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(ms.arch), n_layers=ms.layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def _mesh_inputs(ms: MeshSizes, vocab: int):
+    rng = np.random.default_rng(31)
+    shape = (ms.train_batch, ms.train_seq)
+    batch = {k: rng.integers(0, vocab, shape).astype(np.int32)
+             for k in ("tokens", "targets")}
+    toks = rng.integers(0, vocab, (ms.serve_batch,
+                                   ms.prompt_len + ms.serve_steps)
+                        ).astype(np.int32)
+    return batch, toks
+
+
+def _mesh_opt(ms: MeshSizes):
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=ms.lr, warmup_steps=0)
+
+
+def _teacher_forced(prefill, decode, toks, P: int, steps: int
+                    ) -> List[torch.Tensor]:
+    """Logits (f32, on the host) after the prompts and after each of
+    ``steps`` decode steps fed the given next tokens."""
+    out = [prefill(toks[:, :P])]
+    for i in range(steps):
+        out.append(decode(toks[:, P + i], P + i))
+    return out
+
+
+def mesh_reference(ms: MeshSizes, tmp: str) -> Dict[str, object]:
+    """The meshless runs on the card that the world is held to: the
+    TrainLoop in f32 (losses; the final parameters saved to ``tmp``) and
+    ModelServer in bf16 (teacher-forced logits), from the seeds the
+    ranks use."""
+    from repro_torch.launch.steps import init_params
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving.server import ModelServer
+    cfg = _mesh_cfg(ms, "float32")
+    batch, toks = _mesh_inputs(ms, cfg.vocab_size)
+    loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ms), device="cuda", seed=3)
+    times: List[float] = []
+    ran = loop.run(iter([batch] * ms.train_steps), steps=ms.train_steps,
+                   log_every=0, on_metrics=_step_timer(times))
+    torch.save([t.cpu() for t in _leaves_of(loop.params)],
+               os.path.join(tmp, "ref_params.pt"))
+    del loop
+    out = {"losses": [h["loss"] for h in ran["history"]],
+           "grad_norms": [h["grad_norm"] for h in ran["history"]],
+           "step_ms": times}
+    for dtype in MESH_SERVE:
+        scfg = _mesh_cfg(ms, dtype)
+        params = tree_map(lambda t: t.to("cuda"), init_params(
+            torch.Generator().manual_seed(5), scfg))
+        srv = ModelServer(scfg, params, batch=ms.serve_batch,
+                          cache_len=ms.prompt_len + ms.serve_steps)
+
+        def prefill(t):
+            srv.prefill(t)
+            return srv.logits.float().cpu()
+
+        def decode(t, _pos):
+            srv.tokens = torch.as_tensor(t, device="cuda")
+            srv.decode(1)
+            return srv.logits.float().cpu()
+
+        out[dtype] = torch.stack(_teacher_forced(
+            prefill, decode, toks, ms.prompt_len, ms.serve_steps))
+        del srv, params
+    torch.cuda.empty_cache()
+    return out
+
+
+MESH_SERVE = ("float32", "bfloat16")
+
+
+def _step_timer(times: List[float]):
+    """A ``TrainLoop.run`` ``on_metrics`` hook appending each step's ms
+    (host clock between synced steps)."""
+    last = [time.perf_counter()]
+
+    def tick(_step, _m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - last[0]) * 1e3)
+        last[0] = now
+    return tick
+
+
+def _spec_share_bytes(tree, specs, mesh) -> int:
+    """Bytes of ``tree`` one rank holds by its specs: each leaf's size
+    over the product of the mesh axes its spec names."""
+    from repro_torch.distributed import sharding
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    total = 0
+    for t, s in zip(_leaves_of(tree), sharding.spec_leaves(specs)):
+        n = 1
+        for e in s:
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                n *= sizes[a]
+        total += t.numel() // n * t.element_size()
+    return total
+
+
+def _mesh_serve(ms: MeshSizes, cfg, mesh, toks, rank: int
+                ) -> Dict[str, object]:
+    """The prefill and decode bundles on the mesh, teacher-forced:
+    launches, the caches' placements, the serving seconds; rank 0 also
+    keeps the logits."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models.tree import tree_map
+    B, P = ms.serve_batch, ms.prompt_len
+    C = P + ms.serve_steps
+    pb = steps.build_step_bundle(cfg, ShapeSpec("prompt", P, B, "prefill"),
+                                 mesh, cache_len=C)
+    db = steps.build_step_bundle(cfg, ShapeSpec("serve", C, B, "decode"),
+                                 mesh)
+    params = tree_map(lambda t: t.to("cuda"),
+                      init_params(torch.Generator().manual_seed(5), cfg))
+    params = pb.place(params)[0]
+    state = {}
+    f0, d0 = flash_attention.launches, decode_attention.launches
+
+    def prefill(t):
+        tok = sharding.distribute(torch.as_tensor(t, device="cuda"), mesh,
+                                  pb.in_specs[1])
+        logits, state["caches"] = pb.fn(params, tok)
+        return logits.full_tensor().float().cpu()
+
+    def decode(t, pos):
+        tok, p_ = (sharding.distribute(
+            torch.as_tensor(x, dtype=torch.int32, device="cuda"), mesh, spec)
+            for x, spec in ((t, db.in_specs[2]),
+                            (np.full(B, pos), db.in_specs[3])))
+        logits, state["caches"] = db.fn(params, state["caches"], tok, p_)
+        return logits.full_tensor().float().cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = _teacher_forced(prefill, decode, toks, P, ms.serve_steps)
+    torch.cuda.synchronize()
+    out = {"serve_s": time.perf_counter() - t0,
+           "flash": flash_attention.launches - f0,
+           "decode": decode_attention.launches - d0,
+           "cache_placed": all(
+               tuple(t.placements) == sharding.placements(mesh, sp)
+               for t, sp in zip(_leaves_of(state["caches"]),
+                                sharding.spec_leaves(db.out_specs[1])))}
+    if rank == 0:
+        out["logits"] = torch.stack(logits)
+    return out
+
+
+def mesh_rank(arg: str) -> None:
+    """One rank of the world (``chip_smoke.py --mesh-rank <json>``): on
+    the card, gloo between the processes that share it."""
+    import pickle
+    from datetime import timedelta
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.base import reduced
+    from repro_torch.distributed import gloo_cuda, sharding
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import TrainLoop
+    a = json.loads(arg)
+    ms = MeshSizes(**{k: tuple(v) if k == "shape" else v
+                      for k, v in a["sizes"].items()})
+    rank, n = a["rank"], a["world"]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo", store=dist.FileStore(
+        a["store"], n), rank=rank, world_size=n,
+        timeout=timedelta(seconds=ms.join_s))
+    gloo_cuda.install()
+    res: Dict[str, object] = {"rank": rank}
+    try:
+        mesh = make_mesh(ms.shape, ("data", "model"))
+        res["coords"] = [mesh.get_local_rank(d) for d in ("data", "model")]
+        # training, f32: the TrainLoop places its state by the rules
+        cfg = _mesh_cfg(ms, "float32")
+        batch, toks = _mesh_inputs(ms, cfg.vocab_size)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=3)
+        torch.cuda.synchronize()
+        res["state_bytes_measured"] = torch.cuda.memory_allocated() - before
+        res["state_bytes_computed"] = (
+            _spec_share_bytes(loop.params, sharding.param_specs(
+                loop.params, mesh), mesh)
+            + _spec_share_bytes(loop.opt_state, sharding.opt_specs(
+                loop.opt_state, mesh), mesh))
+        res["unsharded_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in _leaves_of(loop.params) + _leaves_of(loop.opt_state))
+        f0 = flash_attention.launches
+        times: List[float] = []
+        ran = loop.run(iter([batch] * ms.train_steps),
+                       steps=ms.train_steps, log_every=0,
+                       on_metrics=_step_timer(times))
+        res["train_flash"] = flash_attention.launches - f0
+        res["losses"] = [h["loss"] for h in ran["history"]]
+        res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
+        res["step_ms"] = times
+        ref = (torch.load(a["ref"]) if rank == 0 else None)
+        num = den = 0.0
+        for i, t in enumerate(_leaves_of(loop.params)):
+            full = t.full_tensor()                  # every rank
+            if rank == 0:
+                want = ref[i].to("cuda").double()
+                num += float(((full.double() - want) ** 2).sum())
+                den += float((want ** 2).sum())
+        res["param_rel_l2"] = (num / den) ** 0.5 if rank == 0 else None
+        del loop, ref
+        torch.cuda.empty_cache()
+
+        # serving, f32 then bf16: the prefill and decode bundles
+        for dtype in MESH_SERVE:
+            res[dtype] = _mesh_serve(ms, _mesh_cfg(ms, dtype), mesh, toks,
+                                     rank)
+            torch.cuda.empty_cache()
+
+        # a reduced checkpoint saved on the world
+        rcfg = reduced(_mesh_cfg(ms, "float32"))
+        rloop = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=4,
+                          ckpt_dir=a["ckpt"])
+        rb = {k: v[:, :16] for k, v in batch.items()}
+        rb = {k: np.clip(v, 0, rcfg.vocab_size - 1) for k, v in rb.items()}
+        rloop.run(iter([rb] * ms.ckpt_steps), steps=ms.ckpt_steps,
+                  log_every=0)
+        rloop.save(block=True)
+        full = [t.full_tensor().cpu() for t in _leaves_of(rloop.params)]
+        if rank == 0:
+            res["ckpt_params"] = full
+    finally:
+        dist.destroy_process_group()
+    with open(a["out"], "wb") as f:
+        pickle.dump(res, f)
+
+
+def _mesh_logits(got: torch.Tensor, want: torch.Tensor
+                 ) -> Dict[str, object]:
+    """Teacher-forced logits (steps, B, V) of the world against the
+    meshless server's: relative L2, largest difference, the greedy tokens
+    that differ, and of those the ones where the reference's logits of
+    the two tokens lie further apart than twice the largest difference
+    (a near-tie is within it)."""
+    got, want = got.double(), want.double()
+    max_abs = float((got - want).abs().max())
+    g_tok, w_tok = got.argmax(-1), want.argmax(-1)
+    differ = g_tok != w_tok
+    gap = (want.gather(-1, w_tok[..., None])
+           - want.gather(-1, g_tok[..., None]))[..., 0]
+    return {"rel_l2": float((got - want).norm() / want.norm()),
+            "max_abs": max_abs, "tokens": int(differ.numel()),
+            "mismatches": int(differ.sum()),
+            "mismatches_not_near_ties": int((differ
+                                             & (gap > 2 * max_abs)).sum())}
+
+
+def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
+    """The sharded path on the card: ``data`` x ``model`` processes share
+    it (gloo; DTensor's collectives through
+    ``repro_torch.distributed.gloo_cuda``), qwen2-1.5b at full width, cut
+    to ``layers`` layers. Per rank: ``TrainLoop(mesh=)`` against the
+    meshless loop on the card (f32, losses and gradient norms within
+    1e-5 relative, the parameters within 1e-4 relative L2), the
+    parameter and optimizer
+    bytes ``memory_allocated`` measures beside the specs' share (within
+    1 % + 1 MiB), the prefill and decode bundles against ModelServer,
+    teacher-forced (f32: logits within 1e-4 relative L2 and every greedy
+    token equal; bf16: relative L2 within 2e-2, a greedy token differing
+    only at a near-tie, ``_mesh_logits``), the attention kernels'
+    launches on local heads, the caches in their specs' placements; then
+    a reduced
+    checkpoint saved on the world restores onto the meshless loop bit for
+    bit. Budget: about 150 s."""
+    import pickle
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import reduced
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import TrainLoop
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-mesh-")
+    n = ms.shape[0] * ms.shape[1]
+    try:
+        ref = mesh_reference(ms, tmp)
+        _build.library()               # built here; the ranks load it
+        sizes = dataclasses.asdict(ms)
+        procs = []
+        for r in range(n):
+            arg = json.dumps({"rank": r, "world": n, "sizes": sizes,
+                              "store": os.path.join(tmp, "store"),
+                              "ref": os.path.join(tmp, "ref_params.pt"),
+                              "ckpt": os.path.join(tmp, "ckpt"),
+                              "out": os.path.join(tmp, f"rank{r}.pkl")})
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-rank", arg], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        t_world = time.perf_counter()
+        try:
+            for r, p in enumerate(procs):
+                out, _ = p.communicate(timeout=ms.join_s)
+                if p.returncode != 0:
+                    raise AssertionError(f"mesh rank {r} failed:\n"
+                                         f"{out[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        world_s = time.perf_counter() - t_world
+        ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
+                 for r in range(n)]
+        rcfg = reduced(_mesh_cfg(ms, "float32"))
+        meshless = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), device="cuda",
+                             ckpt_dir=os.path.join(tmp, "ckpt"))
+        if not meshless.restore() or meshless.step != ms.ckpt_steps:
+            raise AssertionError("the world's checkpoint did not restore")
+        restored = [t.cpu() for t in _leaves_of(meshless.params)]
+        del meshless
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       ref["losses"]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"],
+                                                        ref["grad_norms"]))
+    serve = {dt: _mesh_logits(r0[dt]["logits"], ref[dt]) for dt in MESH_SERVE}
+    ckpt_equal = all(torch.equal(a, b) for a, b in
+                     zip(r0["ckpt_params"], restored))
+    per_rank = [{"coords": r["coords"],
+                 "state_bytes_measured": r["state_bytes_measured"],
+                 "state_bytes_computed": r["state_bytes_computed"],
+                 "train_flash": r["train_flash"], "step_ms": r["step_ms"],
+                 **{f"{dt}_{k}": r[dt][k] for dt in MESH_SERVE
+                    for k in ("flash", "decode", "serve_s")}}
+                for r in ranks]
+    out = {"world": list(ms.shape), "processes": n, "backend": "gloo",
+           "arch": ms.arch, "layers": ms.layers,
+           "losses_mesh": r0["losses"], "losses_meshless": ref["losses"],
+           "loss_rel": loss_rel, "param_rel_l2": r0["param_rel_l2"],
+           "grad_norms_mesh": r0["grad_norms"],
+           "grad_norms_meshless": ref["grad_norms"],
+           "grad_norm_rel": gnorm_rel,
+           "step_ms_meshless": ref["step_ms"],
+           "unsharded_state_bytes": r0["unsharded_bytes"],
+           "serve": serve, "ckpt_bit_for_bit": ckpt_equal,
+           "ranks": per_rank, "world_s": world_s}
+    for r in ranks:
+        if (r["losses"], r["grad_norms"]) != (r0["losses"],
+                                               r0["grad_norms"]):
+            raise AssertionError(f"mesh: ranks disagree on the losses or "
+                                 f"gradient norms: {r['losses']} "
+                                 f"{r['grad_norms']} vs {r0['losses']} "
+                                 f"{r0['grad_norms']}")
+        m_, c_ = r["state_bytes_measured"], r["state_bytes_computed"]
+        if abs(m_ - c_) > 0.01 * c_ + (1 << 20):
+            raise AssertionError(f"mesh rank {r['rank']}: {m_} bytes of "
+                                 f"state measured, the specs give {c_}")
+        want_flash = 2 * ms.layers * ms.train_steps    # forward + remat
+        if r["train_flash"] != want_flash or any(
+                r[dt]["flash"] != ms.layers
+                or r[dt]["decode"] != ms.layers * ms.serve_steps
+                or not r[dt]["cache_placed"] for dt in MESH_SERVE):
+            raise AssertionError(f"mesh rank {r['rank']}: launches or "
+                                 f"cache placements: {per_rank}")
+    if loss_rel > 1e-5 or gnorm_rel > 1e-5 or r0["param_rel_l2"] > 1e-4:
+        raise AssertionError(f"mesh training vs meshless: losses "
+                             f"{r0['losses']} vs {ref['losses']}, "
+                             f"gradient norms {r0['grad_norms']} vs "
+                             f"{ref['grad_norms']}, "
+                             f"parameters {r0['param_rel_l2']}")
+    f32, bf16 = serve["float32"], serve["bfloat16"]
+    if (f32["rel_l2"] > 1e-4 or f32["mismatches"]
+            or bf16["rel_l2"] > 2e-2 or bf16["mismatches_not_near_ties"]):
+        raise AssertionError(f"mesh serving vs ModelServer: {serve}")
+    if not ckpt_equal:
+        raise AssertionError("mesh checkpoint: the meshless restore is not "
+                             "bit for bit the world's parameters")
+    out["launches"] = {
+        "flash_attention": sum(r["train_flash"] + sum(
+            r[dt]["flash"] for dt in MESH_SERVE) for r in ranks),
+        "decode_attention": sum(r[dt]["decode"] for r in ranks
+                                for dt in MESH_SERVE)}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase ({ms.shape} over (data, model), {n} processes on the "
+        f"card, gloo; {ms.arch} full width, {ms.layers} layers): training "
+        f"f32 {ms.train_steps} steps of {ms.train_batch} x "
+        f"{ms.train_seq}, losses {r0['losses']} vs meshless "
+        f"{ref['losses']} (largest relative difference {loss_rel:.3e}), "
+        f"gradient norms {r0['grad_norms']} vs meshless "
+        f"{ref['grad_norms']} ({gnorm_rel:.3e}), "
+        f"parameters {r0['param_rel_l2']:.3e} relative L2, step ms "
+        f"{r0['step_ms']} (meshless {ref['step_ms']}); per-rank state "
+        f"bytes measured/computed "
+        f"{[(r['state_bytes_measured'], r['state_bytes_computed']) for r in ranks]}"
+        f" of {r0['unsharded_bytes']} unsharded; serving "
+        f"{ms.serve_batch} prompts of {ms.prompt_len}, {ms.serve_steps} "
+        f"teacher-forced steps against ModelServer: {serve}; launches by "
+        f"rank (train flash; f32, bf16 serve flash/decode) "
+        f"{[(r['train_flash'],) + tuple((r[dt]['flash'], r[dt]['decode']) for dt in MESH_SERVE) for r in ranks]};"
+        f" reshard restore bit for bit {ckpt_equal}; world {world_s:.3f} s,"
+        f" phase {out['seconds']:.3f} s; {card_line()}")
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 3:
+        mesh_rank(sys.argv[2])
+        return 0
     calls_only = sys.argv[1:] == ["--calls"]
     if sys.argv[1:] and not calls_only:
         print(f"usage: {sys.argv[0]} [--calls]", file=sys.stderr)
@@ -5556,6 +6019,8 @@ def main() -> int:
     fam = families_phase("cuda")
     torch.cuda.empty_cache()
     enc = encdec_phase("cuda")
+    torch.cuda.empty_cache()
+    mesh = mesh_phase("cuda")
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
@@ -5569,12 +6034,14 @@ def main() -> int:
                                          "serve_cli")}))
     log(json.dumps({"families": fam}))
     log(json.dumps({"encdec": enc}))
+    log(json.dumps({"mesh": mesh}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
              "train": {"flash_attention": trained["main"]["flash_launches"]},
              "families": fam["launches"],
-             "encdec": enc["launches"]}
+             "encdec": enc["launches"],
+             "mesh": mesh["launches"]}
     kernels = res["kernels"] + mres["kernels"]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()

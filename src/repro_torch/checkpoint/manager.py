@@ -13,6 +13,11 @@ Design for 1000+-node operation:
 * **Self-validating**: every leaf file carries a crc32 in the manifest;
   restore verifies before handing params to the trainer.
 * **Multi-host-ready layout**: one process writes (``process_count`` 1).
+  In a world of several processes every save blocks: a tree of DTensors
+  (a wide mesh) is saved as full arrays, every rank gathers each leaf
+  (``full_tensor()``), rank 0 writes, and every rank returns from
+  ``save`` once the checkpoint is published (a barrier), so all ranks
+  see the same newest step.
 
 Storage format: one ``.npy`` per tree leaf (streamable, mmap-able) + a
 JSON manifest with the shapes, dtypes, crcs and step metadata: the JAX
@@ -36,6 +41,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.tree import tree_flatten_with_path, tree_unflatten
 
@@ -68,14 +75,20 @@ def _dtype_name(leaf: Any, arr: np.ndarray) -> str:
 
 def _tensor(arr: np.ndarray, dtype: str, like: Any) -> torch.Tensor:
     """A restored leaf as a tensor on ``like``'s device (the CPU when
-    ``like`` is no tensor)."""
+    ``like`` is no tensor or a ``meta`` struct; a DTensor's local
+    device)."""
     arr = np.array(arr, order="C")        # a writable copy, 0-d kept
     if dtype == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
     dev = like.device if isinstance(like, torch.Tensor) else "cpu"
-    return t.to(dev)
+    return t.to("cpu" if torch.device(dev).type == "meta" else dev)
+
+
+def _world() -> int:
+    """The number of processes in the default group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _flatten_with_names(tree: Any) -> List[Tuple[str, Any]]:
@@ -100,12 +113,20 @@ class CheckpointManager:
         """Snapshot ``tree`` at ``step``. Device tensors are copied to
         host *synchronously* (required for consistency: the trainer goes
         on to replace them), the disk write happens on the background
-        thread."""
+        thread; in a world of several processes it blocks (see the
+        module's docstring)."""
         self.wait()                      # single-slot async pipeline
         host_tree = []
         for name, leaf in _flatten_with_names(tree):
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()    # collective: every rank
             arr = _host(leaf)
             host_tree.append((name, arr, _dtype_name(leaf, arr)))
+        if _world() > 1:
+            block = True
+            if dist.get_rank() != 0:
+                dist.barrier()           # rank 0 has published
+                return
 
         def write():
             try:
@@ -119,6 +140,8 @@ class CheckpointManager:
             self._pending.start()
         else:
             write()
+            if _world() > 1:
+                dist.barrier()
             self._raise_if_failed()
 
     def wait(self) -> None:
@@ -177,6 +200,7 @@ class CheckpointManager:
         """Restore into the structure of ``like`` (a tree of tensors, or of
         anything in their places): each leaf comes back as a tensor of the
         dtype it was saved with, on the device of ``like``'s leaf."""
+        self.wait()                      # a pending save is published
         if step is None:
             step = self.latest_step()
         if step is None:

@@ -9,18 +9,20 @@ the same configs. ``remat`` steers training's rematerialisation here as
 there (``models/blocks.py``), and ``moe_groups`` the MoE dispatch groups
 (``models/moe.py``); the fields that steer only the JAX package's mesh and
 dry-run lowering (``scan_layers``, ``attn_block_k``, ``act_dp``,
-``act_sp``) are carried and ignored here.
+``act_sp``) are carried and ignored here. ``SHAPES`` and
+``input_specs`` name the four shape cells of the JAX package's dry run;
+the specs are tensors on the ``meta`` device, which allocate nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "reduced",
-           "param_count", "scale_layers"]
+__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "ShapeSpec", "SHAPES",
+           "shape_spec", "input_specs", "reduced", "param_count", "scale_layers"]
 
 
 @dataclass(frozen=True)
@@ -113,6 +115,67 @@ class ModelConfig:
         if self.layer_pattern and self.n_layers % len(self.layer_pattern):
             raise ValueError(f"{self.name}: n_layers {self.n_layers} not a "
                              f"multiple of pattern {self.layer_pattern}")
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_spec(shape: Union[str, ShapeSpec]) -> ShapeSpec:
+    """A cell of ``SHAPES`` by name, or a ``ShapeSpec`` as it is (a run
+    at a chosen size)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def input_specs(cfg: ModelConfig, shape: Union[str, ShapeSpec]
+                ) -> Dict[str, torch.Tensor]:
+    """Stand-ins on the ``meta`` device for every model input of this
+    shape cell: the token batch (+ stub frontend embeddings for
+    [vlm]/[audio]) for train/prefill, one new token and its position per
+    sequence for decode. The cache structs come from
+    ``launch.steps.cache_struct``."""
+    ss = shape_spec(shape)
+    B, S = ss.global_batch, ss.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    specs: Dict[str, torch.Tensor] = {}
+    if ss.kind in ("train", "prefill"):
+        if cfg.is_encdec:
+            # the encoder takes the (stub) audio frames, the decoder the
+            # text tokens: the work budget S split 1:1
+            specs["enc_embeds"] = meta((B, S // 2, cfg.d_model), bf16)
+            specs["tokens"] = meta((B, S // 2), i32)
+            if ss.kind == "train":
+                specs["targets"] = meta((B, S // 2), i32)
+        else:
+            S_txt = S - (cfg.frontend_len if cfg.frontend else 0)
+            specs["tokens"] = meta((B, S_txt), i32)
+            if ss.kind == "train":
+                specs["targets"] = meta((B, S_txt), i32)
+            if cfg.frontend:
+                specs["embeds"] = meta((B, cfg.frontend_len, cfg.d_model),
+                                       bf16)
+    else:  # decode
+        specs["token"] = meta((B,), i32)
+        specs["position"] = meta((B,), i32)
+        if cfg.is_encdec:
+            specs["enc_out"] = meta((B, min(S, 4096), cfg.d_model), bf16)
+    return specs
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,

@@ -33,13 +33,17 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh.shape[names.index(axis)] if axis in names else 1
 
 
-def psum_int8(x: torch.Tensor, group) -> torch.Tensor:
+def psum_int8(x: torch.Tensor, group, *, scale_group=None) -> torch.Tensor:
     """The int8-compressed sum of ``x`` over the ranks of ``group``, in
     f32. Bias is bounded by 0.5 · scale · ranks; pair with error feedback
-    (``optim.compression.ErrorFeedback``) on the training path."""
+    (``optim.compression.ErrorFeedback``) on the training path. The scale
+    is agreed over ``scale_group`` (``group`` by default): where each rank
+    holds a shard of the tensor, the group of every rank, so that one
+    scale covers the whole tensor."""
     xf = x.float()
     amax = xf.abs().max()
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                    group=group if scale_group is None else scale_group)
     q, scale = int8_codes(xf, amax)
     total = q.to(torch.int32)
     dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)

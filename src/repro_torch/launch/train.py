@@ -3,12 +3,17 @@
 
 The port of the JAX package's ``repro.launch.train``: config -> model ->
 ``train_step`` -> host data pipeline -> checkpoint manager -> supervisor.
-One device holds the whole model; ``TrainLoop(mesh=...)`` is data
-parallel over the mesh's ``pod`` axis (one rank per pod, an f32 gradient
-mean, or with ``compress=True`` the int8-compressed one), and
+Without a mesh one device holds the whole model. ``TrainLoop(mesh=...)``
+on a mesh whose ``data`` or ``model`` axis has several ranks places the
+parameters and the optimizer state by the sharding rules
+(``distributed/sharding.py``: DTensors, each rank holding its shards)
+and its restore reshards them onto its own mesh; on a mesh whose only
+wide axis is ``pod`` it is data parallel over it (one rank per pod, an
+f32 gradient mean, or with ``compress=True`` the int8-compressed one).
 ``--compress-grads`` without a mesh is the plain step, as in the JAX
-package. Every registered config trains, the encoder-decoder
-(seamless-m4t-medium) included.
+package. Every registered config trains on one device, the
+encoder-decoder (seamless-m4t-medium) included; dense models train on a
+wide mesh.
 
 Fault tolerance in the loop:
 
@@ -32,12 +37,16 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.reshard import restore_resharded
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.data.pipeline import HostPipeline, PipelineConfig
 from repro_torch.data.synthetic import token_batch_stream
+from repro_torch.distributed.sharding import (distribute, is_wide,
+                                              opt_specs, param_specs)
 from repro_torch.featurestore.table import resolve_device
 from repro_torch.launch.steps import init_params, make_train_step
 from repro_torch.models import frontend
@@ -48,7 +57,9 @@ __all__ = ["TrainLoop", "make_batches", "main"]
 
 class TrainLoop:
     """Owns params/opt/step + checkpointing + the supervisor. ``device``
-    defaults to the card and raises where there is none."""
+    defaults to the card and raises where there is none; on a mesh the
+    mesh's device type is the device. On a wide mesh every rank draws the
+    same seeded parameters and keeps its shards of them."""
 
     def __init__(self, cfg: ModelConfig, *, opt_cfg: AdamWConfig,
                  accum: int = 1, mesh=None, compress: bool = False,
@@ -56,11 +67,17 @@ class TrainLoop:
                  seed: int = 0, device="cuda"):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         self.step = 0
         self.bad_streak = 0
+        # the rules place the state only where a data/model axis shards
+        self.mesh = mesh if mesh is not None and is_wide(mesh) else None
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_params(gen, cfg)
+        if self.mesh is not None:
+            self.params = distribute(self.params, self.mesh,
+                                     param_specs(self.params, self.mesh))
         self.opt_state = adamw_init(self.params, opt_cfg)
         self.train_step = make_train_step(cfg, opt_cfg, accum=accum,
                                           mesh=mesh,
@@ -77,10 +94,27 @@ class TrainLoop:
                        extra={"step": self.step}, block=block)
 
     def restore(self, step: Optional[int] = None) -> bool:
-        if self.ckpt is None or self.ckpt.latest_step() is None:
+        """Restore ``step`` (the newest by default). In a world of
+        several processes rank 0 chooses the step and every rank restores
+        that one, or every rank returns False."""
+        if self.ckpt is None:
+            return False
+        self.ckpt.wait()                 # a pending save is published
+        if step is None:
+            step = self.ckpt.latest_step()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            chosen = [step]
+            dist.broadcast_object_list(chosen, src=0)
+            step = chosen[0]
+        if step is None:
             return False
         like = {"params": self.params, "opt": self.opt_state}
-        tree, meta = self.ckpt.restore(step, like)
+        specs = None
+        if self.mesh is not None:
+            specs = {"params": param_specs(self.params, self.mesh),
+                     "opt": opt_specs(self.opt_state, self.mesh)}
+        tree, meta = restore_resharded(self.ckpt, step, like, self.mesh,
+                                       specs)
         self.params, self.opt_state = tree["params"], tree["opt"]
         self.step = int(meta.extra.get("step", meta.step))
         return True

@@ -20,14 +20,26 @@ The encoder-decoder models add cross-attention (``init_cross_attention``,
 encoder's output, with no rope and no mask, through the same two kernels
 (flash non-causal with ``Sq`` the decoder's length and ``Sk`` the
 encoder's; decode with every length the encoder's).
+
+On a mesh whose ``model`` axis has several ranks (``x`` a DTensor, the
+parameters placed by ``distributed/sharding.py``), self-attention runs
+the kernels on each rank's whole local heads: the projections are laid
+out by ``sharding.head_layout`` (q heads ``Shard`` over ``model`` where
+the axis divides them, kv heads ``Shard`` where it divides them, else a
+replicated K/V of which each rank takes the kv heads its q heads use),
+then the kernel is called on the contiguous local tensors
+(``to_local``/``from_local``). A replicated K/V that ranks slice gets its
+gradient back as a partial sum over ``model``.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_linear, apply_rope, init_linear,
                                        mrope_positions_text)
@@ -63,12 +75,84 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+class _LocalHeads:
+    """Self-attention on this rank's heads, for a DTensor ``x`` (B, S, d)
+    batch-sharded over the data axes: ``q`` the local (B_l, S, Hq_l, D)
+    queries, ``kv`` the local K and V of the kv heads the rank holds (all,
+    or its shard), both roped; ``out`` wraps a local (B_l, S, Hq_l, D)
+    result back into a DTensor (B, S, Hq·D). Decode's (B, d) token gives
+    (B_l, H_l, D) alike."""
+
+    def __init__(self, p: Params, x: DTensor, cfg: ModelConfig,
+                 positions: DTensor):
+        mesh = x.device_mesh
+        lay = sharding.head_layout(mesh, cfg.n_heads, cfg.n_kv_heads)
+        self.lay = lay
+        q, k, v = (sharding.pin_heads(apply_linear(p[n], x), sh)
+                   for n, sh in (("wq", lay.q_sharded),
+                                 ("wk", lay.kv_sharded),
+                                 ("wv", lay.kv_sharded)))
+        self.q_dt = q
+        # ranks that slice one replicated K/V hold partial gradients of it
+        grad_pl = None
+        if lay.q_sharded and not lay.kv_sharded:
+            grad_pl = list(k.placements)
+            grad_pl[sharding.mesh_dim(mesh, "model")] = Partial()
+        ql = q.to_local()
+        kl = k.to_local(grad_placements=grad_pl)
+        vl = v.to_local(grad_placements=grad_pl)
+        hd = cfg.hd
+        lead = tuple(ql.shape[:-1])
+        held = cfg.n_kv_heads // lay.m if lay.kv_sharded else cfg.n_kv_heads
+        pos = positions.to_local()
+        if cfg.mrope_sections is not None:
+            pos = mrope_positions_text(pos)
+        self.q = apply_rope(ql.reshape(lead + (lay.hq_local, hd)), pos,
+                            cfg.rope_theta, cfg.mrope_sections)
+        self.kv = (apply_rope(kl.reshape(lead + (held, hd)), pos,
+                              cfg.rope_theta, cfg.mrope_sections),
+                   vl.reshape(lead + (held, hd)))
+        self.lo = lay.kv_lo(sharding.model_rank(mesh))
+
+    def kv_used(self, k: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The kv heads (dim 2) this rank's q heads use, contiguous."""
+        n = self.lay.kv_local
+        if k.shape[2] != n:
+            k, v = k[:, :, self.lo:self.lo + n], v[:, :, self.lo:self.lo + n]
+        return k.contiguous(), v.contiguous()
+
+    def flash(self, causal: bool, window) -> DTensor:
+        """The flash kernel on the local heads, as a DTensor."""
+        return self.out(ops.flash_attention(
+            self.q.contiguous(), *self.kv_used(*self.kv), causal=causal,
+            window=window))
+
+    def out(self, o: torch.Tensor) -> DTensor:
+        o = o.reshape(tuple(o.shape[:-2]) + (-1,))
+        return DTensor.from_local(o, self.q_dt.device_mesh,
+                                  self.q_dt.placements, run_check=False)
+
+    def kv_placements(self) -> tuple:
+        """A K/V cache's (B, S, H, D) placements as the rank holds it: the
+        batch as the activations, the heads ``Shard`` over ``model`` when
+        the kv heads are sharded, replicated otherwise."""
+        pl = list(self.q_dt.placements)
+        d = sharding.mesh_dim(self.q_dt.device_mesh, "model")
+        if d is not None:
+            pl[d] = Shard(2) if self.lay.kv_sharded else Replicate()
+        return tuple(pl)
+
+
 def attend_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, causal: bool = True
                  ) -> torch.Tensor:
+    window = cfg.sliding_window if causal else None
+    if isinstance(x, DTensor):
+        lh = _LocalHeads(p, x, cfg, positions)
+        return apply_linear(p["wo"], lh.flash(causal, window))
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=causal,
-                            window=cfg.sliding_window if causal else None)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
     B, S = x.shape[:2]
     return apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
 
@@ -92,23 +176,37 @@ def attend_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     to ``cache_len`` whatever the window, which its ModelServer then
     cannot copy into a ring shorter than ``cache_len``.
     """
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     B, S = x.shape[:2]
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+    if isinstance(x, DTensor):
+        lh = _LocalHeads(p, x, cfg, positions)
+        o = lh.flash(True, cfg.sliding_window)
+        mesh, pl = lh.q_dt.device_mesh, lh.kv_placements()
+        cache = {n: DTensor.from_local(_ring_cache(t, cfg, cache_len), mesh,
+                                       pl, run_check=False)
+                 for n, t in zip(("k", "v"), lh.kv)}
+        return apply_linear(p["wo"], o), cache
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
+    return out, {"k": _ring_cache(k, cfg, cache_len),
+                 "v": _ring_cache(v, cfg, cache_len)}
+
+
+def _ring_cache(k: torch.Tensor, cfg: ModelConfig, cache_len: int
+                ) -> torch.Tensor:
+    """A prompt's K or V (B, S, H, D) in a cache of ``ring_len`` slots:
+    position p at slot p (p % ring past a sliding window's ring)."""
+    B, S = k.shape[:2]
     R = ring_len(cfg, cache_len)
     kc = k.new_zeros((B, R) + tuple(k.shape[2:]))
-    vc = v.new_zeros((B, R) + tuple(v.shape[2:]))
     if S <= R:
         kc[:, :S] = k
-        vc[:, :S] = v
     else:
         slots = torch.arange(S - R, S, device=k.device) % R
         kc[:, slots] = k[:, S - R:]
-        vc[:, slots] = v[:, S - R:]
-    out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
-    return out, {"k": kc, "v": vc}
+    return kc
 
 
 def _write_slot(cache: torch.Tensor, slot: torch.Tensor,
@@ -134,6 +232,8 @@ def attend_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     writes land at ``position % S_max`` and the kernel masks by absolute
     position.
     """
+    if isinstance(x, DTensor):
+        return _attend_decode_sharded(p, x, cfg, cache, position)
     B, _ = x.shape
     hd = cfg.hd
     q = apply_linear(p["wq"], x).view(B, 1, cfg.n_heads, hd)
@@ -145,20 +245,47 @@ def attend_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
 
-    kc, vc = cache["k"], cache["v"]
-    S_max = kc.shape[1]
-    slot = position % S_max if cfg.sliding_window else position
-    _write_slot(kc, slot, k[:, 0])
-    _write_slot(vc, slot, v[:, 0])
-
-    if cfg.sliding_window:
-        # ring order, masked by each slot's absolute position
-        o = ops.decode_attention(q[:, 0], kc, vc, position,
-                                 window=cfg.sliding_window, ring=True)
-    else:
-        o = ops.decode_attention(q[:, 0], kc, vc, position + 1, window=None)
+    o = _decode_local(q[:, 0], k[:, 0], v[:, 0], cache["k"], cache["v"],
+                      position, cfg, lambda kc, vc: (kc, vc))
     out = apply_linear(p["wo"], o.reshape(B, cfg.n_heads * hd))
     return out, cache
+
+
+def _decode_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kc: torch.Tensor, vc: torch.Tensor, position: torch.Tensor,
+                  cfg: ModelConfig, used) -> torch.Tensor:
+    """Write the token's k/v (B, H, D) into the caches in place, then the
+    decode kernel for q (B, Hq, D) over ``used(kc, vc)``'s kv heads."""
+    S_max = kc.shape[1]
+    slot = position % S_max if cfg.sliding_window else position
+    _write_slot(kc, slot, k)
+    _write_slot(vc, slot, v)
+    kc, vc = used(kc, vc)
+    if cfg.sliding_window:
+        # ring order, masked by each slot's absolute position
+        return ops.decode_attention(q, kc, vc, position,
+                                    window=cfg.sliding_window, ring=True)
+    return ops.decode_attention(q, kc, vc, position + 1, window=None)
+
+
+def _attend_decode_sharded(p: Params, x: DTensor, cfg: ModelConfig,
+                           cache: Dict[str, DTensor], position: DTensor
+                           ) -> Tuple[DTensor, Dict[str, DTensor]]:
+    """``attend_decode`` on local heads. The cache (placed by
+    ``sharding.cache_specs_tree``: kv heads over ``model`` where they
+    divide it, else its sequence) is taken in the layout the kernel
+    needs (``_LocalHeads.kv_placements``); where that differs from its own, the
+    written cache goes back into its placement in place."""
+    lh = _LocalHeads(p, x, cfg, position)
+    mesh, pl = lh.q_dt.device_mesh, lh.kv_placements()
+    held = {n: cache[n].redistribute(mesh, pl) for n in ("k", "v")}
+    o = _decode_local(lh.q.contiguous(), lh.kv[0], lh.kv[1],
+                      held["k"].to_local(), held["v"].to_local(),
+                      position.to_local(), cfg, lh.kv_used)
+    for n in ("k", "v"):
+        if tuple(held[n].placements) != tuple(cache[n].placements):
+            cache[n].copy_(held[n].redistribute(mesh, cache[n].placements))
+    return apply_linear(p["wo"], lh.out(o)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,12 @@ keeps only the block's input and recomputes the rest in the backward pass;
 (``checkpoint_dots``), through a selective checkpoint. The recompute
 routes every token to the experts the forward pass chose: the routing is
 a function of the block's input alone.
+
+On a wide mesh (DTensor activations and parameters placed by
+``distributed/sharding.py``; dense ``ad`` blocks only) each layer's
+weights have their ``data`` shards gathered at their use
+(``sharding.fsdp_gather``), and every block's output is pinned
+batch-sharded over the data axes (``sharding.pin_dp``).
 """
 from __future__ import annotations
 
@@ -29,10 +35,12 @@ import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import fsdp_gather, pin_dp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -109,7 +117,8 @@ def block_train(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
         x = x + attn.attend_train(p["attn"], h, cfg, positions)
     else:
         x = x + ssm.mamba_train(p["mamba"], h, cfg)
-    return _ffn_apply(p, x, cfg, token)
+    x, metrics = _ffn_apply(p, x, cfg, token)
+    return _pinned(x), metrics
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
@@ -125,7 +134,7 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
     else:
         o, cache = ssm.mamba_prefill(p["mamba"], h, cfg)
     x, _ = _ffn_apply(p, x + o, cfg, token)
-    return x, cache
+    return _pinned(x), cache
 
 
 def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
@@ -140,7 +149,19 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
     else:
         o, cache = ssm.mamba_decode(p["mamba"], h, cfg, cache)
     x2, _ = _ffn_apply(p, (x + o)[:, None, :], cfg, token)
-    return x2[:, 0, :], cache
+    return _pinned(x2[:, 0, :]), cache
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    return pin_dp(x) if isinstance(x, DTensor) else x
+
+
+def _layer(stacked: Tuple[Params, ...], i: int, x: torch.Tensor
+           ) -> Tuple[Params, ...]:
+    """Layer ``i``'s parameters of every pattern position; on a wide mesh
+    with their ``data`` shards gathered."""
+    layer = tuple(layer_slice(s, i) for s in stacked)
+    return fsdp_gather(layer) if isinstance(x, DTensor) else layer
 
 
 def init_block_cache(cfg: ModelConfig, token: str, batch: int,
@@ -222,7 +243,7 @@ def run_blocks_train(stacked: Tuple[Params, ...], x: torch.Tensor,
     body = _maybe_remat(superblock, cfg)
     auxs, zls = [], []
     for i in range(_reps(stacked)):
-        x, aux, zl = body(x, tuple(layer_slice(s, i) for s in stacked))
+        x, aux, zl = body(x, _layer(stacked, i, x))
         auxs.append(aux)
         zls.append(zl)
     return x, {"moe_aux": torch.stack(auxs).sum(),
@@ -238,9 +259,10 @@ def run_blocks_prefill(stacked: Tuple[Params, ...], x: torch.Tensor,
     per_layer = []
     for i in range(_reps(stacked)):
         caches = []
+        layer = _layer(stacked, i, x)
         for r, token in enumerate(pattern):
-            x, c = block_prefill(layer_slice(stacked[r], i), x, cfg, token,
-                                 positions, cache_len)
+            x, c = block_prefill(layer[r], x, cfg, token, positions,
+                                 cache_len)
             caches.append(c)
         per_layer.append(caches)
     caches = tuple(
@@ -256,7 +278,8 @@ def run_blocks_decode(stacked: Tuple[Params, ...], x: torch.Tensor,
     returned."""
     pattern = normalize_pattern(cfg)
     for i in range(_reps(stacked)):
+        layer = _layer(stacked, i, x)
         for r, token in enumerate(pattern):
-            x, _ = block_decode(layer_slice(stacked[r], i), x, cfg, token,
+            x, _ = block_decode(layer[r], x, cfg, token,
                                 layer_slice(caches[r], i), position)
     return x, caches

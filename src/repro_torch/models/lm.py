@@ -25,6 +25,12 @@ precomputed patch / frame vectors) to the token embeddings; the loss is
 masked to the token positions. The encoder-decoder models run in
 ``models/encdec.py``; this module's entry points refuse them
 (``check_supported``).
+
+With DTensor parameters and inputs on a wide mesh (dense ``ad`` models,
+``launch/steps.py``) the embedding and the head have their ``data``
+shards gathered at their use, the positions are placed as the batch, and
+the logits' vocab dim (sharded over ``model``) is gathered before the
+loss or the caller reads them: ``B·S·V`` f32 per data rank.
 """
 from __future__ import annotations
 
@@ -32,8 +38,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (apply_norm, init_embedding, init_norm,
                                        mrope_positions_text)
@@ -42,7 +50,8 @@ from repro_torch.models.tree import tree_map
 Params = Dict[str, Any]
 
 __all__ = ["init_lm", "forward_train", "loss_fn", "prefill", "decode_step",
-           "init_cache", "with_f32_head", "check_supported", "masked_nll"]
+           "init_cache", "cache_specs", "with_f32_head", "check_supported",
+           "masked_nll"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -77,13 +86,25 @@ def with_f32_head(params: Params, cfg: ModelConfig) -> Params:
     return dict(params, head_f32=head.float())
 
 
-def _positions(cfg: ModelConfig, B_: int, S: int, device: torch.device,
-               offset: int = 0) -> torch.Tensor:
-    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
-    pos = pos.expand(B_, S)
+def _positions(cfg: ModelConfig, x: torch.Tensor, offset: int = 0
+               ) -> torch.Tensor:
+    """Text positions (B, S) of the activations ``x`` (B, S, d), placed as
+    ``x`` is when it is a DTensor."""
+    B_, S = x.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    pos = (pos + offset).expand(B_, S)
+    if isinstance(x, DTensor):
+        return sharding.like(pos.contiguous(), x)
     if cfg.mrope_sections is not None:
         return mrope_positions_text(pos)
     return pos
+
+
+def _top(params: Params, x: torch.Tensor) -> Params:
+    """The embedding, final norm and head, with their ``data`` shards
+    gathered when ``x`` is a DTensor."""
+    top = {k: v for k, v in params.items() if k != "blocks"}
+    return sharding.fsdp_gather(top) if isinstance(x, DTensor) else top
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -91,19 +112,51 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # gather first, then convert: the same values as converting the table.
     # F.embedding's backward sums each row's gradient in a fixed order on
     # the card (an indexed gather's would use atomics)
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    table = _top(params, tokens)["embed"]
+    if isinstance(tokens, DTensor):
+        return sharding.pin_dp(_vocab_lookup(tokens, table)
+                               .to(cfg.compute_dtype))
+    x = F.embedding(tokens.long(), table).to(cfg.compute_dtype)
     if embeds is not None:
         x = torch.cat([embeds.to(cfg.compute_dtype), x], dim=1)
     return x
 
 
+def _vocab_lookup(tokens: DTensor, table: DTensor) -> DTensor:
+    """``F.embedding`` of a DTensor table whose vocab rows may be
+    ``Shard`` over ``model``: each rank looks up the tokens its rows hold
+    and zeros the rest, a partial sum over ``model`` (the exact row, plus
+    zeros). Its backward scatters into the rank's own rows only."""
+    mesh = table.device_mesh
+    d = sharding.mesh_dim(mesh, "model")
+    pl = list(tokens.placements)
+    tl = tokens.to_local().long()
+    if d is None or not isinstance(table.placements[d], Shard):
+        table = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    # the rows' gradient: partial over the mesh dims the batch is split on
+    grad_pl = [Partial() if isinstance(b, Shard) else t
+               for b, t in zip(tokens.placements, table.placements)]
+    rows = table.to_local(grad_placements=grad_pl)
+    if d is None or not isinstance(table.placements[d], Shard):
+        return DTensor.from_local(F.embedding(tl, rows), mesh, pl,
+                                  run_check=False)
+    lo = sharding.model_rank(mesh) * rows.shape[0]
+    inside = (tl >= lo) & (tl < lo + rows.shape[0])
+    y = F.embedding((tl - lo).clamp(0, rows.shape[0] - 1), rows)
+    y = y * inside[..., None].to(y.dtype)
+    pl[d] = Partial()
+    return DTensor.from_local(y, mesh, pl, run_check=False)
+
+
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    head = params.get("head_f32")
+    top = _top(params, x)
+    x = apply_norm(top["final_norm"], x, cfg.norm)
+    head = top.get("head_f32")
     if head is None:
-        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return x.float() @ head.float().T
+        head = top["embed"] if cfg.tie_embeddings else top["lm_head"]
+    logits = x.float() @ head.float().T
+    return sharding.pin_dp(logits) if isinstance(logits, DTensor) else logits
 
 
 def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -112,9 +165,7 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, S_txt) [+ embeds (B, F, d)] -> logits (B, S, V) f32."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
-    B_, S = x.shape[:2]
-    pos = _positions(cfg, B_, S, x.device)
-    x, aux = B.run_blocks_train(params["blocks"], x, cfg, pos)
+    x, aux = B.run_blocks_train(params["blocks"], x, cfg, _positions(cfg, x))
     return _logits(params, cfg, x), aux
 
 
@@ -158,10 +209,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, S) -> (logits of the last position (B, V) f32, caches
     padded to ``cache_len``)."""
     x = _embed_inputs(params, cfg, tokens, embeds)
-    B_, S = x.shape[:2]
-    pos = _positions(cfg, B_, S, x.device)
-    x, caches = B.run_blocks_prefill(params["blocks"], x, cfg, pos,
-                                     cache_len)
+    x, caches = B.run_blocks_prefill(params["blocks"], x, cfg,
+                                     _positions(cfg, x), cache_len)
     return _logits(params, cfg, x[:, -1:, :])[:, 0, :], caches
 
 
@@ -170,7 +219,7 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Tuple,
                 ) -> Tuple[torch.Tensor, Tuple]:
     """token (B,) int; position (B,) int32 -> (logits (B, V) f32, caches
     written in place)."""
-    x = params["embed"][token.long()].to(cfg.compute_dtype)   # (B, d)
+    x = _embed_inputs(params, cfg, token, None)             # (B, d)
     x, caches = B.run_blocks_decode(params["blocks"], x, cfg, caches,
                                     position)
     return _logits(params, cfg, x[:, None, :])[:, 0, :], caches
@@ -189,3 +238,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         out.append(tree_map(
             lambda a: a.new_zeros((reps,) + tuple(a.shape)), one))
     return tuple(out)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Tuple:
+    """``init_cache``'s tree on the ``meta`` device (no allocation)."""
+    return init_cache(cfg, batch, cache_len, torch.device("meta"))

@@ -10,6 +10,9 @@ the update is computed in f32 and cast back to the param dtype. A separate
 f32 master copy can be kept with ``master_weights=True``. Leaves are
 visited in JAX's order (sorted dict keys), so the global norm sums them in
 the same order, and the weight-decay mask reads the same paths.
+DTensor parameters (a wide mesh) get DTensor state placed as they are,
+the step counter replicated; the update is elementwise on each shard,
+the global norm a full reduction every rank reads alike.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.models.tree import tree_flatten_with_path, tree_unflatten
 
@@ -78,9 +82,10 @@ def _leaves(tree: Params):
 
 
 def _zeros_f32_like(params: Params) -> Params:
+    """f32 zeros shaped (and, for DTensor parameters, placed) like each
+    leaf."""
     return tree_unflatten(params, [
-        torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        for p in _leaves(params)])
+        torch.zeros_like(p, dtype=torch.float32) for p in _leaves(params)])
 
 
 def adamw_init(params: Params, cfg: AdamWConfig = AdamWConfig()
@@ -89,10 +94,14 @@ def adamw_init(params: Params, cfg: AdamWConfig = AdamWConfig()
     if cfg.master_weights:
         master = tree_unflatten(params, [p.detach().to(torch.float32)
                                          for p in _leaves(params)])
-    device = _leaves(params)[0].device
+    first = _leaves(params)[0]
+    count = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):      # replicated over the mesh
+        mesh = first.device_mesh
+        count = distribute_tensor(count, mesh, [Replicate()] * mesh.ndim,
+                                  src_data_rank=None)
     return OptState(m=_zeros_f32_like(params), v=_zeros_f32_like(params),
-                    count=torch.zeros((), dtype=torch.int32, device=device),
-                    master=master)
+                    count=count, master=master)
 
 
 def clip_by_global_norm(grads: Params, max_norm: float

@@ -4,7 +4,10 @@ execution modes, a hot swap under a request thread, the chunked
 pre-aggregate rebuild and compaction, first launches from several
 threads); the model tier's Mamba-2, MoE and hybrid blocks, mixtral's ring
 decode, a jamba train step and the encoder-decoder on the card against
-the CPU; the int8-compressed train step on a one-rank NCCL group.
+the CPU; the int8-compressed train step on a one-rank NCCL group; the
+sharded path's kernel calls on local heads against the full call, and a
+two-process (1, 2) mesh sharing the card (gloo) against the meshless
+step.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 there is none. The file imports no JAX, so it runs on a GPU machine that
@@ -1808,3 +1811,174 @@ def test_collectors_neither_sync_nor_copy():
     assert calls[0] == 0
     assert got == idle
     eng.close()
+
+
+# ---------------------------------------------------------------------------
+# the sharded path: kernels on local heads, a world of processes on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Hq,Hkv,D,m", [
+    (12, 2, 128, 2),     # qwen2-1.5b at model=2: q and kv heads sharded
+    (12, 2, 128, 4),     # replicated K/V: each rank slices its kv head
+    (4, 1, 16, 2),       # reduced qwen2-1.5b: the one kv head whole
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_heads_kernel_calls_equal_the_full_call(card, Hq, Hkv, D, m,
+                                                      dtype):
+    """What each ``model`` rank of a wide mesh gives the kernels
+    (``sharding.head_layout``: its q heads, the kv heads they use) against
+    the one full call: flash (causal prefill) and decode, the ranks'
+    outputs concatenated over heads within the kernels' tolerance of the
+    full call's and of the plain version's."""
+    from repro_torch.distributed import sharding
+    lay = sharding.head_layout(
+        sharding.AbstractMesh((1, m), ("data", "model")), Hq, Hkv)
+    assert lay.q_sharded and lay.hq_local % lay.kv_local == 0
+
+    def kv_heads(r):
+        lo = r * lay.kv_local if lay.kv_sharded else lay.kv_lo(r)
+        return slice(lo, lo + lay.kv_local)
+
+    B, S = 2, 200
+    q = _randn((B, S, Hq, D), dtype, card, 1)
+    k = _randn((B, S, Hkv, D), dtype, card, 2)
+    v = _randn((B, S, Hkv, D), dtype, card, 3)
+    full = ops.flash_attention(q, k, v, causal=True)
+    parts = [ops.flash_attention(
+        q[:, :, r * lay.hq_local:(r + 1) * lay.hq_local].contiguous(),
+        k[:, :, kv_heads(r)].contiguous(), v[:, :, kv_heads(r)].contiguous(),
+        causal=True) for r in range(m)]
+    torch.testing.assert_close(torch.cat(parts, 2), full, rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+    torch.testing.assert_close(
+        torch.cat(parts, 2), ref.flash_attention_ref(q, k, v, causal=True),
+        rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    qd = _randn((B, Hq, D), dtype, card, 4)
+    lengths = torch.tensor([S, 77], dtype=torch.int32, device=card)
+    full = ops.decode_attention(qd, k, v, lengths)
+    parts = [ops.decode_attention(
+        qd[:, r * lay.hq_local:(r + 1) * lay.hq_local].contiguous(),
+        k[:, :, kv_heads(r)].contiguous(), v[:, :, kv_heads(r)].contiguous(),
+        lengths) for r in range(m)]
+    torch.testing.assert_close(torch.cat(parts, 1), full, rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+    torch.testing.assert_close(
+        torch.cat(parts, 1), ref.decode_attention_ref(qd, k, v, lengths),
+        rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+MESH_RANK = """
+import pickle, sys
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs.base import reduced
+from repro_torch.configs.registry import get_config
+from repro_torch.distributed import gloo_cuda, sharding
+from repro_torch.kernels import flash_attention
+from repro_torch.launch import mesh as tmesh, steps
+from repro_torch.models.tree import tree_flatten_with_path
+from repro_torch.optim import adamw
+
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("cpu:gloo,cuda:gloo",
+                        store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2, timeout=timedelta(seconds=120))
+gloo_cuda.install()
+try:
+    cfg = reduced(get_config("qwen2-1.5b"))
+    mesh = tmesh.make_mesh((1, 2), ("data", "model"))
+    p0 = steps.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                             dtype=torch.int32, device="cuda")
+             for k in ("tokens", "targets")}
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    p = sharding.distribute(p0, mesh, sharding.param_specs(p0, mesh))
+    s = adamw.adamw_init(p, ocfg)
+    step = steps.make_train_step(cfg, ocfg, mesh=mesh)
+    before = flash_attention.launches
+    losses, norms = [], []
+    for _ in range(3):
+        p, s, m = step(p, s, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    params = [t.full_tensor().cpu().double().numpy()
+              for _, t in tree_flatten_with_path(p)]
+    res = {"losses": losses, "norms": norms, "params": params,
+           "flash": flash_attention.launches - before,
+           "device": str(next(iter(tree_flatten_with_path(p)))[1]
+                         .to_local().device)}
+finally:
+    dist.destroy_process_group()
+with open(out, "wb") as f:
+    pickle.dump(res, f)
+"""
+
+
+def test_two_process_mesh_on_the_card_matches_the_meshless_step(card,
+                                                                tmp_path):
+    """Two processes share the card (gloo over CUDA tensors, the funcol
+    collectives through ``distributed/gloo_cuda.py``) on a (1, 2) mesh
+    over ("data", "model"): 3 steps of reduced qwen2-1.5b (f32) against
+    the meshless step on the card, losses and gradient norms within 1e-5
+    relative and the parameters within 1e-4 relative L2; the flash
+    kernel launched on each rank's local heads."""
+    import pickle
+    import subprocess
+    import sys
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim import adamw
+    _build.library()            # built once here; the ranks load it
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    (tmp_path / "rank.py").write_text(MESH_RANK)
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "rank.py"), str(r),
+         str(tmp_path / "store"), str(tmp_path / f"out{r}.pkl")],
+        env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for r in (0, 1)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = [pickle.loads((tmp_path / f"out{r}.pkl").read_bytes())
+             for r in (0, 1)]
+    cfg = reduced(get_config("qwen2-1.5b"))
+    params = _on(steps.init_params(torch.Generator().manual_seed(0), cfg),
+                 "cuda")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                             dtype=torch.int32, device=card)
+             for k in ("tokens", "targets")}
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = steps.make_train_step(cfg, ocfg)
+    s = adamw.adamw_init(params, ocfg)
+    losses, norms = [], []
+    for _ in range(3):
+        params, s, m = step(params, s, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    want = [t.cpu().double().numpy() for _, t in
+            tree_flatten_with_path(params)]
+    for res in ranks:
+        assert res["device"].startswith("cuda")
+        assert res["flash"] == 2 * 2 * 3     # 2 layers + remat, 3 steps
+        np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(res["norms"], norms, rtol=1e-5)
+        num = sum(float(((a - b) ** 2).sum())
+                  for a, b in zip(res["params"], want))
+        den = sum(float((b ** 2).sum()) for b in want)
+        assert (num / den) ** 0.5 <= 1e-4

@@ -26,7 +26,8 @@ against the JAX package's on the CPU.
   compressed steps.
 * One rank, in this process: the same step on a ``(1, 1, 1)`` mesh
   against JAX's on its one device, the uncompressed one against the
-  plain step, and the refusals.
+  plain step, and the refusals (a non-dense family on a mesh whose data
+  axis has two ranks).
 
 Spawned ranks and the JAX subprocess are started together and each is
 joined with a 120 s timeout; every one still running is killed.
@@ -92,7 +93,9 @@ def _flat(tree):
 def test_property_int8_codes_and_scale_equal_jax(seed, scale):
     """The counterpart of the JAX package's round-trip property: the int8
     codes, the scale and the round trip equal JAX's bit for bit, and the
-    error stays within half a quantization step."""
+    error stays within half a quantization step, stated in f32: the
+    decoded value ``q·scale`` is rounded once more in f32, so the bound
+    is ``0.5·scale`` plus one ulp of ``max|x|``."""
     x = np.random.default_rng(seed).normal(0, scale, 257).astype(np.float32)
     jq, js = j_comp.compress_int8(jnp.asarray(x))
     tq, ts = compression.compress_int8(torch.from_numpy(x))
@@ -102,7 +105,24 @@ def test_property_int8_codes_and_scale_equal_jax(seed, scale):
     y = compression.decompress_int8(tq, ts)
     np.testing.assert_array_equal(
         y.numpy(), np.asarray(j_comp.decompress_int8(jq, js)))
-    assert float((torch.from_numpy(x) - y).abs().max()) <= float(ts) * 0.5
+    bound = float(ts) * 0.5 + float(np.spacing(np.abs(x).max()))
+    assert float((torch.from_numpy(x) - y).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("scale", [1e-3, 77.7, 1e3])
+def test_int8_roundtrip_error_at_seed_759(scale):
+    """A fixed draw where the f32 rounding of ``q·scale`` shows: the
+    round-trip error exceeds ``0.5·scale`` and stays within ``0.5·scale``
+    plus one ulp of ``max|x|``; the codes still equal JAX's."""
+    x = np.random.default_rng(759).normal(0, scale, 257).astype(np.float32)
+    jq, js = j_comp.compress_int8(jnp.asarray(x))
+    tq, ts = compression.compress_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+    err = float((torch.from_numpy(x)
+                 - compression.decompress_int8(tq, ts)).abs().max())
+    assert err > float(ts) * 0.5
+    assert err <= float(ts) * 0.5 + float(np.spacing(np.abs(x).max()))
 
 
 def test_int8_of_zeros_takes_the_floor_scale():
@@ -384,8 +404,8 @@ RANK = textwrap.dedent("""
         wide = tmesh.make_mesh((1, 2, 1), ("pod", "data", "model"),
                                device_type="cpu")
         try:
-            steps.make_train_step(cfg, ocfg, mesh=wide,
-                                  compress_crosspod=True)
+            steps.make_train_step(reduced(get_config("mamba2-780m")), ocfg,
+                                  mesh=wide, compress_crosspod=True)
             res["wide"] = None
         except NotImplementedError as e:
             res["wide"] = str(e)
@@ -550,7 +570,10 @@ def test_train_loop_on_a_pod_mesh_runs_the_compressed_step(two_ranks):
 
 
 def test_a_mesh_over_data_or_model_raises(two_ranks):
+    """A mesh whose data axis has two ranks runs dense models through the
+    sharding rules (``tests/test_torch_sharding.py``); a family the
+    DTensor path does not cover raises, naming what it lacks."""
     _, ranks, _ = two_ranks
     for r in (0, 1):
-        assert "distributed/sharding.py" in ranks[r]["wide"]
-        assert "'data': 2" in ranks[r]["wide"]
+        assert "the SSD scan (models/ssm.py)" in ranks[r]["wide"]
+        assert "data or model axis has several ranks" in ranks[r]["wide"]

@@ -132,7 +132,9 @@ then:
    the cache, and in ring mode past the window; and the families' head
    shapes: 24/8 heads of 64 (granite), 32/8 and 28/4 of 128 over 1,088
    rows (jamba, qwen2-vl), mixtral's 48/8 of 128 in a 4096-slot ring
-   past its window, and seamless's 16/16 of 64 at the ``encdec`` phase's
+   past its window, the mesh phases' local heads (6/1 of 128, 12/4 of
+   64, 24/4 of 128 in a 72-slot ring), and seamless's 16/16 of 64 at the
+   ``encdec`` phase's
    shapes: flash non-causal at Sq > Sk, 64 over 1024 and 1024 over 1024,
    the decoder's and the training calls, decode over 1024 rows at every
    length 1024 and at 65-93): ``rtol = atol = 2e-2`` in bf16, ``2e-5``
@@ -204,7 +206,18 @@ then:
    greedy token may differ only at a near-tie), the flash and decode
    kernels' launches on each rank's local heads, and a reduced
    checkpoint saved on the world restored onto the meshless loop bit
-   for bit.
+   for bit;
+20. the MoE families on that world (``mesh_moe``, a budget of 240 s, the
+   same 4 processes): granite-moe-3b-a800m at full width, 4 of 32
+   layers, ``TrainLoop(mesh=)`` 3 steps of 4 x 128 tokens in f32 at
+   ``moe_groups=2`` (one group a data rank: EP's all-to-all, 20 experts
+   a data rank) against the meshless loop on the card (losses and
+   gradient norms within 1e-5 relative, parameters within 1e-4 relative
+   L2), its per-rank state bytes beside the specs' share; granite in f32
+   and bf16 and mixtral-8x22b at full width, 1 of 56 layers, in bf16
+   served by the bundles at ``moe_groups=0`` against ``ModelServer`` as
+   in step 19; the bytes the MoE layers hand their exchanges and the
+   attention launches by rank printed, the launches asserted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -229,7 +242,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -4011,7 +4024,10 @@ def attention_cases(device) -> Dict[str, float]:
     call at every length 1024 and the self-attention cache at 65-93;
     and the ``mesh`` phase's calls on one rank's local heads (qwen2-1.5b
     at model=2: 6 q heads over its one kv head, 128 wide), flash as it
-    trains (2 x 128) and prefills (2 x 64), decode over its 72-row cache.
+    trains (2 x 128) and prefills (2 x 64), decode over its 72-row cache;
+    and ``mesh_moe``'s (granite at model=2: 12 q over 4 kv heads of 64,
+    trained and prefilled, decoded over 72 rows; mixtral: 24 over 4 of
+    128, prefilled with its 4096 window, decoded in its 72-slot ring).
     Returns the largest absolute difference."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import SPLIT
@@ -4042,12 +4058,17 @@ def attention_cases(device) -> Dict[str, float]:
                                       # the mesh phase's local heads:
                                       # trained, prefilled
                                       (2, 128, 128, 6, 1, 128),
-                                      (2, 64, 64, 6, 1, 128)):
+                                      (2, 64, 64, 6, 1, 128),
+                                      # mesh_moe's: granite trained and
+                                      # prefilled, mixtral prefilled
+                                      (2, 128, 128, 12, 4, 64),
+                                      (2, 64, 64, 12, 4, 64),
+                                      (2, 64, 64, 24, 4, 128)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
             for causal, window in ((True, None), (True, 32), (True, 8),
-                                   (False, None)):
+                                   (True, 4096), (False, None)):
                 if causal and Sq > Sk:
                     continue     # its first queries would keep no key
                 kw = dict(causal=causal, window=window)
@@ -4061,7 +4082,8 @@ def attention_cases(device) -> Dict[str, float]:
                                  (2, 100, 9, 3, 80), (6, 300, 12, 2, 128),
                                  (8, 1024, 24, 8, 64), (8, 1024, 32, 8, 128),
                                  (4, 1120, 28, 4, 128),
-                                 (2, 72, 6, 1, 128)):    # mesh local heads
+                                 (2, 72, 6, 1, 128),     # mesh local heads
+                                 (2, 72, 12, 4, 64)):    # mesh_moe granite
             q = _randn((B, Hq, D), dtype, device, 4)
             kc = _randn((B, S, Hkv, D), dtype, device, 5)
             vc = _randn((B, S, Hkv, D), dtype, device, 6)
@@ -4109,6 +4131,20 @@ def attention_cases(device) -> Dict[str, float]:
                     ref.decode_attention_ref(q, kc, vc, lengths),
                     f"decode prefix {dtype} seamless heads S=1024 "
                     f"lengths {lengths.tolist()}"))
+        # mixtral's local heads in mesh_moe: 24/4 of 128 in a 72-slot ring
+        # (a 64-token prompt and 8 steps, inside the 4096 window)
+        q = _randn((2, 24, 128), dtype, device, 16)
+        kc = _randn((2, 72, 4, 128), dtype, device, 17)
+        vc = _randn((2, 72, 4, 128), dtype, device, 18)
+        for p_ in (64, 71):
+            pos = torch.full((2,), p_, dtype=torch.int32, device=device)
+            errs["decode_attention"] = max(
+                errs["decode_attention"], _attn_err(
+                    ops.decode_attention(q, kc, vc, pos, window=4096,
+                                         ring=True),
+                    ref.decode_attention_ref(q, kc, vc, pos, window=4096,
+                                             ring=True),
+                    f"decode ring {dtype} mixtral local heads pos {p_}"))
         # mixtral: 48/8 heads of 128 in its 4096-slot ring, past the window
         q = _randn((4, 48, 128), dtype, device, 10)
         kc = _randn((4, 4096, 8, 128), dtype, device, 11)
@@ -5552,7 +5588,7 @@ class MeshSizes:
     prompt_len: int = 64
     serve_steps: int = 8
     ckpt_steps: int = 2            # the reshard check, reduced width
-    join_s: float = 400.0
+    join_s: float = 600.0          # the mesh_moe phase runs on the world
 
 
 def _mesh_cfg(ms: MeshSizes, dtype: str):
@@ -5647,24 +5683,31 @@ def _step_timer(times: List[float]):
     return tick
 
 
-def _spec_share_bytes(tree, specs, mesh) -> int:
-    """Bytes of ``tree`` one rank holds by its specs: each leaf's size
-    over the product of the mesh axes its spec names."""
+def _spec_shares(tree, specs, mesh) -> List[int]:
+    """Bytes of each leaf of ``tree`` one rank holds by its specs: the
+    leaf's size over the product of the mesh axes its spec names."""
     from repro_torch.distributed import sharding
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    total = 0
+    out = []
     for t, s in zip(_leaves_of(tree), sharding.spec_leaves(specs)):
         n = 1
         for e in s:
             for a in ((e,) if isinstance(e, str) else (e or ())):
                 n *= sizes[a]
-        total += t.numel() // n * t.element_size()
-    return total
+        out.append(t.numel() // n * t.element_size())
+    return out
 
 
-def _mesh_serve(ms: MeshSizes, cfg, mesh, toks, rank: int
+def _spec_share_bytes(tree, specs, mesh) -> int:
+    """Bytes of ``tree`` one rank holds by its specs (``_spec_shares``
+    summed)."""
+    return sum(_spec_shares(tree, specs, mesh))
+
+
+def _mesh_serve(ms, cfg, mesh, toks, rank: int, gen_device: str = "cpu"
                 ) -> Dict[str, object]:
-    """The prefill and decode bundles on the mesh, teacher-forced:
+    """The prefill and decode bundles on the mesh, teacher-forced, the
+    parameters drawn from seed 5 by a generator on ``gen_device``:
     launches, the caches' placements, the serving seconds; rank 0 also
     keeps the logits."""
     from repro_torch.configs.base import ShapeSpec
@@ -5679,8 +5722,8 @@ def _mesh_serve(ms: MeshSizes, cfg, mesh, toks, rank: int
                                  mesh, cache_len=C)
     db = steps.build_step_bundle(cfg, ShapeSpec("serve", C, B, "decode"),
                                  mesh)
-    params = tree_map(lambda t: t.to("cuda"),
-                      init_params(torch.Generator().manual_seed(5), cfg))
+    params = tree_map(lambda t: t.to("cuda"), init_params(
+        torch.Generator(device=gen_device).manual_seed(5), cfg))
     params = pb.place(params)[0]
     state = {}
     f0, d0 = flash_attention.launches, decode_attention.launches
@@ -5797,6 +5840,12 @@ def mesh_rank(arg: str) -> None:
         full = [t.full_tensor().cpu() for t in _leaves_of(rloop.params)]
         if rank == 0:
             res["ckpt_params"] = full
+        del rloop, full
+        torch.cuda.empty_cache()
+
+        # the MoE families on the same world (the mesh_moe phase)
+        res["moe"] = moe_rank(MoeMeshSizes(**a["moe"]), mesh, rank,
+                              a["moe_ref"])
     finally:
         dist.destroy_process_group()
     with open(a["out"], "wb") as f:
@@ -5823,7 +5872,355 @@ def _mesh_logits(got: torch.Tensor, want: torch.Tensor
                                              & (gap > 2 * max_abs)).sum())}
 
 
-def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
+@dataclasses.dataclass(frozen=True)
+class MoeMeshSizes:
+    """The ``mesh_moe`` phase on the mesh phase's world: granite at full
+    width trains and serves, mixtral at full width serves."""
+    granite: str = "granite-moe-3b-a800m"
+    granite_layers: int = 4        # of 32
+    mixtral: str = "mixtral-8x22b"
+    mixtral_layers: int = 1        # of 56
+    train_batch: int = 4
+    train_seq: int = 128
+    train_steps: int = 3
+    train_groups: int = 2          # moe_groups: one group a data rank
+    lr: float = 1e-3
+    serve_batch: int = 4
+    prompt_len: int = 64
+    serve_steps: int = 8
+
+
+def _moe_cfg(mz: MoeMeshSizes, arch: str, dtype: str, groups: int = 0):
+    from repro_torch.configs.registry import get_config
+    layers = (mz.granite_layers if arch == mz.granite
+              else mz.mixtral_layers)
+    return dataclasses.replace(get_config(arch), n_layers=layers,
+                               dtype=dtype, param_dtype=dtype,
+                               moe_groups=groups)
+
+
+def _moe_inputs(mz: MoeMeshSizes, vocab: int):
+    rng = np.random.default_rng(37)
+    batch = {k: rng.integers(0, vocab, (mz.train_batch, mz.train_seq))
+             .astype(np.int32) for k in ("tokens", "targets")}
+    toks = rng.integers(0, vocab, (mz.serve_batch,
+                                   mz.prompt_len + mz.serve_steps)
+                        ).astype(np.int32)
+    return batch, toks
+
+
+# (arch field, dtype) of each served case
+MOE_SERVE = (("granite", "float32"), ("granite", "bfloat16"),
+             ("mixtral", "bfloat16"))
+
+
+def _routes_kept(routes: List[torch.Tensor]) -> Callable[[], None]:
+    """Wraps ``moe.route`` so that each call's expert indices ``(t, K)``
+    are appended to ``routes``; returns the function that unwraps it."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def keep(*a, **k):
+        out = route(*a, **k)
+        routes.append(out[3])
+        return out
+
+    moe.route = keep
+
+    def undo() -> None:
+        moe.route = route
+    return undo
+
+
+def _route_flips(got: List[torch.Tensor], want: List[torch.Tensor]
+                 ) -> Dict[str, object]:
+    """Of the routings (one per token and MoE layer call) of two served
+    runs, those whose set of experts differs."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routing calls against "
+                             f"{len(want)}")
+    differ = total = 0
+    for a, b in zip(got, want):
+        a, b = a.cpu().sort(-1).values, b.cpu().sort(-1).values
+        if a.shape != b.shape:
+            raise AssertionError(f"routings {tuple(a.shape)} against "
+                                 f"{tuple(b.shape)}")
+        differ += int((a != b).any(-1).sum())
+        total += a.shape[0]
+    return {"routings": total, "differ": differ, "share": differ / total}
+
+
+def moe_reference(mz: MoeMeshSizes, tmp: str) -> Dict[str, object]:
+    """The meshless runs the ``mesh_moe`` world is held to, on the card:
+    granite's TrainLoop in f32 at the world's ``moe_groups`` (losses,
+    gradient norms, step ms; the final parameters saved to ``tmp``) and
+    ModelServer (teacher-forced logits, each MoE layer call's expert
+    choices) for each served case, the parameters drawn on the card from
+    the seeds the ranks use."""
+    from repro_torch.launch.steps import init_params
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.serving.server import ModelServer
+    t0 = time.perf_counter()
+    cfg = _moe_cfg(mz, mz.granite, "float32", mz.train_groups)
+    batch, _ = _moe_inputs(mz, cfg.vocab_size)
+    loop = TrainLoop(cfg, opt_cfg=_mesh_opt(mz), device="cuda", seed=3)
+    times: List[float] = []
+    ran = loop.run(iter([batch] * mz.train_steps), steps=mz.train_steps,
+                   log_every=0, on_metrics=_step_timer(times))
+    torch.save([t.cpu() for t in _leaves_of(loop.params)],
+               os.path.join(tmp, "moe_ref_params.pt"))
+    del loop
+    out: Dict[str, object] = {
+        "losses": [h["loss"] for h in ran["history"]],
+        "grad_norms": [h["grad_norm"] for h in ran["history"]],
+        "step_ms": times}
+    for field, dtype in MOE_SERVE:
+        scfg = _moe_cfg(mz, getattr(mz, field), dtype)
+        _, toks = _moe_inputs(mz, scfg.vocab_size)
+        params = init_params(torch.Generator(device="cuda").manual_seed(5),
+                             scfg)
+        srv = ModelServer(scfg, params, batch=mz.serve_batch,
+                          cache_len=mz.prompt_len + mz.serve_steps)
+
+        def prefill(t):
+            srv.prefill(t)
+            return srv.logits.float().cpu()
+
+        def decode(t, _pos):
+            srv.tokens = torch.as_tensor(t, device="cuda")
+            srv.decode(1)
+            return srv.logits.float().cpu()
+
+        routes: List[torch.Tensor] = []
+        undo = _routes_kept(routes)
+        try:
+            out[f"{field}_{dtype}"] = torch.stack(_teacher_forced(
+                prefill, decode, toks, mz.prompt_len, mz.serve_steps))
+        finally:
+            undo()
+        out[f"{field}_{dtype}_routes"] = [r.cpu() for r in routes]
+        del srv, params
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def moe_rank(mz: MoeMeshSizes, mesh, rank: int, ref_path: str
+             ) -> Dict[str, object]:
+    """One rank's ``mesh_moe`` work: granite's TrainLoop on the mesh
+    (f32, ``moe_groups`` one group a data rank, so EP's all-to-all), its
+    state bytes (allocated, requested of the allocator, each leaf's local
+    piece) beside the specs' share, the parameters against the meshless
+    loop's; then the prefill and decode bundles of each served case
+    (``moe_groups`` 0: the gathered token stream), rank 0 keeping each
+    MoE layer call's expert choices. The attention launches are counted
+    from 0 for this work alone; the bytes the MoE layers exchange are
+    read off the tensors the exchanges are given."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    res: Dict[str, object] = {}
+    moved = {"all_to_all": 0, "all_to_all_calls": 0, "gathered_slab": 0,
+             "gathered_calls": 0}
+    exchange, gathered = collectives._exchange, moe._ep_gathered
+
+    def count_exchange(x, *a):
+        moved["all_to_all"] += x.numel() * x.element_size()
+        moved["all_to_all_calls"] += 1
+        return exchange(x, *a)
+
+    def count_gathered(ex, disp, *a):
+        moved["gathered_slab"] += disp.numel() * disp.element_size()
+        moved["gathered_calls"] += 1
+        return gathered(ex, disp, *a)
+
+    def requested() -> int:
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    collectives._exchange, moe._ep_gathered = count_exchange, count_gathered
+    flash_attention.launches = decode_attention.launches = 0
+    try:
+        cfg = _moe_cfg(mz, mz.granite, "float32", mz.train_groups)
+        batch, _ = _moe_inputs(mz, cfg.vocab_size)
+        torch.cuda.synchronize()
+        before, asked = torch.cuda.memory_allocated(), requested()
+        loop = TrainLoop(cfg, opt_cfg=_mesh_opt(mz), mesh=mesh, seed=3)
+        torch.cuda.synchronize()
+        res["state_bytes_measured"] = torch.cuda.memory_allocated() - before
+        res["state_bytes_requested"] = requested() - asked
+        leaves = _leaves_of(loop.params) + _leaves_of(loop.opt_state)
+        shares = (_spec_shares(loop.params, sharding.param_specs(
+            loop.params, mesh), mesh) + _spec_shares(
+                loop.opt_state, sharding.opt_specs(loop.opt_state, mesh),
+                mesh))
+        res["state_bytes_computed"] = sum(shares)
+        held = [(t.to_local() if isinstance(t, DTensor) else t)
+                for t in leaves]
+        # (leaf index, bytes held, the spec's share) of every leaf whose
+        # local piece is not its share
+        res["leaves_off"] = [
+            (i, h.numel() * h.element_size(), w)
+            for i, (h, w) in enumerate(zip(held, shares))
+            if h.numel() * h.element_size() != w]
+        res["unsharded_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in leaves)
+        del leaves, held
+        times: List[float] = []
+        ran = loop.run(iter([batch] * mz.train_steps), steps=mz.train_steps,
+                       log_every=0, on_metrics=_step_timer(times))
+        res["train_flash"] = flash_attention.launches
+        res["train_moved"] = dict(moved)
+        res["losses"] = [h["loss"] for h in ran["history"]]
+        res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
+        res["step_ms"] = times
+        ref = torch.load(ref_path) if rank == 0 else None
+        num = den = 0.0
+        for i, t in enumerate(_leaves_of(loop.params)):
+            full = t.full_tensor()                  # every rank
+            if rank == 0:
+                want = ref[i].to("cuda").double()
+                num += float(((full.double() - want) ** 2).sum())
+                den += float((want ** 2).sum())
+        res["param_rel_l2"] = (num / den) ** 0.5 if rank == 0 else None
+        del loop, ref
+        torch.cuda.empty_cache()
+        for field, dtype in MOE_SERVE:
+            scfg = _moe_cfg(mz, getattr(mz, field), dtype)
+            _, toks = _moe_inputs(mz, scfg.vocab_size)
+            for k in moved:
+                moved[k] = 0
+            flash_attention.launches = decode_attention.launches = 0
+            routes: List[torch.Tensor] = []
+            undo = _routes_kept(routes)
+            try:
+                res[f"{field}_{dtype}"] = dict(
+                    _mesh_serve(mz, scfg, mesh, toks, rank,
+                                gen_device="cuda"), moved=dict(moved))
+            finally:
+                undo()
+            if rank == 0:
+                res[f"{field}_{dtype}"]["routes"] = [r.cpu() for r in routes]
+            del routes
+            torch.cuda.empty_cache()
+    finally:
+        collectives._exchange, moe._ep_gathered = exchange, gathered
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# bytes the state asked of the allocator may differ from the specs' share
+# by: less than the smallest leaf held twice (a norm's local piece, 6 KiB
+# at granite's width), so no copy of a leaf hides in it
+STATE_SLACK = 4096
+
+
+def mesh_moe_check(mz: MoeMeshSizes, ref: Dict[str, object],
+                   ranks: List[Dict[str, object]]) -> Dict[str, object]:
+    """Holds the ``mesh_moe`` world to the meshless runs: granite's
+    training (losses and gradient norms within 1e-5 relative, parameters
+    within 1e-4 relative L2, the same losses on every rank; the state:
+    each leaf's local piece exactly its spec's share, the bytes asked of
+    the allocator within ``STATE_SLACK`` of the specs' share, the bytes
+    it allocated within 1 % + 1 MiB, its blocks being rounded up), each
+    served case's teacher-forced logits (f32: within 1e-4 relative L2,
+    every greedy token equal; bf16: within 2e-2, a greedy token
+    differing only at a near-tie) and the share of its routings that
+    chose other experts than the meshless server's, the attention
+    launches of every rank and the caches' placements."""
+    r0 = ranks[0]["moe"]
+    cfg = _moe_cfg(mz, mz.granite, "float32", mz.train_groups)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       ref["losses"]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"],
+                                                        ref["grad_norms"]))
+    serve = {f"{f}_{dt}": _mesh_logits(r0[f"{f}_{dt}"]["logits"],
+                                       ref[f"{f}_{dt}"])
+             for f, dt in MOE_SERVE}
+    flips = {f"{f}_{dt}": _route_flips(r0[f"{f}_{dt}"]["routes"],
+                                       ref[f"{f}_{dt}_routes"])
+             for f, dt in MOE_SERVE}
+    remat = 1 if cfg.remat == "none" else 2
+    for r in ranks:
+        m = r["moe"]
+        if (m["losses"], m["grad_norms"]) != (r0["losses"],
+                                               r0["grad_norms"]):
+            raise AssertionError(f"mesh_moe: ranks disagree on the losses "
+                                 f"or gradient norms: {m['losses']} vs "
+                                 f"{r0['losses']}")
+        got, want = m["state_bytes_measured"], m["state_bytes_computed"]
+        asked = m["state_bytes_requested"]
+        if (m["leaves_off"] or abs(asked - want) > STATE_SLACK
+                or abs(got - want) > 0.01 * want + (1 << 20)):
+            raise AssertionError(f"mesh_moe rank {r['rank']}: {got} bytes "
+                                 f"of state allocated, {asked} requested, "
+                                 f"the specs give {want}; leaves (index, "
+                                 f"held, share) off: {m['leaves_off']}")
+        bad = m["train_flash"] != remat * cfg.n_layers * mz.train_steps
+        for f, dt in MOE_SERVE:
+            layers = _moe_cfg(mz, getattr(mz, f), dt).n_layers
+            sv = m[f"{f}_{dt}"]
+            bad |= (sv["flash"] != layers
+                    or sv["decode"] != layers * mz.serve_steps
+                    or not sv["cache_placed"])
+        if bad:
+            raise AssertionError(f"mesh_moe rank {r['rank']}: launches or "
+                                 f"cache placements: {m}")
+    if loss_rel > 1e-5 or gnorm_rel > 1e-5 or r0["param_rel_l2"] > 1e-4:
+        raise AssertionError(f"mesh_moe training vs meshless: losses "
+                             f"{r0['losses']} vs {ref['losses']}, gradient "
+                             f"norms {r0['grad_norms']} vs "
+                             f"{ref['grad_norms']}, parameters "
+                             f"{r0['param_rel_l2']}")
+    for key, v in serve.items():
+        if (v["rel_l2"] > 1e-4 or v["mismatches"]) if key.endswith(
+                "float32") else (v["rel_l2"] > 2e-2
+                                 or v["mismatches_not_near_ties"]):
+            raise AssertionError(f"mesh_moe serving vs ModelServer: {key} "
+                                 f"{v}")
+    steps_ = cfg.n_layers * mz.train_steps
+    return {
+        "archs": {mz.granite: mz.granite_layers,
+                  mz.mixtral: mz.mixtral_layers},
+        "losses_mesh": r0["losses"], "losses_meshless": ref["losses"],
+        "loss_rel": loss_rel, "grad_norms_mesh": r0["grad_norms"],
+        "grad_norms_meshless": ref["grad_norms"], "grad_norm_rel": gnorm_rel,
+        "param_rel_l2": r0["param_rel_l2"], "step_ms": r0["step_ms"],
+        "step_ms_meshless": ref["step_ms"],
+        "unsharded_state_bytes": r0["unsharded_bytes"],
+        # what each rank hands the all-to-alls per MoE layer and train
+        # step (two exchanges forward, two backward), and the slab each
+        # served MoE layer call hands the gathered exchange
+        "train_all_to_all_bytes_per_layer_step":
+            r0["train_moved"]["all_to_all"] / steps_,
+        "train_all_to_all_calls": r0["train_moved"]["all_to_all_calls"],
+        "serve_moved": {f"{f}_{dt}": r0[f"{f}_{dt}"]["moved"]
+                        for f, dt in MOE_SERVE},
+        "serve": serve, "route_flips": flips,
+        "ranks": [{"coords": r["coords"],
+                   "state_bytes_measured": r["moe"]["state_bytes_measured"],
+                   "state_bytes_requested":
+                       r["moe"]["state_bytes_requested"],
+                   "state_bytes_computed": r["moe"]["state_bytes_computed"],
+                   "train_flash": r["moe"]["train_flash"],
+                   **{f"{f}_{dt}_{k}": r["moe"][f"{f}_{dt}"][k]
+                      for f, dt in MOE_SERVE
+                      for k in ("flash", "decode", "serve_s")},
+                   "seconds": r["moe"]["seconds"]} for r in ranks],
+        "launches": {
+            "flash_attention": sum(
+                r["moe"]["train_flash"] + sum(r["moe"][f"{f}_{dt}"]["flash"]
+                                              for f, dt in MOE_SERVE)
+                for r in ranks),
+            "decode_attention": sum(r["moe"][f"{f}_{dt}"]["decode"]
+                                    for r in ranks for f, dt in MOE_SERVE)}}
+
+
+def mesh_phase(device, ms: MeshSizes = MeshSizes(),
+               mz: MoeMeshSizes = MoeMeshSizes()
+               ) -> Tuple[Dict[str, object], Dict[str, object]]:
     """The sharded path on the card: ``data`` x ``model`` processes share
     it (gloo; DTensor's collectives through
     ``repro_torch.distributed.gloo_cuda``), qwen2-1.5b at full width, cut
@@ -5839,7 +6236,9 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
     launches on local heads, the caches in their specs' placements; then
     a reduced
     checkpoint saved on the world restores onto the meshless loop bit for
-    bit. Budget: about 150 s."""
+    bit. Budget: about 150 s. The same ranks then run the ``mesh_moe``
+    phase (``moe_rank``, held by ``mesh_moe_check``; budget 240 s, its
+    meshless reference included), returned second."""
     import pickle
     import shutil
     import tempfile
@@ -5851,6 +6250,7 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
     n = ms.shape[0] * ms.shape[1]
     try:
         ref = mesh_reference(ms, tmp)
+        moe_ref = moe_reference(mz, tmp)
         _build.library()               # built here; the ranks load it
         sizes = dataclasses.asdict(ms)
         procs = []
@@ -5859,7 +6259,10 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
                               "store": os.path.join(tmp, "store"),
                               "ref": os.path.join(tmp, "ref_params.pt"),
                               "ckpt": os.path.join(tmp, "ckpt"),
-                              "out": os.path.join(tmp, f"rank{r}.pkl")})
+                              "out": os.path.join(tmp, f"rank{r}.pkl"),
+                              "moe": dataclasses.asdict(mz),
+                              "moe_ref": os.path.join(tmp,
+                                                      "moe_ref_params.pt")})
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()),
                  "--mesh-rank", arg], stdout=subprocess.PIPE,
@@ -5876,9 +6279,10 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
-        world_s = time.perf_counter() - t_world
         ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
                  for r in range(n)]
+        world_s = time.perf_counter() - t_world - max(
+            r["moe"]["seconds"] for r in ranks)
         rcfg = reduced(_mesh_cfg(ms, "float32"))
         meshless = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), device="cuda",
                              ckpt_dir=os.path.join(tmp, "ckpt"))
@@ -5950,7 +6354,20 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
             r[dt]["flash"] for dt in MESH_SERVE) for r in ranks),
         "decode_attention": sum(r[dt]["decode"] for r in ranks
                                 for dt in MESH_SERVE)}
-    out["seconds"] = time.perf_counter() - t_phase
+    moe_out = mesh_moe_check(mz, moe_ref, ranks)
+    # the reference on the card, then the slowest rank's MoE work
+    moe_out["seconds"] = moe_ref["seconds"] + max(
+        r["moe"]["seconds"] for r in ranks)
+    log(f"mesh_moe phase ({ms.shape} over (data, model), {n} processes "
+        f"on the card, gloo; {mz.granite} full width, "
+        f"{mz.granite_layers} layers, trains f32 {mz.train_steps} steps "
+        f"of {mz.train_batch} x {mz.train_seq} at moe_groups "
+        f"{mz.train_groups}; it and {mz.mixtral} full width, "
+        f"{mz.mixtral_layers} layer, serve {mz.serve_batch} prompts of "
+        f"{mz.prompt_len} and {mz.serve_steps} teacher-forced steps at "
+        f"moe_groups 0): {json.dumps(moe_out)}; phase "
+        f"{moe_out['seconds']:.3f} s; {card_line()}")
+    out["seconds"] = time.perf_counter() - t_phase - moe_out["seconds"]
     log(f"mesh phase ({ms.shape} over (data, model), {n} processes on the "
         f"card, gloo; {ms.arch} full width, {ms.layers} layers): training "
         f"f32 {ms.train_steps} steps of {ms.train_batch} x "
@@ -5969,7 +6386,7 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes()) -> Dict[str, object]:
         f"{[(r['train_flash'],) + tuple((r[dt]['flash'], r[dt]['decode']) for dt in MESH_SERVE) for r in ranks]};"
         f" reshard restore bit for bit {ckpt_equal}; world {world_s:.3f} s,"
         f" phase {out['seconds']:.3f} s; {card_line()}")
-    return out
+    return out, moe_out
 
 
 def main() -> int:
@@ -6020,7 +6437,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     enc = encdec_phase("cuda")
     torch.cuda.empty_cache()
-    mesh = mesh_phase("cuda")
+    mesh, mesh_moe = mesh_phase("cuda")
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
@@ -6035,13 +6452,15 @@ def main() -> int:
     log(json.dumps({"families": fam}))
     log(json.dumps({"encdec": enc}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"mesh_moe": mesh_moe}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
              "train": {"flash_attention": trained["main"]["flash_launches"]},
              "families": fam["launches"],
              "encdec": enc["launches"],
-             "mesh": mesh["launches"]}
+             "mesh": mesh["launches"],
+             "mesh_moe": mesh_moe["launches"]}
     kernels = res["kernels"] + mres["kernels"]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()

@@ -10,6 +10,12 @@ JAX package enters ``shard_map`` over the pod axis, every rank here holds
 its own per-pod values and calls the collective on the axis's process
 group (``mesh.get_group("pod")``). A mesh without a ``pod`` axis leaves
 the tree as it is.
+
+``all_to_all`` is the exchange of expert parallelism (``models/moe.py``):
+equal chunks of a tensor's leading dim go one to each rank of a mesh
+axis, inside autograd, its backward the reverse exchange. It runs through
+the functional ``all_to_all_single``, which ``gloo_cuda.install``
+carries on CUDA tensors over gloo.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from repro_torch.models.tree import tree_map
 from repro_torch.optim.compression import int8_codes
 
 __all__ = ["psum_int8", "pod_allreduce_int8", "crosspod_grad_mean",
-           "axis_size"]
+           "axis_size", "all_to_all"]
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
@@ -81,3 +87,37 @@ def crosspod_grad_mean(grads: Any, mesh: DeviceMesh, *,
         return total / n
 
     return tree_map(pmean, grads)
+
+
+def _exchange(x: torch.Tensor, group_name: str, n: int) -> torch.Tensor:
+    x = x.contiguous()
+    splits = [x.shape[0] // n] * n
+    f = torch.ops._c10d_functional
+    return f.wait_tensor(f.all_to_all_single(x, splits, splits, group_name))
+
+
+class _AllToAll(torch.autograd.Function):
+    """Chunk ``j`` of the leading dim to rank ``j``; the gradient of what
+    rank ``i`` sent comes back from rank ``i`` the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group_name, n):
+        ctx.group_name, ctx.n = group_name, n
+        return _exchange(x, group_name, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group_name, ctx.n), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """``x``'s leading dim in ``n`` equal chunks (``n`` the ranks along
+    ``axis``), chunk ``j`` sent to rank ``j`` of the axis; returns the
+    chunks received, in rank order, as one tensor of ``x``'s shape.
+    Differentiable: the backward is the reverse exchange."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all of {x.shape[0]} rows over {n} ranks")
+    return _AllToAll.apply(x, mesh.get_group(axis).group_name, n)

@@ -47,19 +47,19 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard, distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.tree import (tree_flatten_with_path, tree_map,
-                                     tree_unflatten)
+from repro_torch.models.tree import tree_flatten_with_path, tree_unflatten
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "Spec", "AbstractMesh",
            "dp_axes", "spec_for_leaf", "param_specs", "opt_specs",
            "batch_specs", "cache_specs_tree", "placements", "named",
            "tree_named", "spec_leaves", "map_spec_tree", "distribute",
            "is_wide", "mesh_dim", "fsdp_gather", "pin_dp", "pin_heads",
-           "like", "model_rank", "HeadLayout", "head_layout"]
+           "like", "model_rank", "HeadLayout", "head_layout", "matmul",
+           "from_local", "mm_f32", "ExpertLayout", "expert_layout"]
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -464,17 +464,32 @@ def fsdp_gather(tree: Any, rules: ShardingRules = DEFAULT_RULES) -> Any:
     ``Replicate()`` on that mesh dim, every other placement kept. Done
     at a weight's use, so the product runs against the batch-sharded
     activations as FSDP does; its backward reduce-scatters the gradient
-    back to the weight's shards. Plain tensors pass through."""
-    def one(t):
+    back to the weight's shards. An expert leaf (under ``experts``)
+    sharded on its expert dim (the third from last) over
+    ``rules.expert`` keeps that shard: that is EP, each data rank runs
+    its own experts (``ExpertLayout``). Plain tensors pass through."""
+    def one(path, t):
         if not isinstance(t, DTensor):
             return t
         d = mesh_dim(t.device_mesh, rules.fsdp)
         if d is None or isinstance(t.placements[d], Replicate):
             return t
+        if _is_ep_leaf(path, t, rules):
+            return t
         pl = list(t.placements)
         pl[d] = Replicate()
         return t.redistribute(t.device_mesh, pl)
-    return tree_map(one, tree)
+    flat = tree_flatten_with_path(tree)
+    return tree_unflatten(tree, [one(p, t) for p, t in flat])
+
+
+def _is_ep_leaf(path: Tuple, t: DTensor,
+                rules: ShardingRules = DEFAULT_RULES) -> bool:
+    """Whether the leaf at ``path`` is an expert weight sharded on its
+    expert dim over ``rules.expert`` (EP)."""
+    d = mesh_dim(t.device_mesh, rules.expert)
+    return ("experts" in path and d is not None and t.dim() >= 3
+            and t.placements[d] == Shard(t.dim() - 3))
 
 
 def pin_dp(x: DTensor, rules: ShardingRules = DEFAULT_RULES) -> DTensor:
@@ -487,6 +502,114 @@ def pin_dp(x: DTensor, rules: ShardingRules = DEFAULT_RULES) -> DTensor:
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def from_local(t: torch.Tensor, mesh: DeviceMesh,
+               pl: Sequence[Placement], shape: Sequence[int]) -> DTensor:
+    """``DTensor.from_local`` of a contiguous local piece with the global
+    ``shape`` given, so that a dim some axis shards unevenly keeps its
+    size."""
+    stride, n = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(n)
+        n *= s
+    return DTensor.from_local(t, mesh, tuple(pl), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def matmul(x: DTensor, w: DTensor) -> DTensor:
+    """``x (..., k) @ w (k, n)`` on each rank's local pieces, the result's
+    placements fixed by the operands'. DTensor's own propagation may put
+    the flattened token dim of a batch that ``data`` does not divide on
+    ``data``, which it then cannot view back to ``(B, S, n)``. Per mesh
+    dim, with ``x`` first brought from ``Partial`` to ``Replicate``:
+
+    * ``x`` ``Shard`` on a leading dim, ``w`` replicated: the result so
+      sharded (``w``'s gradient a partial sum);
+    * ``x`` replicated, ``w`` ``Shard(1)`` (column-parallel): the result
+      ``Shard`` on its last dim (``x``'s gradient a partial sum);
+    * ``x`` ``Shard`` on its last dim, ``w`` ``Shard(0)`` (row-parallel):
+      a partial sum; ``x`` replicated against such a ``w`` takes its own
+      slice first, ``w`` replicated against such an ``x`` likewise;
+    * both replicated: replicated.
+
+    A partial sum in a low-precision dtype comes out of the GEMM in f32
+    (``mm_f32``), is reduced here, then rounded once to ``x``'s dtype:
+    the meshless product accumulates in f32 and rounds once, where
+    summing rounded partials would round twice.
+    """
+    mesh, last = x.device_mesh, x.dim() - 1
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                  else p for p in x.placements])
+    xp, wp = list(x.placements), list(w.placements)
+    for i, (a, b) in enumerate(zip(xp, wp)):
+        if isinstance(a, Replicate) and b == Shard(0):
+            xp[i] = Shard(last)
+        elif a == Shard(last) and isinstance(b, Replicate):
+            wp[i] = Shard(0)
+    if xp != list(x.placements):
+        x = x.redistribute(mesh, xp)
+    if wp != list(w.placements):
+        w = w.redistribute(mesh, wp)
+    out, xg, wg = [], [], []
+    for a, b in zip(xp, wp):
+        if isinstance(a, Shard) and a.dim < last and isinstance(b, Replicate):
+            out.append(a), xg.append(a), wg.append(Partial())
+        elif isinstance(a, Replicate) and b == Shard(1):
+            out.append(Shard(last)), xg.append(Partial()), wg.append(b)
+        elif a == Shard(last) and b == Shard(0):
+            out.append(Partial()), xg.append(a), wg.append(b)
+        elif isinstance(a, Replicate) and isinstance(b, Replicate):
+            out.append(a), xg.append(a), wg.append(b)
+        else:
+            raise ValueError(f"matmul of placements {tuple(x.placements)} "
+                             f"and {tuple(w.placements)}")
+    xl, wl = x.to_local(grad_placements=xg), w.to_local(grad_placements=wg)
+    shape = tuple(x.shape[:-1]) + (w.shape[1],)
+    if x.dtype == torch.float32 or not any(isinstance(p, Partial)
+                                           for p in out):
+        return from_local(xl @ wl, mesh, out, shape)
+    yl = mm_f32(xl.reshape(-1, xl.shape[-1]), wl)
+    y = from_local(yl.view(tuple(xl.shape[:-1]) + (wl.shape[1],)), mesh,
+                   out, shape)
+    return y.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                 else p for p in out]).to(x.dtype)
+
+
+class _MmF32(torch.autograd.Function):
+    """``x @ w`` (``mm`` of 2-D, ``bmm`` of 3-D operands) of one
+    low-precision dtype, accumulated in f32 and returned in f32 without
+    rounding: on the card one tensor-core GEMM with an f32 output
+    (``out_dtype``); the CPU backend has no such overload, so there the
+    operands are widened first, which computes the same sums. The
+    backward runs in the operands' dtype, as the plain product's does
+    (its incoming gradient holds values of that dtype)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        op = torch.mm if x.dim() == 2 else torch.bmm
+        if x.is_cuda:
+            return op(x, w, out_dtype=torch.float32)
+        return op(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (g @ w.mT if ctx.needs_input_grad[0] else None,
+                x.mT @ g if ctx.needs_input_grad[1] else None)
+
+
+def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32, unrounded: the plain product for f32 operands,
+    ``_MmF32`` for low-precision ones (a partial sum that is reduced
+    before it is rounded once)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    return _MmF32.apply(x, w)
 
 
 def pin_heads(x: DTensor, sharded: bool,
@@ -569,3 +692,32 @@ def head_layout(mesh: DeviceMesh, hq: int, hkv: int,
     if rep % local == 0:
         return HeadLayout(m, hq, hkv, True, False)
     return HeadLayout(m, hq, hkv, False, False)
+
+
+@dataclass(frozen=True)
+class ExpertLayout:
+    """Which experts each ``data`` rank runs. ``ep``: the expert dim is
+    ``Shard`` over ``data`` (``d`` divides ``e``, the rule of
+    ``spec_for_leaf``), so data rank ``r`` owns experts ``[lo(r), lo(r) +
+    local)``; otherwise every rank holds every expert, their ``d_model``
+    dim gathered at use (FSDP) and their ``ff`` dim over ``model``."""
+
+    d: int
+    e: int
+    ep: bool
+
+    @property
+    def local(self) -> int:
+        return self.e // self.d if self.ep else self.e
+
+    def lo(self, r: int) -> int:
+        return r * self.local if self.ep else 0
+
+
+def expert_layout(mesh: Mesh, num_experts: int,
+                  rules: ShardingRules = DEFAULT_RULES) -> ExpertLayout:
+    """The EP rule for ``num_experts`` experts over the mesh's ``expert``
+    axis (see ``ExpertLayout``)."""
+    d = max(1, _axis_size(mesh, rules.expert))
+    ep = _fit(mesh, rules.expert, num_experts) is not None and rules.prefer_ep
+    return ExpertLayout(d, num_experts, ep)

@@ -23,9 +23,11 @@ parameters and optimizer state are DTensors placed by
 step computes the unsharded step's maths on them, as GSPMD does in JAX:
 the batch sharded over ``("pod", "data")``, each weight's ``data`` shards
 gathered at its use (FSDP), heads, FFN hidden and vocab over ``model``
-(TP), every gradient brought back to its parameter's placements before
-AdamW. Dense attention (``ad``) models run there; the other block kinds,
-frontends and the encoder-decoder raise (``check_sharded_support``).
+(TP), the experts over ``data`` where it divides them (EP,
+``models/moe.py``), every gradient brought back to its parameter's
+placements before AdamW. Attention models with dense or MoE feed-forward
+halves (``ad``, ``ae``) run there; the Mamba blocks, frontends and the
+encoder-decoder raise (``check_sharded_support``).
 """
 from __future__ import annotations
 
@@ -92,12 +94,10 @@ def cache_struct(cfg: ModelConfig, batch: int, cache_len: int) -> Any:
 
 def check_sharded_support(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming what a config needs that the
-    DTensor path (dense attention blocks) does not cover yet."""
+    DTensor path (attention blocks with dense or MoE feed-forward halves)
+    does not cover yet."""
     pattern = blocks.normalize_pattern(cfg)
     missing = []
-    if any(t[1] == "e" for t in pattern):
-        missing.append("MoE's dispatch and expert parallelism "
-                       "(models/moe.py)")
     if any(t[0] == "m" for t in pattern):
         missing.append("the SSD scan (models/ssm.py)")
     if cfg.frontend:
@@ -107,8 +107,9 @@ def check_sharded_support(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name} on a mesh whose data or model axis has several "
-            f"ranks: the DTensor path runs dense attention blocks only; "
-            f"not covered: {'; '.join(missing)}")
+            f"ranks: the DTensor path runs attention blocks with dense or "
+            f"MoE feed-forward halves only; not covered: "
+            f"{'; '.join(missing)}")
 
 
 def _value_and_grad(params: Any, cfg: ModelConfig,

@@ -24,10 +24,12 @@ routes every token to the experts the forward pass chose: the routing is
 a function of the block's input alone.
 
 On a wide mesh (DTensor activations and parameters placed by
-``distributed/sharding.py``; dense ``ad`` blocks only) each layer's
-weights have their ``data`` shards gathered at their use
-(``sharding.fsdp_gather``), and every block's output is pinned
-batch-sharded over the data axes (``sharding.pin_dp``).
+``distributed/sharding.py``; attention blocks, ``ad`` and ``ae``) each
+layer's weights have their ``data`` shards gathered at their use
+(``sharding.fsdp_gather``; an EP expert leaf keeps its expert shard),
+and the residual stream is pinned batch-sharded over the data axes
+(``sharding.pin_dp``) after the mixer and after the feed-forward half, so
+that no half starts from a partial sum over ``model``.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -117,7 +119,7 @@ def block_train(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
         x = x + attn.attend_train(p["attn"], h, cfg, positions)
     else:
         x = x + ssm.mamba_train(p["mamba"], h, cfg)
-    x, metrics = _ffn_apply(p, x, cfg, token)
+    x, metrics = _ffn_apply(p, _pinned(x), cfg, token)
     return _pinned(x), metrics
 
 
@@ -133,7 +135,7 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
                                        cache_len)
     else:
         o, cache = ssm.mamba_prefill(p["mamba"], h, cfg)
-    x, _ = _ffn_apply(p, x + o, cfg, token)
+    x, _ = _ffn_apply(p, _pinned(x + o), cfg, token)
     return _pinned(x), cache
 
 
@@ -148,8 +150,18 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, token: str,
         o, cache = attn.attend_decode(p["attn"], h, cfg, cache, position)
     else:
         o, cache = ssm.mamba_decode(p["mamba"], h, cfg, cache)
-    x2, _ = _ffn_apply(p, (x + o)[:, None, :], cfg, token)
+    x2, _ = _ffn_apply(p, _pinned(x + o)[:, None, :], cfg, token)
     return _pinned(x2[:, 0, :]), cache
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    """An f32 zero, replicated on ``x``'s mesh when ``x`` is a DTensor."""
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    if isinstance(x, DTensor):
+        return DTensor.from_local(z, x.device_mesh,
+                                  [Replicate()] * x.device_mesh.ndim,
+                                  run_check=False)
+    return z
 
 
 def _pinned(x: torch.Tensor) -> torch.Tensor:
@@ -231,8 +243,7 @@ def run_blocks_train(stacked: Tuple[Params, ...], x: torch.Tensor,
     pattern = normalize_pattern(cfg)
 
     def superblock(x, layer_params):
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        zl = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = zl = _zero(x)
         for r, token in enumerate(pattern):
             x, m = block_train(layer_params[r], x, cfg, token, positions)
             if "moe_aux" in m:

@@ -15,10 +15,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding
 
 __all__ = ["init_norm", "apply_norm", "rope_freqs", "apply_rope",
            "mrope_positions_text", "init_mlp", "apply_mlp", "init_linear",
-           "apply_linear", "init_embedding"]
+           "apply_linear", "init_embedding", "matmul"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -119,8 +122,15 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     return p
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``x``'s dtype; on DTensors through
+    ``sharding.matmul`` (each rank's local product)."""
+    w = w.to(x.dtype)
+    return sharding.matmul(x, w) if isinstance(x, DTensor) else x @ w
+
+
 def apply_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -137,16 +147,16 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, act: str,
 
 
 def apply_mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ p["wi"].to(x.dtype)
+    h = matmul(x, p["wi"])
     if act == "swiglu":
-        h = F.silu(x @ p["wg"].to(x.dtype)) * h
+        h = F.silu(matmul(x, p["wg"])) * h
     elif act == "geglu":
-        h = F.gelu(x @ p["wg"].to(x.dtype), approximate="tanh") * h
+        h = F.gelu(matmul(x, p["wg"]), approximate="tanh") * h
     elif act == "gelu":
         h = F.gelu(h, approximate="tanh")        # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown act {act!r}")
-    return h @ p["wo"].to(x.dtype)
+    return matmul(h, p["wo"])
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,

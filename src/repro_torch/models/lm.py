@@ -26,8 +26,9 @@ masked to the token positions. The encoder-decoder models run in
 ``models/encdec.py``; this module's entry points refuse them
 (``check_supported``).
 
-With DTensor parameters and inputs on a wide mesh (dense ``ad`` models,
-``launch/steps.py``) the embedding and the head have their ``data``
+With DTensor parameters and inputs on a wide mesh (attention models
+with dense or MoE feed-forward halves, ``launch/steps.py``) the embedding
+and the head (the tied embedding, or mixtral's own) have their ``data``
 shards gathered at their use, the positions are placed as the batch, and
 the logits' vocab dim (sharded over ``model``) is gathered before the
 loss or the caller reads them: ``B·S·V`` f32 per data rank.
@@ -44,7 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (apply_norm, init_embedding, init_norm,
-                                       mrope_positions_text)
+                                       matmul, mrope_positions_text)
 from repro_torch.models.tree import tree_map
 
 Params = Dict[str, Any]
@@ -155,7 +156,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
     head = top.get("head_f32")
     if head is None:
         head = top["embed"] if cfg.tie_embeddings else top["lm_head"]
-    logits = x.float() @ head.float().T
+    logits = matmul(x.float(), head.float().T)
     return sharding.pin_dp(logits) if isinstance(logits, DTensor) else logits
 
 

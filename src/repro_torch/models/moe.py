@@ -17,16 +17,43 @@ each token reads its ``K`` expert outputs back and sums them in ascending
 expert order, the order of JAX's sorted scatter-add. No index is out of
 bounds, nothing adds with atomics, so the forward pass is the same on the
 card in every run, and no step waits on the host.
+
+On a mesh whose ``data`` or ``model`` axis has several ranks (``x`` a
+DTensor, the parameters placed by ``distributed/sharding.py`` and
+gathered by ``blocks._layer``) the layer computes what the meshless one
+computes at the same ``cfg.moe_groups``, on local tensors:
+
+* local groups (as many groups as the batch has data shards): each rank
+  dispatches its own rows with the group's capacity, no tokens move;
+* otherwise (one group, or groups that do not match the shards) the
+  token stream is all-gathered over the data axes and every rank runs
+  the meshless dispatch of every group, then keeps its own rows.
+
+The experts follow ``sharding.ExpertLayout``. With EP a rank runs only
+its own experts: with local groups each slab's rows go to their experts'
+owner by one all-to-all over ``data`` and come back by another
+(``collectives.all_to_all``); with the gathered stream each rank takes
+its experts' rows of the slab, which every rank holds, and the outputs
+are all-gathered. Without EP every rank runs every expert. The experts'
+``ff`` dim is sharded over ``model``: their outputs are partial sums,
+reduced over ``model`` in f32 where they come out of the last product and
+then rounded once to the activations' dtype, as the meshless product
+rounds; the slab's tokens enter through an identity whose backward sums
+their gradient over ``model``. The combine then runs as the meshless
+one on whole expert outputs.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.collectives import all_to_all
 from repro_torch.models.layers import apply_mlp, init_linear, init_mlp
 
 Params = Dict[str, torch.Tensor]
@@ -67,8 +94,11 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _expert_ffn(experts: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """x (E, cap, d) through per-expert MLPs (E, d, ff)/(E, ff, d)."""
+def _expert_ffn(experts: Params, x: torch.Tensor, act: str,
+                f32_out: bool = False) -> torch.Tensor:
+    """x (E, cap, d) through per-expert MLPs (E, d, ff)/(E, ff, d); the
+    last product in x's dtype, or with ``f32_out`` its f32 sums
+    unrounded (``sharding.mm_f32``)."""
     h = torch.bmm(x, experts["wi"].to(x.dtype))
     if act in ("swiglu", "geglu"):
         g = torch.bmm(x, experts["wg"].to(x.dtype))
@@ -76,7 +106,8 @@ def _expert_ffn(experts: Params, x: torch.Tensor, act: str) -> torch.Tensor:
              else F.gelu(g, approximate="tanh")) * h
     else:
         h = F.gelu(h, approximate="tanh")        # jax.nn.gelu's default
-    return torch.bmm(h, experts["wo"].to(x.dtype))
+    wo = experts["wo"].to(x.dtype)
+    return sharding.mm_f32(h, wo) if f32_out else torch.bmm(h, wo)
 
 
 def route(router: torch.Tensor, xf: torch.Tensor, top_k: int
@@ -91,10 +122,17 @@ def route(router: torch.Tensor, xf: torch.Tensor, top_k: int
     return logits, probs, gates, eidx
 
 
-def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig, cap: int
+Fn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig, cap: int,
+                    ffn: Optional[Fn] = None, tp: Optional[Fn] = None
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Capacity dispatch of one token group ``xf (t, d)``: (y (t, d),
-    (load-balance aux, router z loss, dropped share))."""
+    (load-balance aux, router z loss, dropped share)). ``ffn`` runs the
+    ``(E, cap, d)`` slab through the experts (``p["experts"]`` by
+    default); ``tp``, where given, is applied to the slab's source
+    tokens."""
     moe = cfg.moe
     t, d = xf.shape
     E, K = moe.num_experts, moe.top_k
@@ -120,10 +158,12 @@ def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig, cap: int
     c_idx = torch.arange(cap, device=dev)
     filled = c_idx[None, :] < counts[:, None]                 # (E, cap)
     src = torch.clamp(starts[:, None] + c_idx[None, :], max=t * K - 1)
-    disp = torch.where(filled[..., None], xf[st[src]],
-                       xf.new_zeros(()))                       # (E, cap, d)
+    xs = xf if tp is None else tp(xf)
+    disp = torch.where(filled[..., None], xs[st[src]],
+                       xs.new_zeros(()))                       # (E, cap, d)
 
-    out_e = _expert_ffn(p["experts"], disp, cfg.act)          # (E, cap, d)
+    out_e = (_expert_ffn(p["experts"], disp, cfg.act) if ffn is None
+             else ffn(disp))                                   # (E, cap, d)
 
     gathered = out_e[expert_flat, torch.clamp(pos, max=cap - 1)]
     weighted = gathered * (gates.reshape(-1) * keep.to(gates.dtype)
@@ -146,6 +186,32 @@ def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig, cap: int
     return y, (aux, z, dropped)
 
 
+def _groups(cfg: ModelConfig, B: int, T: int) -> int:
+    """The dispatch groups of ``B`` rows, ``T`` tokens: ``cfg.moe_groups``,
+    or one where it does not divide them."""
+    G = max(cfg.moe_groups, 1)
+    if T % G or (B % G and G > 1):
+        G = 1
+    return G
+
+
+def _dispatch(p: Params, xf: torch.Tensor, cfg: ModelConfig, G: int,
+              ffn: Optional[Fn] = None, tp: Optional[Fn] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``G`` groups of ``xf (T, d)`` dispatched one after the other, each
+    with its own capacity; the metrics averaged over the groups."""
+    T, d = xf.shape
+    if G == 1:
+        return _dispatch_group(p, xf, cfg, expert_capacity(T, cfg.moe),
+                               ffn, tp)
+    cap = expert_capacity(T // G, cfg.moe)
+    outs = [_dispatch_group(p, xg, cfg, cap, ffn, tp)
+            for xg in xf.reshape(G, T // G, d)]
+    y = torch.cat([o[0] for o in outs])
+    return y, tuple(torch.stack([o[1][i] for o in outs]).mean()
+                    for i in range(3))
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (y (B, S, d), aux metrics incl. load-balance loss).
@@ -153,26 +219,15 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     ``cfg.moe_groups > 1`` splits the token stream into that many groups
     with per-group capacity (the JAX package's data-shard-aligned groups),
     dispatched one after the other; a group count that does not divide the
-    batch falls back to one group, as there.
+    batch falls back to one group, as there. A DTensor ``x`` runs on the
+    mesh (see the module's docstring).
     """
+    if isinstance(x, DTensor):
+        return _apply_moe_sharded(p, x, cfg)
     moe = cfg.moe
     B, S, d = x.shape
-    T = B * S
-    G = max(cfg.moe_groups, 1)
-    if T % G or (B % G and G > 1):
-        G = 1
-    xf = x.reshape(T, d)
-
-    if G == 1:
-        y, (aux, z, dropped) = _dispatch_group(
-            p, xf, cfg, expert_capacity(T, moe))
-    else:
-        cap = expert_capacity(T // G, moe)
-        outs = [_dispatch_group(p, xg, cfg, cap)
-                for xg in xf.reshape(G, T // G, d)]
-        y = torch.cat([o[0] for o in outs])
-        aux, z, dropped = (torch.stack([o[1][i] for o in outs]).mean()
-                           for i in range(3))
+    xf = x.reshape(B * S, d)
+    y, (aux, z, dropped) = _dispatch(p, xf, cfg, _groups(cfg, B, B * S))
 
     if moe.num_shared:
         for i in range(moe.num_shared):
@@ -181,3 +236,154 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     metrics = {"moe_aux": aux, "moe_zloss": z, "moe_drop_frac": dropped}
     return y.reshape(B, S, d), metrics
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def _local(t: DTensor, partial: Sequence[int]) -> torch.Tensor:
+    """``t``'s local piece, its gradient a partial sum over the mesh dims
+    ``partial`` (each rank used it on its own tokens) and in ``t``'s
+    placements elsewhere."""
+    return t.to_local(grad_placements=[
+        Partial() if i in partial else q for i, q in enumerate(t.placements)])
+
+
+def _grad_summed_over(mesh, dim: int) -> Fn:
+    """Identity forward; the backward sums the gradient over mesh dim
+    ``dim`` (the slab tokens' gradient, each rank's from its share of the
+    experts' ``ff``)."""
+    rep = [Replicate()] * mesh.ndim
+    part = list(rep)
+    part[dim] = Partial()
+
+    def f(t: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(t, mesh, rep, run_check=False).to_local(
+            grad_placements=part)
+    return f
+
+
+def _local_ffn(ex: Params, x: torch.Tensor, act: str, mesh,
+               md: Optional[int]) -> torch.Tensor:
+    """The rank's experts on ``x (E_local, rows, d)``; where their ``ff``
+    dim is sharded over mesh dim ``md`` the f32 partial sums are reduced
+    over it, then rounded to ``x``'s dtype."""
+    if md is None:
+        return _expert_ffn(ex, x, act)
+    rep = [Replicate()] * mesh.ndim
+    part = list(rep)
+    part[md] = Partial()
+    out = _expert_ffn(ex, x, act, f32_out=True)
+    return DTensor.from_local(out, mesh, part, run_check=False).redistribute(
+        mesh, rep).to_local().to(x.dtype)
+
+
+def _ep_exchange(ffn: Fn, disp: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """EP with local groups: the slab ``(E, cap, d)`` of this rank's group
+    to the experts' owners (chunk ``j`` of ``E/n`` experts to data rank
+    ``j``), this rank's experts (``ffn``) over every group's rows, the
+    outputs back."""
+    E, cap, d = disp.shape
+    el = E // n
+    got = all_to_all(disp, mesh, "data").view(n, el, cap, d)
+    out = ffn(got.transpose(0, 1).reshape(el, n * cap, d))
+    out = out.view(el, n, cap, d).transpose(0, 1).reshape(E, cap, d)
+    return all_to_all(out, mesh, "data")
+
+
+def _ep_gathered(ffn: Fn, disp: torch.Tensor, mesh, dim: int
+                 ) -> torch.Tensor:
+    """EP on the gathered stream: every rank holds the whole slab
+    ``(E, cap, d)``; it runs its experts (``ffn``) on their rows (a
+    slice, whose backward all-gathers the slab's gradient) and
+    all-gathers the outputs over mesh dim ``dim`` (whose backward keeps
+    the rank's own experts')."""
+    rep = [Replicate()] * mesh.ndim
+    sh = list(rep)
+    sh[dim] = Shard(0)
+    mine = DTensor.from_local(disp, mesh, rep, run_check=False).redistribute(
+        mesh, sh).to_local()
+    out = ffn(mine)
+    return sharding.from_local(out, mesh, sh, tuple(disp.shape)).redistribute(
+        mesh, rep).to_local()
+
+
+def _group_means(vals: torch.Tensor, mesh, dp: Sequence[int], G: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Each rank's group metrics ``vals (3,)`` gathered over the data axes
+    (group order, pod-major), then averaged over the groups as the
+    meshless path averages them."""
+    sh = [Shard(0) if i in dp else Replicate() for i in range(mesh.ndim)]
+    every = sharding.from_local(vals[None], mesh, sh, (G, 3)).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+    return tuple(every[:, i].contiguous().mean() for i in range(3))
+
+
+def _apply_moe_sharded(p: Params, x: DTensor, cfg: ModelConfig
+                       ) -> Tuple[DTensor, Dict[str, DTensor]]:
+    """``apply_moe`` of a DTensor ``x`` (B, S, d): batch-sharded over the
+    data axes or replicated there, replicated over ``model``."""
+    moe = cfg.moe
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    G = _groups(cfg, B, B * S)
+    names = mesh.mesh_dim_names
+    dp = [names.index(a) for a in sharding.dp_axes(mesh)]
+    sharded = [i for i in dp if isinstance(x.placements[i], Shard)]
+    local = bool(sharded) and G == math.prod(mesh.shape[i] for i in sharded)
+    ed = sharding.mesh_dim(mesh, "data")
+    md = sharding.mesh_dim(mesh, "model")
+    experts = p["experts"]
+    lay = sharding.expert_layout(mesh, moe.num_experts)
+    if md is None or not isinstance(experts["wi"].placements[md], Shard):
+        md = None
+    tp = _grad_summed_over(mesh, md) if md is not None else None
+
+    # with local groups every rank routes and runs its own tokens, so the
+    # weights' gradients are partial sums over the data axes (an EP
+    # leaf's data shard holds every group's rows of its experts)
+    partial = dp if local else []
+    ex = {k: _local(v, [i for i in partial if not (lay.ep and i == ed)])
+          for k, v in experts.items()}
+    q = {"router": _local(p["router"], partial), "experts": ex}
+
+    def ffn(rows: torch.Tensor) -> torch.Tensor:
+        return _local_ffn(ex, rows, cfg.act, mesh, md)
+
+    if lay.ep and local:
+        slab = lambda disp: _ep_exchange(ffn, disp, mesh, lay.d)
+    elif lay.ep:
+        slab = lambda disp: _ep_gathered(ffn, disp, mesh, ed)
+    else:
+        slab = ffn
+
+    pl = list(x.placements)
+    if local:
+        xl = x.to_local()
+        y, m = _dispatch_group(q, xl.reshape(-1, d), cfg,
+                               expert_capacity(B * S // G, moe), slab, tp)
+        aux, z, dropped = _group_means(torch.stack(m), mesh, dp, G)
+    else:
+        for i in sharded:
+            pl[i] = Replicate()
+        xl = x.redistribute(mesh, pl).to_local() if sharded else x.to_local()
+        y, (aux, z, dropped) = _dispatch(q, xl.reshape(B * S, d), cfg, G,
+                                         slab, tp)
+    out = sharding.from_local(y.view(xl.shape), mesh, pl, (B, S, d))
+    if sharded and not local:
+        # every rank combined every row: keep its own (a local slice)
+        for i in sharded:
+            pl[i] = x.placements[i]
+        out = out.redistribute(mesh, pl)
+
+    if moe.num_shared:
+        for i in range(moe.num_shared):
+            one = {k: v[i] for k, v in p["shared"].items()}
+            out = out + apply_mlp(one, x, cfg.act)
+
+    rep = [Replicate()] * mesh.ndim
+    metrics = {k: DTensor.from_local(v, mesh, rep, run_check=False)
+               for k, v in (("moe_aux", aux), ("moe_zloss", z),
+                            ("moe_drop_frac", dropped))}
+    return out, metrics

@@ -1821,6 +1821,8 @@ def test_collectors_neither_sync_nor_copy():
     (12, 2, 128, 2),     # qwen2-1.5b at model=2: q and kv heads sharded
     (12, 2, 128, 4),     # replicated K/V: each rank slices its kv head
     (4, 1, 16, 2),       # reduced qwen2-1.5b: the one kv head whole
+    (24, 8, 64, 2),      # granite-moe-3b-a800m at model=2: 12/4 a rank
+    (48, 8, 128, 2),     # mixtral-8x22b at model=2: 24/4 a rank
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_local_heads_kernel_calls_equal_the_full_call(card, Hq, Hkv, D, m,
@@ -1868,7 +1870,7 @@ def test_local_heads_kernel_calls_equal_the_full_call(card, Hq, Hkv, D, m,
 
 
 MESH_RANK = """
-import pickle, sys
+import dataclasses, pickle, sys
 from datetime import timedelta
 import numpy as np
 import torch
@@ -1882,6 +1884,11 @@ from repro_torch.models.tree import tree_flatten_with_path
 from repro_torch.optim import adamw
 
 rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+# optional: the arch, the (data, model) shape and moe_groups
+arch = sys.argv[4] if len(sys.argv) > 4 else "qwen2-1.5b"
+shape = (tuple(int(x) for x in sys.argv[5].split(","))
+         if len(sys.argv) > 5 else (1, 2))
+groups = int(sys.argv[6]) if len(sys.argv) > 6 else 0
 torch.cuda.set_device(0)
 torch.backends.cuda.matmul.allow_tf32 = False
 dist.init_process_group("cpu:gloo,cuda:gloo",
@@ -1889,8 +1896,8 @@ dist.init_process_group("cpu:gloo,cuda:gloo",
                         world_size=2, timeout=timedelta(seconds=120))
 gloo_cuda.install()
 try:
-    cfg = reduced(get_config("qwen2-1.5b"))
-    mesh = tmesh.make_mesh((1, 2), ("data", "model"))
+    cfg = dataclasses.replace(reduced(get_config(arch)), moe_groups=groups)
+    mesh = tmesh.make_mesh(shape, ("data", "model"))
     p0 = steps.init_params(torch.Generator().manual_seed(0), cfg)
     rng = np.random.default_rng(1)
     batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
@@ -1982,3 +1989,102 @@ def test_two_process_mesh_on_the_card_matches_the_meshless_step(card,
                   for a, b in zip(res["params"], want))
         den = sum(float((b ** 2).sum()) for b in want)
         assert (num / den) ** 0.5 <= 1e-4
+
+
+@pytest.mark.parametrize("groups", [2, 0])
+def test_two_process_moe_mesh_on_the_card_matches_the_meshless_step(
+        card, tmp_path, groups):
+    """Two processes share the card on a (2, 1) mesh over ("data",
+    "model"): reduced granite (4 experts, so EP, 2 a rank) at
+    ``moe_groups`` 2 (local groups: the slab rows go to their experts'
+    owner by the all-to-all, carried over gloo on CUDA tensors by
+    ``distributed/gloo_cuda.py``) and 0 (the token stream gathered, the
+    outputs all-gathered); 3 steps against the meshless step on the
+    card, losses and gradient norms within 1e-5 relative, parameters
+    within 1e-4 relative L2."""
+    import dataclasses
+    import pickle
+    import subprocess
+    import sys
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim import adamw
+    _build.library()            # built once here; the ranks load it
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    (tmp_path / "rank.py").write_text(MESH_RANK)
+    env = dict(os.environ, PYTHONPATH=src)
+    arch = "granite-moe-3b-a800m"
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "rank.py"), str(r),
+         str(tmp_path / "store"), str(tmp_path / f"out{r}.pkl"), arch,
+         "2,1", str(groups)],
+        env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for r in (0, 1)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = [pickle.loads((tmp_path / f"out{r}.pkl").read_bytes())
+             for r in (0, 1)]
+    cfg = dataclasses.replace(reduced(get_config(arch)), moe_groups=groups)
+    params = _on(steps.init_params(torch.Generator().manual_seed(0), cfg),
+                 "cuda")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                             dtype=torch.int32, device=card)
+             for k in ("tokens", "targets")}
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = steps.make_train_step(cfg, ocfg)
+    s = adamw.adamw_init(params, ocfg)
+    losses, norms = [], []
+    for _ in range(3):
+        params, s, m = step(params, s, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    want = [t.cpu().double().numpy() for _, t in
+            tree_flatten_with_path(params)]
+    for res in ranks:
+        assert res["device"].startswith("cuda")
+        assert res["flash"] == 2 * 3       # 2 layers, no remat, 3 steps
+        np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(res["norms"], norms, rtol=1e-5)
+        num = sum(float(((a - b) ** 2).sum())
+                  for a, b in zip(res["params"], want))
+        den = sum(float((b ** 2).sum()) for b in want)
+        assert (num / den) ** 0.5 <= 1e-4
+
+
+@pytest.mark.parametrize("shapes", [((256, 3072), (3072, 6144)),
+                                    ((4, 64, 512), (4, 512, 256))])
+def test_mm_f32_on_the_card_is_one_bf16_gemm_with_f32_sums(card, shapes):
+    """``sharding.mm_f32`` of bf16 operands on the card (mixtral's
+    attention ``wo`` partial sum at model=2; an expert slab's last
+    product): an f32 result within 1e-4 of the largest entry of the
+    exact product, not rounded to bf16 (the bf16 product's rounding
+    exceeds 1e-3 of it); gradients in bf16, those of the plain bf16
+    product."""
+    from repro_torch.distributed import sharding
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(*shapes[0], generator=g, device=card).bfloat16()
+    w = torch.randn(*shapes[1], generator=g, device=card).bfloat16()
+    x.requires_grad_(), w.requires_grad_()
+    y = sharding.mm_f32(x, w)
+    exact = x.detach().double() @ w.detach().double()
+    scale = float(exact.abs().max())
+    assert y.dtype == torch.float32
+    assert float((y.detach().double() - exact).abs().max()) <= 1e-4 * scale
+    assert float(((x @ w).detach().double() - exact).abs().max()
+                 ) > 1e-3 * scale
+    gy = torch.randn(y.shape, generator=g, device=card).bfloat16()
+    got = torch.autograd.grad(y, (x, w), gy.float())
+    want = torch.autograd.grad(x @ w, (x, w), gy)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)

@@ -133,7 +133,8 @@ then:
    shapes: 24/8 heads of 64 (granite), 32/8 and 28/4 of 128 over 1,088
    rows (jamba, qwen2-vl), mixtral's 48/8 of 128 in a 4096-slot ring
    past its window, the mesh phases' local heads (6/1 of 128, 12/4 of
-   64, 24/4 of 128 in a 72-slot ring), and seamless's 16/16 of 64 at the
+   64, 24/4 of 128 in a 72-slot ring, 16/4 of 128 over 320 and 328
+   rows, 14/2 of 128 rotated by M-RoPE), and seamless's 16/16 of 64 at the
    ``encdec`` phase's
    shapes: flash non-causal at Sq > Sk, 64 over 1024 and 1024 over 1024,
    the decoder's and the training calls, decode over 1024 rows at every
@@ -208,7 +209,7 @@ then:
    checkpoint saved on the world restored onto the meshless loop bit
    for bit;
 20. the MoE families on that world (``mesh_moe``, a budget of 240 s, the
-   same 4 processes): granite-moe-3b-a800m at full width, 4 of 32
+   same 4 processes): granite-moe-3b-a800m at full width, 2 of 32
    layers, ``TrainLoop(mesh=)`` 3 steps of 4 x 128 tokens in f32 at
    ``moe_groups=2`` (one group a data rank: EP's all-to-all, 20 experts
    a data rank) against the meshless loop on the card (losses and
@@ -217,7 +218,29 @@ then:
    and bf16 and mixtral-8x22b at full width, 1 of 56 layers, in bf16
    served by the bundles at ``moe_groups=0`` against ``ModelServer`` as
    in step 19; the bytes the MoE layers hand their exchanges and the
-   attention launches by rank printed, the launches asserted.
+   attention launches by rank printed, the launches asserted;
+21. the SSD scan and the vision frontend on that world (``mesh_families``,
+   a budget of 300 s, the same 4 processes), at full width:
+   mamba2-780m (48 SSD heads of 64, d_state 128, d_proj 6448, conv_ch
+   3328; 4 of 48 layers) ``TrainLoop(mesh=)`` 3 steps of 4 x 320 tokens
+   in f32 (320 crosses the 256-row chunk and pads its tail) and
+   qwen2-vl-7b (2 of 28 layers) 3 steps of 4 x (256 patch embeddings +
+   64 tokens) in f32 at lr 1e-5, each against the meshless loop on the
+   card (losses and gradient norms within 1e-5 relative, parameters
+   within 1e-4 relative L2; where the meshless loop's own spread from a
+   1e-7 start moves a later gradient norm by more than 1e-6, that step's
+   norm is held at the parameters the mesh reached; each rank's state
+   bytes asked of the allocator within 4 KiB of the specs' share);
+   mamba2 served in f32 and bf16 and
+   jamba-v0.1-52b (one period of 8 of 32 layers, about 26.5 GB in bf16,
+   its shards drawn by one rank at a time) in bf16 by the bundles
+   against ``ModelServer``, qwen2-vl in bf16 over its patch embeddings
+   against the meshless prefill and serve steps, 4 prompts and 8
+   teacher-forced steps each, as in step 19 (a bf16 case within 2e-2,
+   or within its meshless run's own distance from an f32 twin where
+   that is larger: jamba, whose top-2-of-16 routings flip under the
+   mesh's rounding; the flipped routings printed); the card's bytes in
+   use, and the attention launches by rank printed and asserted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4027,9 +4050,14 @@ def attention_cases(device) -> Dict[str, float]:
     trains (2 x 128) and prefills (2 x 64), decode over its 72-row cache;
     and ``mesh_moe``'s (granite at model=2: 12 q over 4 kv heads of 64,
     trained and prefilled, decoded over 72 rows; mixtral: 24 over 4 of
-    128, prefilled with its 4096 window, decoded in its 72-slot ring).
-    Returns the largest absolute difference."""
+    128, prefilled with its 4096 window, decoded in its 72-slot ring);
+    and ``mesh_families``' (jamba at model=2: 16 q over 4 kv heads of
+    128, prefilled over 320 rows and decoded over 328; qwen2-vl: 14 over
+    2 of 128, q and k rotated by M-RoPE, trained and prefilled over 256
+    patches and 64 tokens, decoded over 328). Returns the largest
+    absolute difference."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import apply_rope, mrope_positions_text
     from repro_torch.kernels.decode_attention import SPLIT
     errs = {k: 0.0 for k in ATTN_KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
@@ -4063,7 +4091,10 @@ def attention_cases(device) -> Dict[str, float]:
                                       # prefilled, mixtral prefilled
                                       (2, 128, 128, 12, 4, 64),
                                       (2, 64, 64, 12, 4, 64),
-                                      (2, 64, 64, 24, 4, 128)):
+                                      (2, 64, 64, 24, 4, 128),
+                                      # mesh_families': jamba prefilled
+                                      # (qwen2-vl's below, with M-RoPE)
+                                      (2, 320, 320, 16, 4, 128)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
@@ -4083,7 +4114,9 @@ def attention_cases(device) -> Dict[str, float]:
                                  (8, 1024, 24, 8, 64), (8, 1024, 32, 8, 128),
                                  (4, 1120, 28, 4, 128),
                                  (2, 72, 6, 1, 128),     # mesh local heads
-                                 (2, 72, 12, 4, 64)):    # mesh_moe granite
+                                 (2, 72, 12, 4, 64),     # mesh_moe granite
+                                 (2, 328, 16, 4, 128),   # mesh_families:
+                                 (2, 328, 14, 2, 128)):  # jamba, qwen2-vl
             q = _randn((B, Hq, D), dtype, device, 4)
             kc = _randn((B, S, Hkv, D), dtype, device, 5)
             vc = _randn((B, S, Hkv, D), dtype, device, 6)
@@ -4131,6 +4164,32 @@ def attention_cases(device) -> Dict[str, float]:
                     ref.decode_attention_ref(q, kc, vc, lengths),
                     f"decode prefix {dtype} seamless heads S=1024 "
                     f"lengths {lengths.tolist()}"))
+        # qwen2-vl's local heads in mesh_families: 14/2 of 128, q and k
+        # rotated by M-RoPE (sections 16/24/24 over the text positions of
+        # 256 patches and 64 tokens), as it trains and prefills; decoded
+        # over its 328-row cache at the positions it reaches
+        pos = mrope_positions_text(torch.arange(320, device=device)[None]
+                                   .expand(2, 320))
+        q, k = (apply_rope(_randn((2, 320, h, 128), dtype, device, sd), pos,
+                           1e6, (16, 24, 24)) for h, sd in ((14, 19), (2, 20)))
+        v = _randn((2, 320, 2, 128), dtype, device, 21)
+        errs["flash_attention"] = max(
+            errs["flash_attention"], _attn_err(
+                ops.flash_attention(q, k, v, causal=True),
+                ref.flash_attention_ref(q, k, v, causal=True),
+                f"flash {dtype} qwen2-vl local heads M-RoPE"))
+        kc = torch.cat([k, _randn((2, 8, 2, 128), dtype, device, 22)], 1)
+        vc = torch.cat([v, _randn((2, 8, 2, 128), dtype, device, 23)], 1)
+        qd = apply_rope(_randn((2, 1, 14, 128), dtype, device, 24),
+                        mrope_positions_text(torch.full(
+                            (2, 1), 323, device=device)), 1e6,
+                        (16, 24, 24))[:, 0].contiguous()
+        lengths = torch.tensor([321, 328], dtype=torch.int32, device=device)
+        errs["decode_attention"] = max(
+            errs["decode_attention"], _attn_err(
+                ops.decode_attention(qd, kc, vc, lengths),
+                ref.decode_attention_ref(qd, kc, vc, lengths),
+                f"decode {dtype} qwen2-vl local heads M-RoPE"))
         # mixtral's local heads in mesh_moe: 24/4 of 128 in a 72-slot ring
         # (a 64-token prompt and 8 steps, inside the 4096 window)
         q = _randn((2, 24, 128), dtype, device, 16)
@@ -5588,7 +5647,7 @@ class MeshSizes:
     prompt_len: int = 64
     serve_steps: int = 8
     ckpt_steps: int = 2            # the reshard check, reduced width
-    join_s: float = 600.0          # the mesh_moe phase runs on the world
+    join_s: float = 900.0          # mesh_moe and mesh_families run on it
 
 
 def _mesh_cfg(ms: MeshSizes, dtype: str):
@@ -5704,41 +5763,107 @@ def _spec_share_bytes(tree, specs, mesh) -> int:
     return sum(_spec_shares(tree, specs, mesh))
 
 
-def _mesh_serve(ms, cfg, mesh, toks, rank: int, gen_device: str = "cpu"
-                ) -> Dict[str, object]:
+def _requested() -> int:
+    """Bytes the caching allocator was asked for and still holds."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _freed() -> None:
+    """Unreachable objects collected, then the caching allocator's free
+    blocks handed back to the card (other processes share it)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _placed_params(cfg, place, gen_device: str, staged: bool):
+    """The parameters drawn from seed 5 by a generator on ``gen_device``,
+    each rank keeping its shards (``place``): its pieces go to the host,
+    the whole model is freed and the pieces come back, so each owns its
+    storage (a dim-0 chunk is a view of the whole tensor) in a fresh
+    block, not in a hole the model left. ``staged``: the ranks draw one
+    after the other, so the card holds one whole copy at a time besides
+    the shards."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models.tree import (tree_flatten_with_path, tree_map,
+                                         tree_unflatten)
+
+    def draw():
+        params = tree_map(lambda t: t.to("cuda"), init_params(
+            torch.Generator(device=gen_device).manual_seed(5), cfg))
+        placed = place(params)
+        del params
+        held = [(t.to_local().cpu(), t.device_mesh, t.placements, t.shape,
+                 t.stride()) for _, t in tree_flatten_with_path(placed)]
+        skeleton = tree_map(lambda _: 0, placed)
+        del placed
+        _freed()
+        return tree_unflatten(skeleton, [
+            DTensor.from_local(loc.to("cuda"), mesh, pl, run_check=False,
+                               shape=shape, stride=stride)
+            for loc, mesh, pl, shape, stride in held])
+
+    if not staged:
+        return draw()
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            log(f"rank {r}: the card's bytes in use "
+                f"{card_used_bytes('cuda')} before drawing {cfg.name}")
+            out = draw()
+            log(f"rank {r}: {cfg.name} drawn and placed, the card's bytes "
+                f"in use {card_used_bytes('cuda')}")
+        dist.barrier()
+    return out
+
+
+def _mesh_serve(ms, cfg, mesh, toks, rank: int, gen_device: str = "cpu",
+                embeds=None, staged: bool = False) -> Dict[str, object]:
     """The prefill and decode bundles on the mesh, teacher-forced, the
-    parameters drawn from seed 5 by a generator on ``gen_device``:
-    launches, the caches' placements, the serving seconds; rank 0 also
-    keeps the logits."""
+    parameters drawn from seed 5 by a generator on ``gen_device``
+    (``_placed_params``); ``embeds``, where given, the frontend's
+    embeddings ahead of each prompt: launches, the caches' placements,
+    the serving seconds, the bytes the parameters asked of the
+    allocator beside the specs' share; rank 0 also keeps the logits."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import sharding
     from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.launch import steps
-    from repro_torch.launch.steps import init_params
-    from repro_torch.models.tree import tree_map
     B, P = ms.serve_batch, ms.prompt_len
-    C = P + ms.serve_steps
-    pb = steps.build_step_bundle(cfg, ShapeSpec("prompt", P, B, "prefill"),
+    F_ = 0 if embeds is None else embeds.shape[1]
+    C = F_ + P + ms.serve_steps
+    pb = steps.build_step_bundle(cfg, ShapeSpec("prompt", F_ + P, B,
+                                                "prefill"),
                                  mesh, cache_len=C)
     db = steps.build_step_bundle(cfg, ShapeSpec("serve", C, B, "decode"),
                                  mesh)
-    params = tree_map(lambda t: t.to("cuda"), init_params(
-        torch.Generator(device=gen_device).manual_seed(5), cfg))
-    params = pb.place(params)[0]
+    torch.cuda.synchronize()
+    asked = _requested()
+    params = _placed_params(cfg, lambda t: pb.place(t)[0], gen_device,
+                            staged)
+    torch.cuda.synchronize()
+    out = {"param_bytes_requested": _requested() - asked,
+           "param_bytes_computed": _spec_share_bytes(params, pb.in_specs[0],
+                                                     mesh),
+           "card_used_bytes_placed": card_used_bytes("cuda")}
+    extra = () if embeds is None else (sharding.distribute(
+        torch.as_tensor(embeds, device="cuda"), mesh, pb.in_specs[2]),)
     state = {}
-    f0, d0 = flash_attention.launches, decode_attention.launches
+    flash_attention.launches = decode_attention.launches = 0
 
     def prefill(t):
         tok = sharding.distribute(torch.as_tensor(t, device="cuda"), mesh,
                                   pb.in_specs[1])
-        logits, state["caches"] = pb.fn(params, tok)
+        logits, state["caches"] = pb.fn(params, tok, *extra)
         return logits.full_tensor().float().cpu()
 
     def decode(t, pos):
         tok, p_ = (sharding.distribute(
             torch.as_tensor(x, dtype=torch.int32, device="cuda"), mesh, spec)
             for x, spec in ((t, db.in_specs[2]),
-                            (np.full(B, pos), db.in_specs[3])))
+                            (np.full(B, F_ + pos), db.in_specs[3])))
         logits, state["caches"] = db.fn(params, state["caches"], tok, p_)
         return logits.full_tensor().float().cpu()
 
@@ -5746,13 +5871,14 @@ def _mesh_serve(ms, cfg, mesh, toks, rank: int, gen_device: str = "cpu"
     t0 = time.perf_counter()
     logits = _teacher_forced(prefill, decode, toks, P, ms.serve_steps)
     torch.cuda.synchronize()
-    out = {"serve_s": time.perf_counter() - t0,
-           "flash": flash_attention.launches - f0,
-           "decode": decode_attention.launches - d0,
-           "cache_placed": all(
-               tuple(t.placements) == sharding.placements(mesh, sp)
-               for t, sp in zip(_leaves_of(state["caches"]),
-                                sharding.spec_leaves(db.out_specs[1])))}
+    out.update({"serve_s": time.perf_counter() - t0,
+                "flash": flash_attention.launches,
+                "decode": decode_attention.launches,
+                "card_used_bytes_served": card_used_bytes("cuda"),
+                "cache_placed": all(
+                    tuple(t.placements) == sharding.placements(mesh, sp)
+                    for t, sp in zip(_leaves_of(state["caches"]),
+                                     sharding.spec_leaves(db.out_specs[1])))})
     if rank == 0:
         out["logits"] = torch.stack(logits)
     return out
@@ -5846,6 +5972,11 @@ def mesh_rank(arg: str) -> None:
         # the MoE families on the same world (the mesh_moe phase)
         res["moe"] = moe_rank(MoeMeshSizes(**a["moe"]), mesh, rank,
                               a["moe_ref"])
+        _freed()
+        # the SSD and the vision frontend (the mesh_families phase)
+        res["families"] = families_rank(FamilyMeshSizes(**a["families"]),
+                                        mesh, rank, a["tmp"],
+                                        tuple(a["same_point"]))
     finally:
         dist.destroy_process_group()
     with open(a["out"], "wb") as f:
@@ -5877,7 +6008,7 @@ class MoeMeshSizes:
     """The ``mesh_moe`` phase on the mesh phase's world: granite at full
     width trains and serves, mixtral at full width serves."""
     granite: str = "granite-moe-3b-a800m"
-    granite_layers: int = 4        # of 32
+    granite_layers: int = 2        # of 32, cut for the smoke's time
     mixtral: str = "mixtral-8x22b"
     mixtral_layers: int = 1        # of 56
     train_batch: int = 4
@@ -5948,6 +6079,38 @@ def _route_flips(got: List[torch.Tensor], want: List[torch.Tensor]
         differ += int((a != b).any(-1).sum())
         total += a.shape[0]
     return {"routings": total, "differ": differ, "share": differ / total}
+
+
+def _routes_replayed(routes: List[torch.Tensor]) -> Callable[[], int]:
+    """Wraps ``moe.route`` so that its calls take their expert indices
+    ``(t, K)`` from ``routes`` in order (another run's choices for the
+    same tokens), each gate that expert's probability renormalised as
+    ``route`` does; returns the function that unwraps it and gives the
+    number of routings used."""
+    from repro_torch.models import moe
+    route = moe.route
+    used = [0]
+
+    def replay(router, xf, top_k):
+        logits, probs, _, _ = route(router, xf, top_k)
+        if used[0] == len(routes):
+            raise AssertionError(f"more than the {len(routes)} routings "
+                                 f"recorded")
+        eidx = routes[used[0]].to(probs.device)
+        used[0] += 1
+        if tuple(eidx.shape) != (xf.shape[0], top_k):
+            raise AssertionError(f"a recorded routing {tuple(eidx.shape)} "
+                                 f"for {xf.shape[0]} tokens, top {top_k}")
+        gates = probs.gather(-1, eidx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return logits, probs, gates, eidx
+
+    moe.route = replay
+
+    def undo() -> int:
+        moe.route = route
+        return used[0]
+    return undo
 
 
 def moe_reference(mz: MoeMeshSizes, tmp: str) -> Dict[str, object]:
@@ -6218,9 +6381,515 @@ def mesh_moe_check(mz: MoeMeshSizes, ref: Dict[str, object],
                                     for r in ranks for f, dt in MOE_SERVE)}}
 
 
+@dataclasses.dataclass(frozen=True)
+class FamilyMeshSizes:
+    """The ``mesh_families`` phase on the mesh phase's world, at full
+    width: mamba2-780m trains and serves, jamba-v0.1-52b serves,
+    qwen2-vl-7b trains and serves with its patch embeddings ahead of the
+    tokens."""
+    mamba: str = "mamba2-780m"
+    mamba_layers: int = 4          # of 48
+    mamba_seq: int = 320           # past the 256-row chunk: a padded tail
+    jamba: str = "jamba-v0.1-52b"
+    jamba_layers: int = 8          # one period of 8, of 32
+    vl: str = "qwen2-vl-7b"
+    vl_layers: int = 2             # of 28
+    vl_patches: int = 256
+    vl_tokens: int = 64
+    train_batch: int = 4
+    train_steps: int = 3
+    # at 1e-4 qwen2-vl learns the batch by heart in one step (its loss
+    # 12.35 then 0.0012), where the f32 softmax's 1 - p decides the
+    # later digits; at 1e-3 mamba2's three steps amplify rounding past
+    # the limits (the meshless loop's own spread, ``families_reference``)
+    lr: float = 1e-5
+    serve_batch: int = 4
+    prompt_len: int = 320          # mamba2 and jamba; qwen2-vl: vl_tokens
+    serve_steps: int = 8
+
+    def layers(self, arch: str) -> int:
+        return {self.mamba: self.mamba_layers, self.jamba: self.jamba_layers,
+                self.vl: self.vl_layers}[arch]
+
+    def serving(self, arch: str):
+        """The ``_mesh_serve`` sizes of ``arch``'s served case."""
+        import types
+        return types.SimpleNamespace(
+            serve_batch=self.serve_batch, serve_steps=self.serve_steps,
+            prompt_len=self.vl_tokens if arch == self.vl
+            else self.prompt_len)
+
+
+def _fam_cfg(fz: FamilyMeshSizes, arch: str, dtype: str):
+    """``arch`` at full width, cut in depth; qwen2-vl's frontend gives
+    ``vl_patches`` embeddings (the shape cells' length counts them)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, n_layers=fz.layers(arch), dtype=dtype, param_dtype=dtype,
+        frontend_len=fz.vl_patches if cfg.frontend else cfg.frontend_len)
+
+
+def _fam_inputs(fz: FamilyMeshSizes, arch: str, vocab: int):
+    """(the train batch, the served prompts and their next tokens, the
+    served embeddings or None) of ``arch``, from seeds every rank uses:
+    qwen2-vl's patch embeddings from the frontend's stub on a seeded CPU
+    generator (f32 numpy)."""
+    from repro_torch.models import frontend
+    rng = np.random.default_rng(41)
+    seq = fz.vl_tokens if arch == fz.vl else fz.mamba_seq
+    batch = {k: rng.integers(0, vocab, (fz.train_batch, seq))
+             .astype(np.int32) for k in ("tokens", "targets")}
+    sv = fz.serving(arch)
+    toks = rng.integers(0, vocab, (fz.serve_batch,
+                                   sv.prompt_len + fz.serve_steps)
+                        ).astype(np.int32)
+    if arch != fz.vl:
+        return batch, toks, None
+    cfg = _fam_cfg(fz, arch, "float32")
+
+    def patches(seed: int, b: int) -> np.ndarray:
+        return frontend.stub_vision_embeddings(
+            torch.Generator().manual_seed(seed), cfg, b,
+            fz.vl_patches).float().numpy()
+    batch["embeds"] = patches(1, fz.train_batch)
+    return batch, toks, patches(2, fz.serve_batch)
+
+
+# (arch field, dtype) of each served case; the trained archs, f32
+FAMILY_SERVE = (("mamba", "float32"), ("mamba", "bfloat16"),
+                ("vl", "bfloat16"), ("jamba", "bfloat16"))
+FAMILY_TRAIN = ("mamba", "vl")
+# served fields whose bf16 runs, meshless and on the mesh, replay the
+# meshless f32 run's expert choices: bf16 alone flips some of jamba's
+# routings (which moves the logits by far more than the mesh's
+# arithmetic), so the check compares the arithmetic at one routing
+FAMILY_REPLAY = ("jamba",)
+# jamba's bf16 logits on the mesh against meshless, both at one routing:
+# the meshless bf16 run's own distance from f32 at that routing (what
+# bf16 rounding alone moves them by), as ``scripts/jamba_bf16_limit.py``
+# read it on an H100 at 700 W: 5.973e-2, where the mesh read 2.433e-2
+# and a gated norm over each rank's local heads (planted) 0.4626
+REPLAYED_BF16_LIMIT = 6e-2
+SPREAD_FLOOR = 1e-6    # a tenth of the gradient norms' 1e-5 limit
+
+
+def families_reference(fz: FamilyMeshSizes, tmp: str) -> Dict[str, object]:
+    """The meshless runs the ``mesh_families`` world is held to, on the
+    card, from the seeds the ranks use: mamba2's and qwen2-vl's
+    TrainLoops in f32 (losses, gradient norms, step ms; the final
+    parameters saved to ``tmp``), and each served case teacher-forced:
+    mamba2 and jamba through ``ModelServer``, qwen2-vl (whose prompts
+    carry patch embeddings) through ``make_prefill_step`` and
+    ``make_serve_step``. Each bf16 case also runs as its f32 twin, first:
+    for a field of ``FAMILY_REPLAY`` the twin's expert choices are kept
+    (and saved to ``tmp`` for the ranks) and the bf16 run replays them.
+    jamba's f32 twin (about 53 GB at its period of 8) is the largest
+    holding; each model is freed before the next and the last before the
+    ranks start; the card's bytes in use with each held are kept."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import init_params
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving.server import ModelServer
+    t0 = time.perf_counter()
+    out: Dict[str, object] = {}
+    opt = _mesh_opt(fz)
+    for field in FAMILY_TRAIN:
+        arch = getattr(fz, field)
+        cfg = _fam_cfg(fz, arch, "float32")
+        batch, _, _ = _fam_inputs(fz, arch, cfg.vocab_size)
+        loop = TrainLoop(cfg, opt_cfg=opt, device="cuda", seed=3)
+        times: List[float] = []
+        ran = loop.run(iter([batch] * fz.train_steps), steps=fz.train_steps,
+                       log_every=0, on_metrics=_step_timer(times))
+        final = [t.cpu() for t in _leaves_of(loop.params)]
+        torch.save(final, os.path.join(tmp, f"fam_{field}_params.pt"))
+        del loop
+        _freed()
+        # the meshless loop's own spread: the same steps from parameters
+        # moved by a seeded relative 1e-7, what rounding alone can do
+        moved = TrainLoop(cfg, opt_cfg=opt, device="cuda", seed=3)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        moved.params = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+            t.shape, generator=g, device="cuda")), moved.params)
+        ran2 = moved.run(iter([batch] * fz.train_steps),
+                         steps=fz.train_steps, log_every=0)
+        num = den = 0.0
+        for a, b in zip(_leaves_of(moved.params), final):
+            num += float(((a.cpu().double() - b.double()) ** 2).sum())
+            den += float((b.double() ** 2).sum())
+        del moved, final
+        _freed()
+        h1, h2 = ran["history"], ran2["history"]
+        out[field] = {"losses": [h["loss"] for h in h1],
+                      "grad_norms": [h["grad_norm"] for h in h1],
+                      "step_ms": times,
+                      "spread": {
+                          "loss_rel": [abs(a["loss"] - b["loss"])
+                                       / abs(a["loss"]) for a, b in
+                                       zip(h1, h2)],
+                          "grad_norm_rel": [
+                              abs(a["grad_norm"] - b["grad_norm"])
+                              / abs(a["grad_norm"]) for a, b in zip(h1, h2)],
+                          "param_rel_l2": (num / den) ** 0.5}}
+    # each bf16 case's f32 twin, before it: how far bf16 itself moves the
+    # logits, at the twin's expert choices where they are replayed
+    twins = [(f, "float32") for f, dt in FAMILY_SERVE
+             if dt != "float32" and (f, "float32") not in FAMILY_SERVE]
+    for field, dtype in twins + list(FAMILY_SERVE):
+        arch = getattr(fz, field)
+        cfg = _fam_cfg(fz, arch, dtype)
+        sv = fz.serving(arch)
+        _, toks, embeds = _fam_inputs(fz, arch, cfg.vocab_size)
+        key = f"{field}_{dtype}"
+        params = init_params(torch.Generator(device="cuda").manual_seed(5),
+                             cfg)
+        torch.cuda.synchronize()
+        out[f"{key}_card_used_bytes"] = card_used_bytes("cuda")
+        F_ = 0 if embeds is None else embeds.shape[1]
+        C = F_ + sv.prompt_len + fz.serve_steps
+        if embeds is None:
+            srv = ModelServer(cfg, params, batch=fz.serve_batch, cache_len=C)
+
+            def prefill(t):
+                srv.prefill(t)
+                return srv.logits.float().cpu()
+
+            def decode(t, _pos):
+                srv.tokens = torch.as_tensor(t, device="cuda")
+                srv.decode(1)
+                return srv.logits.float().cpu()
+        else:
+            pf = steps.make_prefill_step(cfg, C)
+            step = steps.make_serve_step(cfg)
+            emb = torch.as_tensor(embeds, device="cuda")
+            state = {}
+
+            def prefill(t):
+                logits, state["caches"] = pf(
+                    params, torch.as_tensor(t, device="cuda"), emb)
+                return logits.float().cpu()
+
+            def decode(t, pos):
+                logits, state["caches"] = step(
+                    params, state["caches"],
+                    torch.as_tensor(t, dtype=torch.int32, device="cuda"),
+                    torch.full((fz.serve_batch,), F_ + pos,
+                               dtype=torch.int32, device="cuda"))
+                return logits.float().cpu()
+        routes_at = os.path.join(tmp, f"fam_{field}_routes.pt")
+        kept: List[torch.Tensor] = []
+        if field not in FAMILY_REPLAY:
+            undo = lambda: 0                            # noqa: E731
+        elif dtype == "float32":
+            undo = _routes_kept(kept)
+        else:
+            kept = torch.load(routes_at)
+            undo = _routes_replayed(kept)
+        try:
+            out[key] = torch.stack(_teacher_forced(
+                prefill, decode, toks, sv.prompt_len, fz.serve_steps))
+        finally:
+            used = undo()
+        if field in FAMILY_REPLAY:
+            if dtype == "float32":
+                torch.save([r.cpu() for r in kept], routes_at)
+            elif used != len(kept):
+                raise AssertionError(f"{arch} {dtype}: {used} routings of "
+                                     f"{len(kept)} replayed")
+            out[f"{key}_routings"] = len(kept)
+        del params, prefill, decode, kept
+        if embeds is None:
+            del srv
+        else:
+            del state
+        _freed()
+    torch.cuda.synchronize()
+    out["card_used_bytes_after"] = card_used_bytes("cuda")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _meshless_point(cfg, skeleton, leaves: List[torch.Tensor], batch
+                    ) -> Tuple[float, float]:
+    """The meshless loss and global gradient norm (f64 sum of squares) at
+    the parameters ``leaves`` (``skeleton``'s leaf order), on the card: a
+    mesh step's gradient held at the point the mesh reached."""
+    from repro_torch.models import lm
+    from repro_torch.models.tree import tree_unflatten
+    held = [t.to("cuda").requires_grad_() for t in leaves]
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    with torch.enable_grad():
+        loss, _ = lm.loss_fn(tree_unflatten(skeleton, held), cfg, b)
+        grads = torch.autograd.grad(loss, held)
+    return float(loss.detach()), float(torch.sqrt(sum(
+        (g.double() ** 2).sum() for g in grads)))
+
+
+def families_rank(fz: FamilyMeshSizes, mesh, rank: int, tmp: str,
+                  same_point: Tuple[str, ...]) -> Dict[str, object]:
+    """One rank's ``mesh_families`` work: mamba2's and qwen2-vl's
+    TrainLoops on the mesh (f32; the state bytes, allocated and
+    requested of the allocator and each leaf's local piece, beside the
+    specs' share; the parameters against the meshless loop's), then the
+    prefill and decode bundles of each served case (jamba's shards drawn
+    by one rank after the other, ``_placed_params``). For the trained
+    fields in ``same_point`` rank 0 also computes the meshless loss and
+    gradient norm at the parameters each later step starts from. A
+    field of ``FAMILY_REPLAY`` replays the meshless f32 run's expert
+    choices (``tmp``) on every rank. The attention launches are counted
+    from 0 for each run alone."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.tree import tree_map
+    t0 = time.perf_counter()
+    res: Dict[str, object] = {}
+    for field in FAMILY_TRAIN:
+        arch = getattr(fz, field)
+        cfg = _fam_cfg(fz, arch, "float32")
+        batch, _, _ = _fam_inputs(fz, arch, cfg.vocab_size)
+        torch.cuda.synchronize()
+        before, asked = torch.cuda.memory_allocated(), _requested()
+        loop = TrainLoop(cfg, opt_cfg=_mesh_opt(fz), mesh=mesh, seed=3)
+        torch.cuda.synchronize()
+        r: Dict[str, object] = {
+            "state_bytes_measured": torch.cuda.memory_allocated() - before,
+            "state_bytes_requested": _requested() - asked}
+        leaves = _leaves_of(loop.params) + _leaves_of(loop.opt_state)
+        shares = (_spec_shares(loop.params, sharding.param_specs(
+            loop.params, mesh), mesh) + _spec_shares(
+                loop.opt_state, sharding.opt_specs(loop.opt_state, mesh),
+                mesh))
+        r["state_bytes_computed"] = sum(shares)
+        held = [(t.to_local() if isinstance(t, DTensor) else t)
+                for t in leaves]
+        r["leaves_off"] = [
+            (i, h.numel() * h.element_size(), w)
+            for i, (h, w) in enumerate(zip(held, shares))
+            if h.numel() * h.element_size() != w]
+        r["unsharded_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in leaves)
+        del leaves, held
+        times: List[float] = []
+        history: List[dict] = []
+        points: List[List[torch.Tensor]] = []   # rank 0, on the host
+        flash_attention.launches = decode_attention.launches = 0
+        for i in range(fz.train_steps):
+            if i and field in same_point:
+                # the parameters this step starts from: every rank gathers
+                # each leaf, rank 0 keeps it on the host
+                point = []
+                for t in _leaves_of(loop.params):
+                    full = t.full_tensor()
+                    if rank == 0:
+                        point.append(full.cpu())
+                    del full
+                if rank == 0:
+                    points.append(point)
+            history += loop.run(iter([batch]), steps=i + 1, log_every=0,
+                                on_metrics=_step_timer(times))["history"]
+            _freed()
+        r["flash"] = flash_attention.launches
+        r["losses"] = [h["loss"] for h in history]
+        r["grad_norms"] = [h["grad_norm"] for h in history]
+        r["step_ms"] = times
+        ref = (torch.load(os.path.join(tmp, f"fam_{field}_params.pt"))
+               if rank == 0 else None)
+        _freed()
+        num = den = 0.0
+        for i, t in enumerate(_leaves_of(loop.params)):
+            full = t.full_tensor()                  # every rank
+            if rank == 0:                           # compared on the host
+                got, want = full.cpu().double(), ref[i].double()
+                num += float(((got - want) ** 2).sum())
+                den += float((want ** 2).sum())
+                del got, want
+            del full
+        r["param_rel_l2"] = (num / den) ** 0.5 if rank == 0 else None
+        skeleton = tree_map(lambda _: 0, loop.params)
+        del loop, ref
+        _freed()
+        if rank == 0 and field in same_point:
+            r["same_point"] = [_meshless_point(cfg, skeleton, pt, batch)
+                               for pt in points]
+        del points
+        _freed()
+        res[f"{field}_train"] = r
+    for field, dtype in FAMILY_SERVE:
+        arch = getattr(fz, field)
+        cfg = _fam_cfg(fz, arch, dtype)
+        _, toks, embeds = _fam_inputs(fz, arch, cfg.vocab_size)
+        key = f"{field}_{dtype}"
+        routes: List[torch.Tensor] = []
+        undo = lambda: 0                                # noqa: E731
+        if field in FAMILY_REPLAY:
+            routes = torch.load(os.path.join(tmp, f"fam_{field}_routes.pt"))
+            undo = _routes_replayed(routes)
+        try:
+            res[key] = _mesh_serve(fz.serving(arch), cfg, mesh, toks, rank,
+                                   gen_device="cuda", embeds=embeds,
+                                   staged=field == "jamba")
+        finally:
+            used = undo()
+        if used != len(routes):
+            raise AssertionError(f"{arch} {dtype} rank {rank}: {used} "
+                                 f"routings of {len(routes)} replayed")
+        del routes
+        _freed()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _n_attention(cfg) -> int:
+    from repro_torch.models.blocks import normalize_pattern
+    pattern = normalize_pattern(cfg)
+    return sum(t[0] == "a" for t in pattern) * (cfg.n_layers // len(pattern))
+
+
+def mesh_families_check(fz: FamilyMeshSizes, ref: Dict[str, object],
+                        ranks: List[Dict[str, object]]) -> Dict[str, object]:
+    """Holds the ``mesh_families`` world to the meshless runs, with the
+    ``mesh`` phase's limits: mamba2's and qwen2-vl's training (losses
+    within 1e-5 relative of the meshless loop's, parameters within 1e-4
+    relative L2, gradient norms within 1e-5 of the meshless loop's; where
+    that loop's own spread from a 1e-7 start moves a later norm by more
+    than ``SPREAD_FLOOR`` (a trajectory that amplifies rounding), each
+    later step's loss and norm within 1e-5 of the meshless ones at the
+    parameters the mesh reached instead; the same losses on every rank; each leaf's local piece exactly
+    its spec's share, the state's bytes asked of the allocator within
+    ``STATE_SLACK`` of the specs' share), each served case's
+    teacher-forced logits (f32: within 1e-4 relative L2, every greedy
+    token equal; bf16: within 2e-2, a greedy token differing only at a
+    near-tie; jamba, at the meshless f32 run's expert choices on both
+    sides, within ``REPLAYED_BF16_LIMIT``) and its
+    parameters' bytes asked of the allocator within
+    ``STATE_SLACK`` of the specs' share, the attention launches of every
+    rank (its attention layers times the calls, twice in training under
+    ``remat='dots'``) and the caches' placements."""
+    r0 = ranks[0]["families"]
+    out: Dict[str, object] = {"train": {}, "serve": {}}
+    for field in FAMILY_TRAIN:
+        arch = getattr(fz, field)
+        cfg = _fam_cfg(fz, arch, "float32")
+        want, got = ref[field], r0[f"{field}_train"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(got["losses"], want["losses"]))
+        # the first step's gradient norm against the meshless loop's (the
+        # same parameters); each later one, where the meshless loop's own
+        # spread says its trajectory amplifies rounding, against the
+        # meshless gradient at the parameters the mesh reached
+        points = got.get("same_point")
+        at = list(zip(got["grad_norms"], want["grad_norms"]))
+        if points is not None:
+            at = at[:1] + [(g, p[1]) for g, p in zip(got["grad_norms"][1:],
+                                                     points)]
+        gnorm_rel = max(abs(a - b) / abs(b) for a, b in at)
+        point_loss_rel = max([abs(a - p[0]) / abs(p[0]) for a, p in
+                              zip(got["losses"][1:], points or [])],
+                             default=0.0)
+        flash = (_n_attention(cfg) * fz.train_steps
+                 * (1 if cfg.remat == "none" else 2))
+        for rk in ranks:
+            m = rk["families"][f"{field}_train"]
+            if (m["losses"], m["grad_norms"]) != (got["losses"],
+                                                   got["grad_norms"]):
+                raise AssertionError(f"mesh_families {arch}: ranks disagree "
+                                     f"on the losses or gradient norms")
+            asked = m["state_bytes_requested"]
+            share = m["state_bytes_computed"]
+            if m["leaves_off"] or abs(asked - share) > STATE_SLACK:
+                raise AssertionError(
+                    f"mesh_families {arch} rank {rk['rank']}: {asked} bytes "
+                    f"of state requested, the specs give {share}; leaves "
+                    f"(index, held, share) off: {m['leaves_off']}")
+            if m["flash"] != flash:
+                raise AssertionError(f"mesh_families {arch} rank "
+                                     f"{rk['rank']}: {m['flash']} flash "
+                                     f"launches in training, not {flash}")
+        if (loss_rel > 1e-5 or gnorm_rel > 1e-5 or point_loss_rel > 1e-5
+                or got["param_rel_l2"] > 1e-4):
+            raise AssertionError(
+                f"mesh_families {arch} training vs meshless: losses "
+                f"{got['losses']} vs {want['losses']}, gradient norms "
+                f"{got['grad_norms']} vs {want['grad_norms']} (at the "
+                f"mesh's parameters {points}), parameters "
+                f"{got['param_rel_l2']}; the meshless loop's own spread "
+                f"{want['spread']}")
+        out["train"][arch] = {
+            "losses_mesh": got["losses"], "losses_meshless": want["losses"],
+            "loss_rel": loss_rel, "grad_norms_mesh": got["grad_norms"],
+            "grad_norms_meshless": want["grad_norms"],
+            "same_point_meshless": points,
+            "grad_norm_rel": gnorm_rel, "same_point_loss_rel": point_loss_rel,
+            "meshless_spread": want["spread"],
+            "param_rel_l2": got["param_rel_l2"],
+            "step_ms": got["step_ms"], "step_ms_meshless": want["step_ms"],
+            "unsharded_state_bytes": got["unsharded_bytes"],
+            "state_bytes_by_rank": [
+                (rk["families"][f"{field}_train"]["state_bytes_measured"],
+                 rk["families"][f"{field}_train"]["state_bytes_requested"],
+                 rk["families"][f"{field}_train"]["state_bytes_computed"])
+                for rk in ranks],
+            "flash_by_rank": [rk["families"][f"{field}_train"]["flash"]
+                              for rk in ranks]}
+    for field, dtype in FAMILY_SERVE:
+        arch = getattr(fz, field)
+        key = f"{field}_{dtype}"
+        v = _mesh_logits(r0[key]["logits"], ref[key])
+        limit = REPLAYED_BF16_LIMIT if field in FAMILY_REPLAY else 2e-2
+        if dtype != "float32":
+            # the meshless bf16 run against its f32 twin (at the twin's
+            # expert choices where replayed): bf16's own move
+            v["meshless_bf16_vs_f32"] = _mesh_logits(
+                ref[key], ref[f"{field}_float32"])["rel_l2"]
+            v["limit"] = limit
+        if field in FAMILY_REPLAY:
+            v["routings_replayed"] = ref[f"{key}_routings"]
+        if ((v["rel_l2"] > 1e-4 or v["mismatches"]) if dtype == "float32"
+                else (v["rel_l2"] > limit or v["mismatches_not_near_ties"])):
+            raise AssertionError(f"mesh_families serving {arch} {dtype} vs "
+                                 f"meshless: {v}")
+        n_att = _n_attention(_fam_cfg(fz, arch, dtype))
+        for rk in ranks:
+            sv = rk["families"][key]
+            asked, share = (sv["param_bytes_requested"],
+                            sv["param_bytes_computed"])
+            if (sv["flash"] != n_att or sv["decode"] != n_att * fz.serve_steps
+                    or not sv["cache_placed"]
+                    or abs(asked - share) > STATE_SLACK):
+                seen = {k: x for k, x in sv.items()
+                        if k not in ("logits", "routes")}
+                raise AssertionError(
+                    f"mesh_families {arch} {dtype} rank {rk['rank']}: "
+                    f"launches, cache placements or parameter bytes "
+                    f"({asked} requested, the specs give {share}): {seen}")
+        out["serve"][key] = dict(v, **{
+            "by_rank": [{k: rk["families"][key][k] for k in (
+                "flash", "decode", "serve_s", "param_bytes_requested",
+                "param_bytes_computed", "card_used_bytes_placed",
+                "card_used_bytes_served")} for rk in ranks]})
+    out["launches"] = {
+        "flash_attention": sum(
+            rk["families"][f"{f}_train"]["flash"] for rk in ranks
+            for f in FAMILY_TRAIN) + sum(
+            rk["families"][f"{f}_{dt}"]["flash"] for rk in ranks
+            for f, dt in FAMILY_SERVE),
+        "decode_attention": sum(rk["families"][f"{f}_{dt}"]["decode"]
+                                for rk in ranks for f, dt in FAMILY_SERVE)}
+    out["reference_card_used_bytes"] = {
+        k[:-len("_card_used_bytes")]: x for k, x in ref.items()
+        if k.endswith("_card_used_bytes")}
+    return out
+
+
 def mesh_phase(device, ms: MeshSizes = MeshSizes(),
-               mz: MoeMeshSizes = MoeMeshSizes()
-               ) -> Tuple[Dict[str, object], Dict[str, object]]:
+               mz: MoeMeshSizes = MoeMeshSizes(),
+               fz: FamilyMeshSizes = FamilyMeshSizes()
+               ) -> Tuple[Dict[str, object], Dict[str, object],
+                          Dict[str, object]]:
     """The sharded path on the card: ``data`` x ``model`` processes share
     it (gloo; DTensor's collectives through
     ``repro_torch.distributed.gloo_cuda``), qwen2-1.5b at full width, cut
@@ -6238,7 +6907,13 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     checkpoint saved on the world restores onto the meshless loop bit for
     bit. Budget: about 150 s. The same ranks then run the ``mesh_moe``
     phase (``moe_rank``, held by ``mesh_moe_check``; budget 240 s, its
-    meshless reference included), returned second."""
+    meshless reference included), returned second, and the
+    ``mesh_families`` phase (``families_rank``, held by
+    ``mesh_families_check``; budget 300 s, its meshless reference
+    included), returned third. The references run first, one after the
+    other, each freed before the next: jamba's, the largest (about
+    26.5 GB), last; then the ranks hold their shards, jamba's drawn by
+    one rank at a time."""
     import pickle
     import shutil
     import tempfile
@@ -6251,7 +6926,15 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     try:
         ref = mesh_reference(ms, tmp)
         moe_ref = moe_reference(mz, tmp)
+        fam_ref = families_reference(fz, tmp)
+        # the trained fields whose meshless loop moved a later gradient
+        # norm by more than a tenth of the limit from a 1e-7 start
+        same_point = [f for f in FAMILY_TRAIN if max(
+            fam_ref[f]["spread"]["grad_norm_rel"][1:]) > SPREAD_FLOOR]
+        _freed()
         _build.library()               # built here; the ranks load it
+        log(f"mesh phases: the card's bytes in use {card_used_bytes(device)}"
+            f" before the ranks start")
         sizes = dataclasses.asdict(ms)
         procs = []
         for r in range(n):
@@ -6262,18 +6945,26 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
                               "out": os.path.join(tmp, f"rank{r}.pkl"),
                               "moe": dataclasses.asdict(mz),
                               "moe_ref": os.path.join(tmp,
-                                                      "moe_ref_params.pt")})
+                                                      "moe_ref_params.pt"),
+                              "families": dataclasses.asdict(fz),
+                              "same_point": same_point, "tmp": tmp})
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()),
                  "--mesh-rank", arg], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         t_world = time.perf_counter()
         try:
-            for r, p in enumerate(procs):
-                out, _ = p.communicate(timeout=ms.join_s)
-                if p.returncode != 0:
-                    raise AssertionError(f"mesh rank {r} failed:\n"
-                                         f"{out[-4000:]}")
+            with CardPeak(device) as world_peak:
+                # every rank's end before judging: the first rank to fail
+                # is not always the lowest (the others then lose a peer)
+                failed = []
+                for r, p in enumerate(procs):
+                    out, _ = p.communicate(timeout=ms.join_s)
+                    if p.returncode != 0:
+                        failed.append(f"mesh rank {r} failed (exit "
+                                      f"{p.returncode}):\n{out[-3000:]}")
+                if failed:
+                    raise AssertionError("\n".join(failed))
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -6281,8 +6972,9 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
                     p.communicate()
         ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
                  for r in range(n)]
-        world_s = time.perf_counter() - t_world - max(
-            r["moe"]["seconds"] for r in ranks)
+        world_s = (time.perf_counter() - t_world
+                   - max(r["moe"]["seconds"] for r in ranks)
+                   - max(r["families"]["seconds"] for r in ranks))
         rcfg = reduced(_mesh_cfg(ms, "float32"))
         meshless = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), device="cuda",
                              ckpt_dir=os.path.join(tmp, "ckpt"))
@@ -6367,7 +7059,27 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         f"{mz.prompt_len} and {mz.serve_steps} teacher-forced steps at "
         f"moe_groups 0): {json.dumps(moe_out)}; phase "
         f"{moe_out['seconds']:.3f} s; {card_line()}")
-    out["seconds"] = time.perf_counter() - t_phase - moe_out["seconds"]
+    fam_out = mesh_families_check(fz, fam_ref, ranks)
+    fam_out["seconds"] = fam_ref["seconds"] + max(
+        r["families"]["seconds"] for r in ranks)
+    fam_out["reference_seconds"] = fam_ref["seconds"]
+    # the card's bytes in use at their peak while the world ran (all
+    # three phases' ranks; jamba's staged draw is the largest holding)
+    fam_out["world_card_peak_bytes"] = world_peak.peak
+    log(f"mesh_families phase ({ms.shape} over (data, model), {n} "
+        f"processes on the card, gloo; full width: {fz.mamba} "
+        f"{fz.mamba_layers} layers trains f32 {fz.train_steps} steps of "
+        f"{fz.train_batch} x {fz.mamba_seq} and serves f32 and bf16 "
+        f"{fz.serve_batch} prompts of {fz.prompt_len} and "
+        f"{fz.serve_steps} teacher-forced steps; {fz.vl} {fz.vl_layers} "
+        f"layers trains f32 on {fz.train_batch} x ({fz.vl_patches} patch "
+        f"embeddings + {fz.vl_tokens} tokens) and serves bf16 the same; "
+        f"{fz.jamba} {fz.jamba_layers} layers serves bf16 "
+        f"{fz.serve_batch} prompts of {fz.prompt_len}): "
+        f"{json.dumps(fam_out)}; phase {fam_out['seconds']:.3f} s; "
+        f"{card_line()}")
+    out["seconds"] = (time.perf_counter() - t_phase - moe_out["seconds"]
+                      - fam_out["seconds"])
     log(f"mesh phase ({ms.shape} over (data, model), {n} processes on the "
         f"card, gloo; {ms.arch} full width, {ms.layers} layers): training "
         f"f32 {ms.train_steps} steps of {ms.train_batch} x "
@@ -6386,7 +7098,7 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         f"{[(r['train_flash'],) + tuple((r[dt]['flash'], r[dt]['decode']) for dt in MESH_SERVE) for r in ranks]};"
         f" reshard restore bit for bit {ckpt_equal}; world {world_s:.3f} s,"
         f" phase {out['seconds']:.3f} s; {card_line()}")
-    return out, moe_out
+    return out, moe_out, fam_out
 
 
 def main() -> int:
@@ -6437,7 +7149,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     enc = encdec_phase("cuda")
     torch.cuda.empty_cache()
-    mesh, mesh_moe = mesh_phase("cuda")
+    mesh, mesh_moe, mesh_fam = mesh_phase("cuda")
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
@@ -6453,6 +7165,7 @@ def main() -> int:
     log(json.dumps({"encdec": enc}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"mesh_moe": mesh_moe}))
+    log(json.dumps({"mesh_families": mesh_fam}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
@@ -6460,7 +7173,8 @@ def main() -> int:
              "families": fam["launches"],
              "encdec": enc["launches"],
              "mesh": mesh["launches"],
-             "mesh_moe": mesh_moe["launches"]}
+             "mesh_moe": mesh_moe["launches"],
+             "mesh_families": mesh_fam["launches"]}
     kernels = res["kernels"] + mres["kernels"]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()

@@ -11,10 +11,14 @@ with CUDA tensors crashes the process. ``install()`` registers, for the
 CUDA dispatch key only, implementations of the functional collectives
 DTensor issues (and of its ``shard_dim_alltoall``, which gloo lacks)
 that run the synchronous c10d call and return its result, so the
-``wait`` that follows has nothing to wait on. The tensors stay on the
-card; the CPU's kernels are untouched. A process calls it once, after
-``init_process_group``, before any DTensor work; nothing calls it
-implicitly.
+``wait`` that follows has nothing to wait on. Each call copies its
+input to pageable host memory, runs gloo's CPU collective and copies
+the result back to the input's device: gloo's own CUDA path stages
+through pinned buffers that the caching host allocator keeps, one per
+rounded size, for the life of the process. The CPU's kernels are
+untouched. A process calls it
+once, after ``init_process_group``, before any DTensor work; nothing
+calls it implicitly.
 """
 from __future__ import annotations
 
@@ -46,37 +50,45 @@ def _op(reduce_op: str) -> dist.ReduceOp:
     return _OPS[reduce_op.lower()]
 
 
+def _host(x: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """``x`` contiguous in host memory (a copy where ``copy``, or where it
+    lies on the card)."""
+    return x.to("cpu", copy=copy, memory_format=torch.contiguous_format)
+
+
 def _all_gather(input: torch.Tensor, group_size: int, group_name: Any
                 ) -> torch.Tensor:
-    x = input.contiguous()
+    x = _host(input)
     out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=_group(group_name))
-    return out
+    return out.to(input.device)
 
 
 def _reduce_scatter(input: torch.Tensor, reduce_op: str, group_size: int,
                     group_name: Any) -> torch.Tensor:
-    x = input.contiguous()
+    x = _host(input)
     out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, op=_op(reduce_op),
                                group=_group(group_name))
+    out = out.to(input.device)
     return out / group_size if reduce_op.lower() == "avg" else out
 
 
 def _all_reduce(input: torch.Tensor, reduce_op: str, group_name: Any
                 ) -> torch.Tensor:
-    out = input.clone(memory_format=torch.contiguous_format)
+    out = _host(input, copy=True)
     pg = _group(group_name)
     dist.all_reduce(out, op=_op(reduce_op), group=pg)
+    out = out.to(input.device)
     return out / pg.size() if reduce_op.lower() == "avg" else out
 
 
 def _broadcast(input: torch.Tensor, src: int, group_name: Any
                ) -> torch.Tensor:
-    out = input.clone(memory_format=torch.contiguous_format)
+    out = _host(input, copy=True)
     pg = _group(group_name)
     dist.broadcast(out, src=dist.get_global_rank(pg, src), group=pg)
-    return out
+    return out.to(input.device)
 
 
 def _gather_dim(x: torch.Tensor, dim: int, pg: dist.ProcessGroup

@@ -59,7 +59,8 @@ __all__ = ["ShardingRules", "DEFAULT_RULES", "Spec", "AbstractMesh",
            "tree_named", "spec_leaves", "map_spec_tree", "distribute",
            "is_wide", "mesh_dim", "fsdp_gather", "pin_dp", "pin_heads",
            "like", "model_rank", "HeadLayout", "head_layout", "matmul",
-           "from_local", "mm_f32", "ExpertLayout", "expert_layout"]
+           "from_local", "mm_f32", "ExpertLayout", "expert_layout",
+           "local", "grad_summed_over", "batch_dims"]
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -516,6 +517,40 @@ def from_local(t: torch.Tensor, mesh: DeviceMesh,
     return DTensor.from_local(t, mesh, tuple(pl), run_check=False,
                               shape=torch.Size(shape),
                               stride=tuple(reversed(stride)))
+
+
+def batch_dims(x: DTensor, rules: ShardingRules = DEFAULT_RULES
+               ) -> List[int]:
+    """The mesh dims of the data axes over which ``x`` (batch first) is
+    ``Shard``: where each rank runs its own rows."""
+    names = list(x.device_mesh.mesh_dim_names or ())
+    return [names.index(a) for a in dp_axes(x.device_mesh, rules)
+            if isinstance(x.placements[names.index(a)], Shard)]
+
+
+def local(t: DTensor, partial: Sequence[int]) -> torch.Tensor:
+    """``t``'s local piece, its gradient a partial sum over the mesh dims
+    ``partial`` (each rank used it on its own rows, or for its own share
+    of the output) and in ``t``'s placements elsewhere."""
+    return t.to_local(grad_placements=[
+        Partial() if i in partial else q for i, q in enumerate(t.placements)])
+
+
+def grad_summed_over(mesh: DeviceMesh, dim: int
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Identity forward; the backward sums the gradient over mesh dim
+    ``dim``: for a local tensor every rank of that dim holds alike and
+    uses for its own share of the output (each rank's gradient of it is
+    a partial sum). Behind an all-reduce this is needed: DTensor carries
+    a partial gradient back through ``Partial -> Replicate`` unreduced."""
+    rep = [Replicate()] * mesh.ndim
+    part = list(rep)
+    part[dim] = Partial()
+
+    def f(t: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(t, mesh, rep, run_check=False).to_local(
+            grad_placements=part)
+    return f
 
 
 def matmul(x: DTensor, w: DTensor) -> DTensor:

@@ -25,9 +25,10 @@ the batch sharded over ``("pod", "data")``, each weight's ``data`` shards
 gathered at its use (FSDP), heads, FFN hidden and vocab over ``model``
 (TP), the experts over ``data`` where it divides them (EP,
 ``models/moe.py``), every gradient brought back to its parameter's
-placements before AdamW. Attention models with dense or MoE feed-forward
-halves (``ad``, ``ae``) run there; the Mamba blocks, frontends and the
-encoder-decoder raise (``check_sharded_support``).
+placements before AdamW, the Mamba-2 blocks on local heads and channel
+chunks (``models/ssm.py``). Every decoder-only family runs there, a
+vision frontend's embeddings with it; the encoder-decoder raises
+(``check_sharded_support``).
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from repro_torch.distributed.collectives import (axis_size,
 from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
                                               batch_specs, cache_specs_tree,
                                               opt_specs, param_specs)
-from repro_torch.models import blocks, encdec, lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.tree import (tree_flatten_with_path, tree_map,
                                      tree_unflatten)
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
@@ -93,23 +94,15 @@ def cache_struct(cfg: ModelConfig, batch: int, cache_len: int) -> Any:
 
 
 def check_sharded_support(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming what a config needs that the
-    DTensor path (attention blocks with dense or MoE feed-forward halves)
-    does not cover yet."""
-    pattern = blocks.normalize_pattern(cfg)
-    missing = []
-    if any(t[0] == "m" for t in pattern):
-        missing.append("the SSD scan (models/ssm.py)")
-    if cfg.frontend:
-        missing.append(f"the {cfg.frontend} frontend (models/frontend.py)")
+    """Raise ``NotImplementedError`` for a config the DTensor path does
+    not cover yet: the encoder-decoder. Every decoder-only family
+    (attention or SSD mixers, dense, MoE or no feed-forward half, a
+    vision frontend) runs there."""
     if cfg.is_encdec:
-        missing.append("the encoder-decoder (models/encdec.py)")
-    if missing:
         raise NotImplementedError(
             f"{cfg.name} on a mesh whose data or model axis has several "
-            f"ranks: the DTensor path runs attention blocks with dense or "
-            f"MoE feed-forward halves only; not covered: "
-            f"{'; '.join(missing)}")
+            f"ranks: the DTensor path runs the decoder-only models; not "
+            f"covered: the encoder-decoder (models/encdec.py)")
 
 
 def _value_and_grad(params: Any, cfg: ModelConfig,

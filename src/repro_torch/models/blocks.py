@@ -24,12 +24,16 @@ routes every token to the experts the forward pass chose: the routing is
 a function of the block's input alone.
 
 On a wide mesh (DTensor activations and parameters placed by
-``distributed/sharding.py``; attention blocks, ``ad`` and ``ae``) each
-layer's weights have their ``data`` shards gathered at their use
-(``sharding.fsdp_gather``; an EP expert leaf keeps its expert shard),
-and the residual stream is pinned batch-sharded over the data axes
-(``sharding.pin_dp``) after the mixer and after the feed-forward half, so
-that no half starts from a partial sum over ``model``.
+``distributed/sharding.py``; every block kind) each layer's weights have
+their ``data`` shards gathered at their use (``sharding.fsdp_gather``;
+an EP expert leaf keeps its expert shard), and the residual stream is
+pinned batch-sharded over the data axes (``sharding.pin_dp``) after the
+mixer and after the feed-forward half, so that no half starts from a
+partial sum over ``model``. The mixers run on local tensors (attention
+on local heads, the SSD on local heads and channel chunks), their
+collectives DTensor redistributions that the selective checkpoint of
+``dots`` recomputes in the backward pass like any op that is not a
+matrix product.
 """
 from __future__ import annotations
 

@@ -25,6 +25,8 @@ __all__ = ["init_norm", "apply_norm", "rope_freqs", "apply_rope",
 
 Params = Dict[str, torch.Tensor]
 
+NORM_EPS = 1e-6          # every norm's epsilon, as in the JAX package
+
 
 def _normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
             dtype: torch.dtype) -> torch.Tensor:
@@ -46,7 +48,7 @@ def init_norm(d: int, kind: str, dtype: torch.dtype,
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str,
-               eps: float = 1e-6) -> torch.Tensor:
+               eps: float = NORM_EPS) -> torch.Tensor:
     xf = x.float()
     if kind == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)

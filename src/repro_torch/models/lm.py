@@ -26,12 +26,14 @@ masked to the token positions. The encoder-decoder models run in
 ``models/encdec.py``; this module's entry points refuse them
 (``check_supported``).
 
-With DTensor parameters and inputs on a wide mesh (attention models
-with dense or MoE feed-forward halves, ``launch/steps.py``) the embedding
-and the head (the tied embedding, or mixtral's own) have their ``data``
-shards gathered at their use, the positions are placed as the batch, and
-the logits' vocab dim (sharded over ``model``) is gathered before the
-loss or the caller reads them: ``B·S·V`` f32 per data rank.
+With DTensor parameters and inputs on a wide mesh (every decoder-only
+family, ``launch/steps.py``) the embedding and the head (the tied
+embedding, or its own) have their ``data`` shards gathered at their use,
+a frontend's embeddings are batch-sharded as the tokens and put ahead of
+them, the positions (text positions over the whole sequence, M-RoPE's
+three streams expanded on each rank's local rows) are placed as the
+batch, and the logits' vocab dim (sharded over ``model``) is gathered
+before the loss or the caller reads them: ``B·S·V`` f32 per data rank.
 """
 from __future__ import annotations
 
@@ -101,10 +103,12 @@ def _positions(cfg: ModelConfig, x: torch.Tensor, offset: int = 0
     return pos
 
 
-def _top(params: Params, x: torch.Tensor) -> Params:
-    """The embedding, final norm and head, with their ``data`` shards
-    gathered when ``x`` is a DTensor."""
-    top = {k: v for k, v in params.items() if k != "blocks"}
+def _top(params: Params, x: torch.Tensor, names: Tuple[str, ...]
+         ) -> Params:
+    """The top-level leaves ``names`` (the embedding, final norm or
+    head), with their ``data`` shards gathered when ``x`` is a DTensor:
+    only those a use needs, since a vocab table is the largest gather."""
+    top = {k: params[k] for k in names}
     return sharding.fsdp_gather(top) if isinstance(x, DTensor) else top
 
 
@@ -113,10 +117,16 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # gather first, then convert: the same values as converting the table.
     # F.embedding's backward sums each row's gradient in a fixed order on
     # the card (an indexed gather's would use atomics)
-    table = _top(params, tokens)["embed"]
+    table = _top(params, tokens, ("embed",))["embed"]
     if isinstance(tokens, DTensor):
-        return sharding.pin_dp(_vocab_lookup(tokens, table)
-                               .to(cfg.compute_dtype))
+        x = sharding.pin_dp(_vocab_lookup(tokens, table)
+                            .to(cfg.compute_dtype))
+        if embeds is None:
+            return x
+        # the frontend's embeddings batch-sharded as the tokens are
+        embeds = (sharding.pin_dp(embeds) if isinstance(embeds, DTensor)
+                  else sharding.like(embeds, x))
+        return torch.cat([embeds.to(cfg.compute_dtype), x], dim=1)
     x = F.embedding(tokens.long(), table).to(cfg.compute_dtype)
     if embeds is not None:
         x = torch.cat([embeds.to(cfg.compute_dtype), x], dim=1)
@@ -151,12 +161,11 @@ def _vocab_lookup(tokens: DTensor, table: DTensor) -> DTensor:
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
-    top = _top(params, x)
+    head = ("head_f32" if "head_f32" in params
+            else "embed" if cfg.tie_embeddings else "lm_head")
+    top = _top(params, x, ("final_norm", head))
     x = apply_norm(top["final_norm"], x, cfg.norm)
-    head = top.get("head_f32")
-    if head is None:
-        head = top["embed"] if cfg.tie_embeddings else top["lm_head"]
-    logits = matmul(x.float(), head.float().T)
+    logits = matmul(x.float(), top[head].float().T)
     return sharding.pin_dp(logits) if isinstance(logits, DTensor) else logits
 
 

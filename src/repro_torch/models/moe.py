@@ -242,28 +242,6 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
 # On a mesh
 # ---------------------------------------------------------------------------
 
-def _local(t: DTensor, partial: Sequence[int]) -> torch.Tensor:
-    """``t``'s local piece, its gradient a partial sum over the mesh dims
-    ``partial`` (each rank used it on its own tokens) and in ``t``'s
-    placements elsewhere."""
-    return t.to_local(grad_placements=[
-        Partial() if i in partial else q for i, q in enumerate(t.placements)])
-
-
-def _grad_summed_over(mesh, dim: int) -> Fn:
-    """Identity forward; the backward sums the gradient over mesh dim
-    ``dim`` (the slab tokens' gradient, each rank's from its share of the
-    experts' ``ff``)."""
-    rep = [Replicate()] * mesh.ndim
-    part = list(rep)
-    part[dim] = Partial()
-
-    def f(t: torch.Tensor) -> torch.Tensor:
-        return DTensor.from_local(t, mesh, rep, run_check=False).to_local(
-            grad_placements=part)
-    return f
-
-
 def _local_ffn(ex: Params, x: torch.Tensor, act: str, mesh,
                md: Optional[int]) -> torch.Tensor:
     """The rank's experts on ``x (E_local, rows, d)``; where their ``ff``
@@ -330,7 +308,7 @@ def _apply_moe_sharded(p: Params, x: DTensor, cfg: ModelConfig
     G = _groups(cfg, B, B * S)
     names = mesh.mesh_dim_names
     dp = [names.index(a) for a in sharding.dp_axes(mesh)]
-    sharded = [i for i in dp if isinstance(x.placements[i], Shard)]
+    sharded = sharding.batch_dims(x)
     local = bool(sharded) and G == math.prod(mesh.shape[i] for i in sharded)
     ed = sharding.mesh_dim(mesh, "data")
     md = sharding.mesh_dim(mesh, "model")
@@ -338,15 +316,16 @@ def _apply_moe_sharded(p: Params, x: DTensor, cfg: ModelConfig
     lay = sharding.expert_layout(mesh, moe.num_experts)
     if md is None or not isinstance(experts["wi"].placements[md], Shard):
         md = None
-    tp = _grad_summed_over(mesh, md) if md is not None else None
+    tp = sharding.grad_summed_over(mesh, md) if md is not None else None
 
     # with local groups every rank routes and runs its own tokens, so the
     # weights' gradients are partial sums over the data axes (an EP
     # leaf's data shard holds every group's rows of its experts)
     partial = dp if local else []
-    ex = {k: _local(v, [i for i in partial if not (lay.ep and i == ed)])
+    ex = {k: sharding.local(v, [i for i in partial
+                                if not (lay.ep and i == ed)])
           for k, v in experts.items()}
-    q = {"router": _local(p["router"], partial), "experts": ex}
+    q = {"router": sharding.local(p["router"], partial), "experts": ex}
 
     def ffn(rows: torch.Tensor) -> torch.Tensor:
         return _local_ffn(ex, rows, cfg.act, mesh, md)

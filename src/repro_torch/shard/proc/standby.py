@@ -41,9 +41,10 @@ _WARM_TIMEOUT_S = 180.0
 
 class StandbyPool:
     """``n`` pre-warmed shard workers awaiting adoption, for ``device``
-    (``"cuda"`` or ``"cpu"``: what the prewarm initialises)."""
+    (``"cuda"``, the default, or ``"cpu"``: what the prewarm
+    initialises)."""
 
-    def __init__(self, n: int, device: str = "cpu"):
+    def __init__(self, n: int, device: str = "cuda"):
         self.n = int(n)
         self.device = device
         self._lock = threading.Lock()

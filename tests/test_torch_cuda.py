@@ -1823,6 +1823,8 @@ def test_collectors_neither_sync_nor_copy():
     (4, 1, 16, 2),       # reduced qwen2-1.5b: the one kv head whole
     (24, 8, 64, 2),      # granite-moe-3b-a800m at model=2: 12/4 a rank
     (48, 8, 128, 2),     # mixtral-8x22b at model=2: 24/4 a rank
+    (32, 8, 128, 2),     # jamba-v0.1-52b at model=2: 16/4 a rank
+    (28, 4, 128, 2),     # qwen2-vl-7b at model=2: 14/2 a rank
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_local_heads_kernel_calls_equal_the_full_call(card, Hq, Hkv, D, m,
@@ -1867,6 +1869,68 @@ def test_local_heads_kernel_calls_equal_the_full_call(card, Hq, Hkv, D, m,
     torch.testing.assert_close(
         torch.cat(parts, 1), ref.decode_attention_ref(qd, k, v, lengths),
         rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+def test_ssd_block_on_a_one_rank_cuda_mesh_equals_the_meshless_block(
+        card, tmp_path):
+    """One mamba2-780m SSD block at full width (f32; 48 heads of 64,
+    d_state 128) on the local pieces of a one-rank CUDA mesh over
+    ("data", "model") against the meshless block on the card: the
+    training forward over 2 x 320 rows (past the 256-row chunk, a padded
+    tail) and its gradients, the prefill's ``conv``/``ssm`` caches, and
+    one decode step written into those caches in place, within 1e-5
+    relative L2."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import ssm
+    from repro_torch.models.tree import tree_flatten_with_path, tree_map
+
+    def rel(a, b):
+        a, b = a.detach().double(), b.detach().double()
+        return float((a - b).norm() / b.norm())
+
+    cfg = get_config("mamba2-780m")
+    p = ssm.init_mamba(torch.Generator(device=card).manual_seed(0), cfg)
+    x = _randn((2, 320, cfg.d_model), torch.float32, card, 1)
+    tok = _randn((2, cfg.d_model), torch.float32, card, 2)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=120))
+    try:
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        pd = sharding.distribute(p, mesh, sharding.param_specs(p, mesh))
+        leaves = [t for _, t in tree_flatten_with_path(pd)]
+        for t in leaves:
+            t.requires_grad_()
+        xd = sharding.distribute(x, mesh, sharding.Spec())
+        y = ssm.mamba_train(pd, xd, cfg)
+        g = torch.autograd.grad((y * y).sum(), leaves)
+        plain = tree_map(lambda t: t.detach().clone().requires_grad_(), p)
+        want = ssm.mamba_train(plain, x, cfg)
+        gw = torch.autograd.grad((want * want).sum(),
+                                 [t for _, t in tree_flatten_with_path(plain)])
+        assert isinstance(y, DTensor)
+        assert rel(y.to_local(), want) <= 1e-5
+        for a, b in zip(g, gw):
+            assert rel(a.full_tensor(), b) <= 1e-5
+        with torch.no_grad():
+            _, cache = ssm.mamba_prefill(pd, xd, cfg)
+            _, cw = ssm.mamba_prefill(p, x, cfg)
+            for n in ("conv", "ssm"):
+                assert rel(cache[n].to_local(), cw[n]) <= 1e-5
+            o, cache = ssm.mamba_decode(
+                pd, sharding.distribute(tok, mesh, sharding.Spec()), cfg,
+                cache)
+            ow, cw = ssm.mamba_decode(p, tok, cfg, cw)
+            assert rel(o.to_local(), ow) <= 1e-5
+            for n in ("conv", "ssm"):
+                assert rel(cache[n].to_local(), cw[n]) <= 1e-5
+    finally:
+        dist.destroy_process_group()
 
 
 MESH_RANK = """

@@ -404,8 +404,8 @@ RANK = textwrap.dedent("""
         wide = tmesh.make_mesh((1, 2, 1), ("pod", "data", "model"),
                                device_type="cpu")
         try:
-            steps.make_train_step(reduced(get_config("mamba2-780m")), ocfg,
-                                  mesh=wide, compress_crosspod=True)
+            steps.make_train_step(reduced(get_config("seamless-m4t-medium")),
+                                  ocfg, mesh=wide, compress_crosspod=True)
             res["wide"] = None
         except NotImplementedError as e:
             res["wide"] = str(e)
@@ -570,10 +570,11 @@ def test_train_loop_on_a_pod_mesh_runs_the_compressed_step(two_ranks):
 
 
 def test_a_mesh_over_data_or_model_raises(two_ranks):
-    """A mesh whose data axis has two ranks runs dense models through the
-    sharding rules (``tests/test_torch_sharding.py``); a family the
-    DTensor path does not cover raises, naming what it lacks."""
+    """A mesh whose data axis has two ranks runs the decoder-only models
+    through the sharding rules (``tests/test_torch_sharding*.py``); the
+    encoder-decoder, which the DTensor path does not cover, raises,
+    naming what it lacks."""
     _, ranks, _ = two_ranks
     for r in (0, 1):
-        assert "the SSD scan (models/ssm.py)" in ranks[r]["wide"]
+        assert "the encoder-decoder (models/encdec.py)" in ranks[r]["wide"]
         assert "data or model axis has several ranks" in ranks[r]["wide"]

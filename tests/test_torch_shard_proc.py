@@ -723,3 +723,17 @@ def test_kernel_library_builds_once_across_processes(tmp_path):
     assert log.read_text() == "build\n"
     built = list((tmp_path / "kernels").glob("*/librepro_torch_kernels.so"))
     assert len(built) == 1
+
+
+def test_standby_pool_defaults_to_the_card():
+    """``StandbyPool``'s workers prewarm for the card unless the caller
+    names the CPU, as every entry point of the port does; a pool of no
+    workers spawns no process."""
+    from repro_torch.shard.proc.standby import StandbyPool
+    pool = StandbyPool(0)
+    try:
+        assert pool.device == "cuda"
+        assert pool.stats["spawned"] == 0
+    finally:
+        pool.close()
+    assert StandbyPool(0, device="cpu").device == "cpu"

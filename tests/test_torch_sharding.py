@@ -22,7 +22,7 @@ against the JAX package's on the CPU.
   block; the local head counts the kernel saw; ``TrainLoop(mesh=)`` bit
   for bit ``make_train_step``; a checkpoint saved on ``(2, 2)`` restored
   onto ``(4, 1)`` and then onto no mesh, bit for bit; the decode
-  bundle's greedy tokens equal to ``ModelServer``'s; a non-dense family
+  bundle's greedy tokens equal to ``ModelServer``'s; the encoder-decoder
   refused. The ``(2, 2)`` world also runs a ``(2, 2, 1)`` mesh over
   ``("pod", "data", "model")``: the pod axis composes with ``data`` for
   the batch (against JAX's meshless step), and the int8 pod reduce
@@ -280,25 +280,19 @@ def test_head_layout(hq, hkv, m, want):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_non_dense_families_refused_on_a_wide_mesh(arch):
-    """Attention blocks with dense or MoE feed-forward halves run on a
-    wide mesh (granite and mixtral among them); the SSD scan, the
-    frontends and the encoder-decoder are refused, each named where a
-    config needs it, MoE's dispatch never (jamba for its ``m`` layers
-    alone)."""
+    """Every decoder-only family runs on a wide mesh (the SSD scan of
+    mamba2 and jamba, the vision frontend of qwen2-vl, the MoE families
+    among them); only the encoder-decoder is refused, and named."""
     cfg = get_config(arch)
-    covered = not cfg.frontend and not cfg.is_encdec and cfg.ssm is None
-    assert covered or arch not in ("granite-moe-3b-a800m", "mixtral-8x22b")
-    if covered:
+    if not cfg.is_encdec:
         steps.check_sharded_support(cfg)
         return
     with pytest.raises(NotImplementedError) as e:
         steps.check_sharded_support(cfg)
     msg = str(e.value)
-    assert "MoE's dispatch" not in msg, (arch, msg)
-    for needed, what in ((cfg.ssm is not None, "SSD scan"),
-                         (bool(cfg.frontend), "frontend"),
-                         (cfg.is_encdec, "encoder-decoder")):
-        assert (what in msg) == needed, (arch, msg)
+    assert "encoder-decoder" in msg and arch in msg, (arch, msg)
+    for what in ("SSD scan", "frontend", "MoE's dispatch"):
+        assert what not in msg, (arch, msg)
 
 
 def test_bundles_on_abstract_meshes_match_jax():
@@ -538,11 +532,12 @@ RANK = textwrap.dedent("""
         res["bundle_tokens"] = torch.stack(got, 1).numpy()
         res["cache_placed"] = cache_ok
 
-        # a non-dense family on the wide mesh: the step and a bundle
-        mamba = reduced(get_config("mamba2-780m"))
+        # the encoder-decoder on the wide mesh: the step and a bundle
+        seamless = reduced(get_config("seamless-m4t-medium"))
         res["refused"] = []
-        for make in (lambda: steps.make_train_step(mamba, ocfg, mesh=mesh),
-                     lambda: steps.build_step_bundle(mamba, "decode_32k",
+        for make in (lambda: steps.make_train_step(seamless, ocfg,
+                                                   mesh=mesh),
+                     lambda: steps.build_step_bundle(seamless, "decode_32k",
                                                      mesh)):
             try:
                 make()
@@ -921,10 +916,13 @@ def test_decode_bundle_greedy_tokens_equal_model_server(worlds, world):
 
 @pytest.mark.parametrize("world", list(WORLDS))
 def test_a_non_dense_family_is_refused_on_the_mesh(worlds, world):
+    """Reduced seamless-m4t-medium on the world: ``make_train_step`` and
+    ``build_step_bundle`` both refuse it, naming the encoder-decoder."""
     _, ranks, _, _ = worlds
     for res in ranks[world]:
         assert len(res["refused"]) == 2
-        assert all("SSD scan" in r for r in res["refused"])
+        assert all(r is not None and "encoder-decoder" in r
+                   for r in res["refused"])
 
 
 @pytest.mark.parametrize("b", UNEVEN)

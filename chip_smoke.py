@@ -222,9 +222,9 @@ then:
 21. the SSD scan and the vision frontend on that world (``mesh_families``,
    a budget of 300 s, the same 4 processes), at full width:
    mamba2-780m (48 SSD heads of 64, d_state 128, d_proj 6448, conv_ch
-   3328; 4 of 48 layers) ``TrainLoop(mesh=)`` 3 steps of 4 x 320 tokens
+   3328; 2 of 48 layers) ``TrainLoop(mesh=)`` 3 steps of 4 x 320 tokens
    in f32 (320 crosses the 256-row chunk and pads its tail) and
-   qwen2-vl-7b (2 of 28 layers) 3 steps of 4 x (256 patch embeddings +
+   qwen2-vl-7b (1 of 28 layers) 3 steps of 4 x (256 patch embeddings +
    64 tokens) in f32 at lr 1e-5, each against the meshless loop on the
    card (losses and gradient norms within 1e-5 relative, parameters
    within 1e-4 relative L2; where the meshless loop's own spread from a
@@ -240,7 +240,21 @@ then:
    or within its meshless run's own distance from an f32 twin where
    that is larger: jamba, whose top-2-of-16 routings flip under the
    mesh's rounding; the flipped routings printed); the card's bytes in
-   use, and the attention launches by rank printed and asserted.
+   use, and the attention launches by rank printed and asserted;
+22. the encoder-decoder on that world (``mesh_encdec``, a budget of
+   100 s, the same 4 processes): seamless-m4t-medium at full width (8
+   of its 16 heads of 64 a model rank, its 256,206 vocab rows 128,103 a
+   model rank), 2 + 2 of 12 + 12 layers, ``TrainLoop(mesh=)`` 3 steps of
+   4 x 128 tokens over 256 frames in f32 at lr 1e-5 against the meshless
+   loop on the card (losses and gradient norms within 1e-5 relative,
+   parameters within 1e-4 relative L2, each rank's state bytes asked of
+   the allocator within 4 KiB of the specs' share); served in f32 and
+   bf16 by the prefill and decode bundles, 4 prompts of 64 over 1024
+   frames and 8 teacher-forced steps, the encoder output a server keeps
+   from ``make_prefill_step(with_enc_out=True)`` placed by the ``enc_out``
+   spec, against ``ModelServer`` as in step 19 (f32: every greedy token
+   equal; bf16: within 2e-2); the attention launches by rank printed and
+   asserted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4054,8 +4068,12 @@ def attention_cases(device) -> Dict[str, float]:
     and ``mesh_families``' (jamba at model=2: 16 q over 4 kv heads of
     128, prefilled over 320 rows and decoded over 328; qwen2-vl: 14 over
     2 of 128, q and k rotated by M-RoPE, trained and prefilled over 256
-    patches and 64 tokens, decoded over 328). Returns the largest
-    absolute difference."""
+    patches and 64 tokens, decoded over 328); and ``mesh_encdec``'s
+    (seamless at model=2: 8 of its 16 heads of 64 on a data rank's 2
+    rows; the encoder over 256 and 1024 frames, the decoder's self calls
+    over 128 and 64 tokens, its cross calls non-causal over the frames,
+    decoded over the 72-row cache and every one of 1024 frames). Returns
+    the largest absolute difference."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import apply_rope, mrope_positions_text
     from repro_torch.kernels.decode_attention import SPLIT
@@ -4094,7 +4112,16 @@ def attention_cases(device) -> Dict[str, float]:
                                       (2, 64, 64, 24, 4, 128),
                                       # mesh_families': jamba prefilled
                                       # (qwen2-vl's below, with M-RoPE)
-                                      (2, 320, 320, 16, 4, 128)):
+                                      (2, 320, 320, 16, 4, 128),
+                                      # mesh_encdec's 8 of seamless's 16
+                                      # heads a rank: trained (encoder,
+                                      # self, cross), then served
+                                      (2, 256, 256, 8, 8, 64),
+                                      (2, 128, 128, 8, 8, 64),
+                                      (2, 128, 256, 8, 8, 64),
+                                      (2, 1024, 1024, 8, 8, 64),
+                                      (2, 64, 64, 8, 8, 64),
+                                      (2, 64, 1024, 8, 8, 64)):
             q = _randn((B, Sq, Hq, D), dtype, device, 1)
             k = _randn((B, Sk, Hkv, D), dtype, device, 2)
             v = _randn((B, Sk, Hkv, D), dtype, device, 3)
@@ -4116,7 +4143,8 @@ def attention_cases(device) -> Dict[str, float]:
                                  (2, 72, 6, 1, 128),     # mesh local heads
                                  (2, 72, 12, 4, 64),     # mesh_moe granite
                                  (2, 328, 16, 4, 128),   # mesh_families:
-                                 (2, 328, 14, 2, 128)):  # jamba, qwen2-vl
+                                 (2, 328, 14, 2, 128),   # jamba, qwen2-vl
+                                 (2, 72, 8, 8, 64)):     # mesh_encdec self
             q = _randn((B, Hq, D), dtype, device, 4)
             kc = _randn((B, S, Hkv, D), dtype, device, 5)
             vc = _randn((B, S, Hkv, D), dtype, device, 6)
@@ -4151,7 +4179,7 @@ def attention_cases(device) -> Dict[str, float]:
                     f"decode ring {dtype} S={S} window={window}"))
         # seamless: 16/16 heads of 64 over 1024 rows, the cross call at
         # every length 1024 and the self-attention cache after a 64-token
-        # prompt
+        # prompt; and mesh_encdec's rank, 8 of the heads and 2 rows
         q = _randn((8, 16, 64), dtype, device, 13)
         kc = _randn((8, 1024, 16, 64), dtype, device, 14)
         vc = _randn((8, 1024, 16, 64), dtype, device, 15)
@@ -4164,6 +4192,13 @@ def attention_cases(device) -> Dict[str, float]:
                     ref.decode_attention_ref(q, kc, vc, lengths),
                     f"decode prefix {dtype} seamless heads S=1024 "
                     f"lengths {lengths.tolist()}"))
+        q, kc, vc = (t[:2, ..., 8:, :].contiguous() for t in (q, kc, vc))
+        lengths = torch.full((2,), 1024, dtype=torch.int32, device=device)
+        errs["decode_attention"] = max(
+            errs["decode_attention"], _attn_err(
+                ops.decode_attention(q, kc, vc, lengths),
+                ref.decode_attention_ref(q, kc, vc, lengths),
+                f"decode prefix {dtype} mesh_encdec cross, 8 local heads"))
         # qwen2-vl's local heads in mesh_families: 14/2 of 128, q and k
         # rotated by M-RoPE (sections 16/24/24 over the text positions of
         # 256 patches and 64 tokens), as it trains and prefills; decoded
@@ -5977,6 +6012,10 @@ def mesh_rank(arg: str) -> None:
         res["families"] = families_rank(FamilyMeshSizes(**a["families"]),
                                         mesh, rank, a["tmp"],
                                         tuple(a["same_point"]))
+        _freed()
+        # the encoder-decoder (the mesh_encdec phase)
+        res["encdec"] = encdec_rank(EncDecMeshSizes(**a["encdec"]), mesh,
+                                    rank, a["tmp"])
     finally:
         dist.destroy_process_group()
     with open(a["out"], "wb") as f:
@@ -6388,12 +6427,12 @@ class FamilyMeshSizes:
     qwen2-vl-7b trains and serves with its patch embeddings ahead of the
     tokens."""
     mamba: str = "mamba2-780m"
-    mamba_layers: int = 4          # of 48
+    mamba_layers: int = 2          # of 48, cut for the smoke's time
     mamba_seq: int = 320           # past the 256-row chunk: a padded tail
     jamba: str = "jamba-v0.1-52b"
     jamba_layers: int = 8          # one period of 8, of 32
     vl: str = "qwen2-vl-7b"
-    vl_layers: int = 2             # of 28
+    vl_layers: int = 1             # of 28, cut for the smoke's time
     vl_patches: int = 256
     vl_tokens: int = 64
     train_batch: int = 4
@@ -6885,11 +6924,342 @@ def mesh_families_check(fz: FamilyMeshSizes, ref: Dict[str, object],
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class EncDecMeshSizes:
+    """The ``mesh_encdec`` phase on the mesh phase's world:
+    seamless-m4t-medium at full width, its depth cut, trains and serves.
+    Budget: about 100 s, its meshless reference included."""
+    arch: str = ENCDEC
+    layers: int = 2                # encoder and decoder each, of 12 + 12
+    train_batch: int = 4
+    train_seq: int = 128           # tokens a row
+    train_frames: int = 256        # frames a row
+    train_steps: int = 3
+    # the cross-attention's K bias has a gradient that is zero in exact
+    # arithmetic: AdamW moves each of its 2,048 elements by up to lr,
+    # whichever way its rounding points, so at 1e-3 the bias alone could
+    # move the parameters 1.8e-4 relative L2 apart on two correct runs
+    lr: float = 1e-5
+    serve_batch: int = 4
+    prompt_len: int = 64
+    enc_len: int = 1024            # frames a prompt
+    serve_steps: int = 8
+
+
+def _encdec_mesh_cfg(ez: EncDecMeshSizes, dtype: str):
+    return _encdec_config(ez.layers, dtype)
+
+
+def _encdec_mesh_inputs(ez: EncDecMeshSizes, vocab: int):
+    """(the train batch, the served prompts and their next tokens, the
+    served frames), from seeds every rank uses; the frames are the stub
+    frontend's on a seeded CPU generator (f32 numpy)."""
+    from repro_torch.models.frontend import stub_audio_frames
+    cfg = _encdec_mesh_cfg(ez, "float32")
+    rng = np.random.default_rng(43)
+    batch = {k: rng.integers(0, vocab, (ez.train_batch, ez.train_seq))
+             .astype(np.int32) for k in ("tokens", "targets")}
+    batch["enc_embeds"] = stub_audio_frames(
+        torch.Generator().manual_seed(1), cfg, ez.train_batch,
+        ez.train_frames).float().numpy()
+    toks = rng.integers(0, vocab, (ez.serve_batch,
+                                   ez.prompt_len + ez.serve_steps)
+                        ).astype(np.int32)
+    frames = stub_audio_frames(torch.Generator().manual_seed(2), cfg,
+                               ez.serve_batch, ez.enc_len).float().numpy()
+    return batch, toks, frames
+
+
+def encdec_mesh_reference(ez: EncDecMeshSizes, tmp: str
+                          ) -> Dict[str, object]:
+    """The meshless runs the ``mesh_encdec`` world is held to, on the
+    card, from the seeds the ranks use: the TrainLoop in f32 (losses,
+    gradient norms, step ms; the final parameters saved to ``tmp``), and
+    ModelServer teacher-forced in f32 and bf16 (the parameters drawn on
+    the card from seed 5, each prompt's frames admitted with it)."""
+    from repro_torch.launch.steps import init_params
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.serving.server import ModelServer
+    t0 = time.perf_counter()
+    cfg = _encdec_mesh_cfg(ez, "float32")
+    batch, _, _ = _encdec_mesh_inputs(ez, cfg.vocab_size)
+    loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ez), device="cuda", seed=3)
+    times: List[float] = []
+    ran = loop.run(iter([batch] * ez.train_steps), steps=ez.train_steps,
+                   log_every=0, on_metrics=_step_timer(times))
+    torch.save([t.cpu() for t in _leaves_of(loop.params)],
+               os.path.join(tmp, "encdec_ref_params.pt"))
+    del loop
+    _freed()
+    out: Dict[str, object] = {
+        "losses": [h["loss"] for h in ran["history"]],
+        "grad_norms": [h["grad_norm"] for h in ran["history"]],
+        "step_ms": times}
+    for dtype in MESH_SERVE:
+        scfg = _encdec_mesh_cfg(ez, dtype)
+        _, toks, frames = _encdec_mesh_inputs(ez, scfg.vocab_size)
+        params = init_params(torch.Generator(device="cuda").manual_seed(5),
+                             scfg)
+        srv = ModelServer(scfg, params, batch=ez.serve_batch,
+                          cache_len=ez.prompt_len + ez.serve_steps,
+                          enc_len=ez.enc_len)
+
+        def prefill(t):
+            srv.prefill(t, frames)
+            return srv.logits.float().cpu()
+
+        def decode(t, _pos):
+            srv.tokens = torch.as_tensor(t, device="cuda")
+            srv.decode(1)
+            return srv.logits.float().cpu()
+
+        out[dtype] = torch.stack(_teacher_forced(
+            prefill, decode, toks, ez.prompt_len, ez.serve_steps))
+        del srv, params, prefill, decode
+        _freed()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _encdec_mesh_serve(ez: EncDecMeshSizes, cfg, mesh, toks, frames,
+                       rank: int) -> Dict[str, object]:
+    """The prefill and decode bundles on the mesh, teacher-forced, with
+    the encoder output a server keeps obtained from
+    ``make_prefill_step(with_enc_out=True)`` on the placed arguments and
+    placed by the decode bundle's ``enc_out`` spec: launches (that step's
+    prefill included), the caches' placements, the serving seconds, the
+    parameters' requested bytes beside the specs' share; rank 0 also
+    keeps the logits."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch import steps
+    B, P = ez.serve_batch, ez.prompt_len
+    C = P + ez.serve_steps
+    pb = steps.build_step_bundle(cfg, ShapeSpec("prompt", P, B, "prefill"),
+                                 mesh, cache_len=C)
+    db = steps.build_step_bundle(cfg, ShapeSpec("serve", C, B, "decode"),
+                                 mesh)
+    with_enc = steps.make_prefill_step(cfg, C, with_enc_out=True)
+    torch.cuda.synchronize()
+    asked = _requested()
+    params = _placed_params(cfg, lambda t: pb.place(t)[0], "cuda", False)
+    torch.cuda.synchronize()
+    out = {"param_bytes_requested": _requested() - asked,
+           "param_bytes_computed": _spec_share_bytes(params, pb.in_specs[0],
+                                                     mesh)}
+    emb = sharding.distribute(torch.as_tensor(frames, device="cuda"), mesh,
+                              pb.in_specs[1])
+    state = {}
+    flash_attention.launches = decode_attention.launches = 0
+
+    def prefill(t):
+        tok = sharding.distribute(torch.as_tensor(t, device="cuda"), mesh,
+                                  pb.in_specs[2])
+        logits, state["caches"] = pb.fn(params, emb, tok)
+        again, _, enc_out = with_enc(params, emb, tok)
+        state["same_prefill"] = bool(torch.equal(again.full_tensor(),
+                                                 logits.full_tensor()))
+        state["enc"] = sharding.distribute(enc_out, mesh, db.in_specs[4])
+        state["placed"] = [_placed_as(state["caches"], db.in_specs[1],
+                                      mesh)]
+        return logits.full_tensor().float().cpu()
+
+    def decode(t, pos):
+        tok, p_ = (sharding.distribute(
+            torch.as_tensor(x, dtype=torch.int32, device="cuda"), mesh, spec)
+            for x, spec in ((t, db.in_specs[2]),
+                            (np.full(B, pos), db.in_specs[3])))
+        logits, state["caches"] = db.fn(params, state["caches"], tok, p_,
+                                        state["enc"])
+        state["placed"].append(_placed_as(state["caches"], db.out_specs[1],
+                                          mesh))
+        return logits.full_tensor().float().cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = _teacher_forced(prefill, decode, toks, P, ez.serve_steps)
+    torch.cuda.synchronize()
+    out.update({"serve_s": time.perf_counter() - t0,
+                "flash": flash_attention.launches,
+                "decode": decode_attention.launches,
+                "same_prefill": state["same_prefill"],
+                "enc_out_placements": [str(p) for p in
+                                       state["enc"].placements],
+                "cache_placed": all(state["placed"])})
+    if rank == 0:
+        out["logits"] = torch.stack(logits)
+    return out
+
+
+def _placed_as(tree, specs, mesh) -> bool:
+    """Whether every leaf of ``tree`` is in the placements of its spec."""
+    from repro_torch.distributed import sharding
+    return all(tuple(t.placements) == sharding.placements(mesh, sp)
+               for t, sp in zip(_leaves_of(tree), sharding.spec_leaves(specs)))
+
+
+def encdec_rank(ez: EncDecMeshSizes, mesh, rank: int, tmp: str
+                ) -> Dict[str, object]:
+    """One rank's ``mesh_encdec`` work: the TrainLoop on the mesh (f32;
+    the state bytes, requested of the allocator and each leaf's local
+    piece, beside the specs' share; the parameters against the meshless
+    loop's), then the prefill and decode bundles in f32 and bf16
+    (``_encdec_mesh_serve``). The attention launches are counted from 0
+    for each run alone."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import TrainLoop
+    t0 = time.perf_counter()
+    res: Dict[str, object] = {}
+    cfg = _encdec_mesh_cfg(ez, "float32")
+    batch, _, _ = _encdec_mesh_inputs(ez, cfg.vocab_size)
+    torch.cuda.synchronize()
+    asked = _requested()
+    loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ez), mesh=mesh, seed=3)
+    torch.cuda.synchronize()
+    res["state_bytes_requested"] = _requested() - asked
+    leaves = _leaves_of(loop.params) + _leaves_of(loop.opt_state)
+    shares = (_spec_shares(loop.params, sharding.param_specs(
+        loop.params, mesh), mesh) + _spec_shares(
+            loop.opt_state, sharding.opt_specs(loop.opt_state, mesh), mesh))
+    res["state_bytes_computed"] = sum(shares)
+    held = [(t.to_local() if isinstance(t, DTensor) else t) for t in leaves]
+    res["leaves_off"] = [(i, h.numel() * h.element_size(), w)
+                         for i, (h, w) in enumerate(zip(held, shares))
+                         if h.numel() * h.element_size() != w]
+    res["unsharded_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in leaves)
+    del leaves, held
+    times: List[float] = []
+    flash_attention.launches = 0
+    ran = loop.run(iter([batch] * ez.train_steps), steps=ez.train_steps,
+                   log_every=0, on_metrics=_step_timer(times))
+    res["train_flash"] = flash_attention.launches
+    res["losses"] = [h["loss"] for h in ran["history"]]
+    res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
+    res["step_ms"] = times
+    ref = (torch.load(os.path.join(tmp, "encdec_ref_params.pt"))
+           if rank == 0 else None)
+    num = den = 0.0
+    for i, t in enumerate(_leaves_of(loop.params)):
+        full = t.full_tensor()                      # every rank
+        if rank == 0:                               # compared on the host
+            got, want = full.cpu().double(), ref[i].double()
+            num += float(((got - want) ** 2).sum())
+            den += float((want ** 2).sum())
+            del got, want
+        del full
+    res["param_rel_l2"] = (num / den) ** 0.5 if rank == 0 else None
+    del loop, ref
+    _freed()
+    for dtype in MESH_SERVE:
+        scfg = _encdec_mesh_cfg(ez, dtype)
+        _, toks, frames = _encdec_mesh_inputs(ez, scfg.vocab_size)
+        res[dtype] = _encdec_mesh_serve(ez, scfg, mesh, toks, frames, rank)
+        _freed()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def mesh_encdec_check(ez: EncDecMeshSizes, ref: Dict[str, object],
+                      ranks: List[Dict[str, object]]) -> Dict[str, object]:
+    """Holds the ``mesh_encdec`` world to the meshless runs: training
+    (losses and gradient norms within 1e-5 relative of the meshless
+    loop's, parameters within 1e-4 relative L2, the same losses on every
+    rank; each leaf's local piece exactly its spec's share and the state's
+    requested bytes within ``STATE_SLACK`` of the specs' share), serving
+    (teacher-forced logits against ModelServer's: f32 within 1e-4
+    relative L2 and every greedy token equal, bf16 within 2e-2 and a
+    greedy token differing only at a near-tie; the bundle's prefill logits
+    bit for bit those of ``make_prefill_step(with_enc_out=True)``; the
+    parameters' requested bytes within ``STATE_SLACK`` of their share),
+    the launches of every rank (flash: the encoder's layers, the decoder's
+    self and cross calls, per train step and per prefill, twice a
+    prefill for the step that also returns the encoder output; decode:
+    the decoder's self and cross calls a step) and the caches'
+    placements."""
+    r0 = ranks[0]["encdec"]
+    cfg = _encdec_mesh_cfg(ez, "float32")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(r0["losses"], ref["losses"]))
+    gnorm_rel = max(abs(a - b) / abs(b)
+                    for a, b in zip(r0["grad_norms"], ref["grad_norms"]))
+    serve = {dt: _mesh_logits(r0[dt]["logits"], ref[dt])
+             for dt in MESH_SERVE}
+    per_pass = cfg.encoder_layers + 2 * cfg.n_layers
+    for r in ranks:
+        m = r["encdec"]
+        if (m["losses"], m["grad_norms"]) != (r0["losses"],
+                                               r0["grad_norms"]):
+            raise AssertionError(f"mesh_encdec: ranks disagree on the "
+                                 f"losses or gradient norms: {m['losses']} "
+                                 f"vs {r0['losses']}")
+        asked, share = m["state_bytes_requested"], m["state_bytes_computed"]
+        if m["leaves_off"] or abs(asked - share) > STATE_SLACK:
+            raise AssertionError(
+                f"mesh_encdec rank {r['rank']}: {asked} bytes of state "
+                f"requested, the specs give {share}; leaves (index, held, "
+                f"share) off: {m['leaves_off']}")
+        bad = m["train_flash"] != per_pass * ez.train_steps
+        for dt in MESH_SERVE:
+            sv = m[dt]
+            bad |= (sv["flash"] != 2 * per_pass
+                    or sv["decode"] != 2 * cfg.n_layers * ez.serve_steps
+                    or not sv["cache_placed"] or not sv["same_prefill"]
+                    or abs(sv["param_bytes_requested"]
+                           - sv["param_bytes_computed"]) > STATE_SLACK)
+        if bad:
+            seen = {k: ({x: y for x, y in v.items() if x != "logits"}
+                        if isinstance(v, dict) else v)
+                    for k, v in m.items()}
+            raise AssertionError(f"mesh_encdec rank {r['rank']}: launches, "
+                                 f"cache placements, the prefill or "
+                                 f"parameter bytes: {seen}")
+    if loss_rel > 1e-5 or gnorm_rel > 1e-5 or r0["param_rel_l2"] > 1e-4:
+        raise AssertionError(f"mesh_encdec training vs meshless: losses "
+                             f"{r0['losses']} vs {ref['losses']}, gradient "
+                             f"norms {r0['grad_norms']} vs "
+                             f"{ref['grad_norms']}, parameters "
+                             f"{r0['param_rel_l2']}")
+    f32, bf16 = serve["float32"], serve["bfloat16"]
+    if (f32["rel_l2"] > 1e-4 or f32["mismatches"]
+            or bf16["rel_l2"] > 2e-2 or bf16["mismatches_not_near_ties"]):
+        raise AssertionError(f"mesh_encdec serving vs ModelServer: {serve}")
+    return {
+        "arch": ez.arch, "layers": [cfg.encoder_layers, cfg.n_layers],
+        "losses_mesh": r0["losses"], "losses_meshless": ref["losses"],
+        "loss_rel": loss_rel, "grad_norms_mesh": r0["grad_norms"],
+        "grad_norms_meshless": ref["grad_norms"], "grad_norm_rel": gnorm_rel,
+        "param_rel_l2": r0["param_rel_l2"], "step_ms": r0["step_ms"],
+        "step_ms_meshless": ref["step_ms"],
+        "unsharded_state_bytes": r0["unsharded_bytes"], "serve": serve,
+        "enc_out_placements": r0["float32"]["enc_out_placements"],
+        "ranks": [{"coords": r["coords"],
+                   "state_bytes_requested":
+                       r["encdec"]["state_bytes_requested"],
+                   "state_bytes_computed": r["encdec"]["state_bytes_computed"],
+                   "train_flash": r["encdec"]["train_flash"],
+                   **{f"{dt}_{k}": r["encdec"][dt][k] for dt in MESH_SERVE
+                      for k in ("flash", "decode", "serve_s",
+                                "param_bytes_requested")},
+                   "seconds": r["encdec"]["seconds"]} for r in ranks],
+        "launches": {
+            "flash_attention": sum(
+                r["encdec"]["train_flash"] + sum(r["encdec"][dt]["flash"]
+                                                 for dt in MESH_SERVE)
+                for r in ranks),
+            "decode_attention": sum(r["encdec"][dt]["decode"]
+                                    for r in ranks for dt in MESH_SERVE)}}
+
+
 def mesh_phase(device, ms: MeshSizes = MeshSizes(),
                mz: MoeMeshSizes = MoeMeshSizes(),
-               fz: FamilyMeshSizes = FamilyMeshSizes()
+               fz: FamilyMeshSizes = FamilyMeshSizes(),
+               ez: EncDecMeshSizes = EncDecMeshSizes()
                ) -> Tuple[Dict[str, object], Dict[str, object],
-                          Dict[str, object]]:
+                          Dict[str, object], Dict[str, object]]:
     """The sharded path on the card: ``data`` x ``model`` processes share
     it (gloo; DTensor's collectives through
     ``repro_torch.distributed.gloo_cuda``), qwen2-1.5b at full width, cut
@@ -6910,10 +7280,12 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     meshless reference included), returned second, and the
     ``mesh_families`` phase (``families_rank``, held by
     ``mesh_families_check``; budget 300 s, its meshless reference
-    included), returned third. The references run first, one after the
-    other, each freed before the next: jamba's, the largest (about
-    26.5 GB), last; then the ranks hold their shards, jamba's drawn by
-    one rank at a time."""
+    included), returned third, and the ``mesh_encdec`` phase
+    (``encdec_rank``, held by ``mesh_encdec_check``; budget 100 s, its
+    meshless reference included), returned fourth. The references run
+    first, one after the other, each freed before the next: jamba's, the
+    largest (about 26.5 GB), before seamless's; then the ranks hold their
+    shards, jamba's drawn by one rank at a time."""
     import pickle
     import shutil
     import tempfile
@@ -6927,6 +7299,8 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         ref = mesh_reference(ms, tmp)
         moe_ref = moe_reference(mz, tmp)
         fam_ref = families_reference(fz, tmp)
+        _freed()
+        enc_ref = encdec_mesh_reference(ez, tmp)
         # the trained fields whose meshless loop moved a later gradient
         # norm by more than a tenth of the limit from a 1e-7 start
         same_point = [f for f in FAMILY_TRAIN if max(
@@ -6947,6 +7321,7 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
                               "moe_ref": os.path.join(tmp,
                                                       "moe_ref_params.pt"),
                               "families": dataclasses.asdict(fz),
+                              "encdec": dataclasses.asdict(ez),
                               "same_point": same_point, "tmp": tmp})
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()),
@@ -6974,7 +7349,8 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
                  for r in range(n)]
         world_s = (time.perf_counter() - t_world
                    - max(r["moe"]["seconds"] for r in ranks)
-                   - max(r["families"]["seconds"] for r in ranks))
+                   - max(r["families"]["seconds"] for r in ranks)
+                   - max(r["encdec"]["seconds"] for r in ranks))
         rcfg = reduced(_mesh_cfg(ms, "float32"))
         meshless = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), device="cuda",
                              ckpt_dir=os.path.join(tmp, "ckpt"))
@@ -7078,8 +7454,20 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         f"{fz.serve_batch} prompts of {fz.prompt_len}): "
         f"{json.dumps(fam_out)}; phase {fam_out['seconds']:.3f} s; "
         f"{card_line()}")
+    enc_out = mesh_encdec_check(ez, enc_ref, ranks)
+    enc_out["seconds"] = enc_ref["seconds"] + max(
+        r["encdec"]["seconds"] for r in ranks)
+    enc_out["reference_seconds"] = enc_ref["seconds"]
+    log(f"mesh_encdec phase ({ms.shape} over (data, model), {n} processes "
+        f"on the card, gloo; {ez.arch} full width, {ez.layers} + "
+        f"{ez.layers} layers, trains f32 {ez.train_steps} steps of "
+        f"{ez.train_batch} x {ez.train_seq} tokens over {ez.train_frames} "
+        f"frames and serves f32 and bf16 {ez.serve_batch} prompts of "
+        f"{ez.prompt_len} over {ez.enc_len} frames, {ez.serve_steps} "
+        f"teacher-forced steps): {json.dumps(enc_out)}; phase "
+        f"{enc_out['seconds']:.3f} s; {card_line()}")
     out["seconds"] = (time.perf_counter() - t_phase - moe_out["seconds"]
-                      - fam_out["seconds"])
+                      - fam_out["seconds"] - enc_out["seconds"])
     log(f"mesh phase ({ms.shape} over (data, model), {n} processes on the "
         f"card, gloo; {ms.arch} full width, {ms.layers} layers): training "
         f"f32 {ms.train_steps} steps of {ms.train_batch} x "
@@ -7098,7 +7486,7 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         f"{[(r['train_flash'],) + tuple((r[dt]['flash'], r[dt]['decode']) for dt in MESH_SERVE) for r in ranks]};"
         f" reshard restore bit for bit {ckpt_equal}; world {world_s:.3f} s,"
         f" phase {out['seconds']:.3f} s; {card_line()}")
-    return out, moe_out, fam_out
+    return out, moe_out, fam_out, enc_out
 
 
 def main() -> int:
@@ -7132,24 +7520,29 @@ def main() -> int:
         log(card)
         log(json.dumps({"calls": calls, "serve": report}))
         return 0
-    res = run("cuda", Sizes())
-    torch.cuda.empty_cache()
+    wall: Dict[str, float] = {}       # each step's seconds, host clock
+
+    def timed(name: str, fn: Callable, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    res = timed("run", run, "cuda", Sizes())
     shard_ref = res.pop("shard_ref")
-    shard = sharded_node(shard_ref, res["serve"], Sizes(), "cuda")
-    torch.cuda.empty_cache()
-    proc = process_node(shard_ref, res["serve"], shard, Sizes(), "cuda")
-    torch.cuda.empty_cache()
-    base = baselines_phase(Sizes(), "cuda")
-    torch.cuda.empty_cache()
-    trained = train_phase("cuda")
-    torch.cuda.empty_cache()
-    mres = run_model("cuda", ModelSizes())
-    torch.cuda.empty_cache()
-    fam = families_phase("cuda")
-    torch.cuda.empty_cache()
-    enc = encdec_phase("cuda")
-    torch.cuda.empty_cache()
-    mesh, mesh_moe, mesh_fam = mesh_phase("cuda")
+    shard = timed("sharded_node", sharded_node, shard_ref, res["serve"],
+                  Sizes(), "cuda")
+    proc = timed("process_node", process_node, shard_ref, res["serve"],
+                 shard, Sizes(), "cuda")
+    base = timed("baselines", baselines_phase, Sizes(), "cuda")
+    trained = timed("train", train_phase, "cuda")
+    mres = timed("model", run_model, "cuda", ModelSizes())
+    fam = timed("families", families_phase, "cuda")
+    enc = timed("encdec", encdec_phase, "cuda")
+    mesh, mesh_moe, mesh_fam, mesh_enc = timed("mesh_phases", mesh_phase,
+                                               "cuda")
+    log(json.dumps({"phase_seconds": wall}))
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
     log(json.dumps({k: res[k] for k in ("live", "modes", "swap", "stream",
@@ -7166,6 +7559,7 @@ def main() -> int:
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"mesh_moe": mesh_moe}))
     log(json.dumps({"mesh_families": mesh_fam}))
+    log(json.dumps({"mesh_encdec": mesh_enc}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
@@ -7174,7 +7568,8 @@ def main() -> int:
              "encdec": enc["launches"],
              "mesh": mesh["launches"],
              "mesh_moe": mesh_moe["launches"],
-             "mesh_families": mesh_fam["launches"]}
+             "mesh_families": mesh_fam["launches"],
+             "mesh_encdec": mesh_enc["launches"]}
     kernels = res["kernels"] + mres["kernels"]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()

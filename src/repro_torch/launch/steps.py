@@ -26,9 +26,9 @@ gathered at its use (FSDP), heads, FFN hidden and vocab over ``model``
 (TP), the experts over ``data`` where it divides them (EP,
 ``models/moe.py``), every gradient brought back to its parameter's
 placements before AdamW, the Mamba-2 blocks on local heads and channel
-chunks (``models/ssm.py``). Every decoder-only family runs there, a
-vision frontend's embeddings with it; the encoder-decoder raises
-(``check_sharded_support``).
+chunks (``models/ssm.py``). Every registered config runs there: each
+decoder-only family, a vision frontend's embeddings with it, and the
+encoder-decoder (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
                                      adamw_update)
 
 __all__ = ["init_params", "params_struct", "opt_struct", "cache_struct",
-           "check_sharded_support", "make_train_step", "make_prefill_step",
+           "make_train_step", "make_prefill_step",
            "make_serve_step", "StepBundle", "build_step_bundle"]
 
 
@@ -91,18 +91,6 @@ def cache_struct(cfg: ModelConfig, batch: int, cache_len: int) -> Any:
         return encdec.init_dec_cache(cfg, batch, cache_len,
                                      torch.device("meta"))
     return lm.cache_specs(cfg, batch, cache_len)
-
-
-def check_sharded_support(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the DTensor path does
-    not cover yet: the encoder-decoder. Every decoder-only family
-    (attention or SSD mixers, dense, MoE or no feed-forward half, a
-    vision frontend) runs there."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh whose data or model axis has several "
-            f"ranks: the DTensor path runs the decoder-only models; not "
-            f"covered: the encoder-decoder (models/encdec.py)")
 
 
 def _value_and_grad(params: Any, cfg: ModelConfig,
@@ -192,8 +180,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
     wide = mesh is not None and sharding.is_wide(mesh, rules)
-    if wide:
-        check_sharded_support(cfg)
     pod = _pod_of(mesh) if mesh is not None else None
 
     def grads_of(params, batch, place=lambda mb: mb):
@@ -325,7 +311,12 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int, *,
                       with_enc_out: bool = False) -> Callable:
     """The prefill step; for an encoder-decoder with ``with_enc_out`` it
     also returns the encoder output, which a server keeps for the serve
-    step (``(last_logits, caches, enc_out)``)."""
+    step (``(last_logits, caches, enc_out)``). The encoder-decoder's
+    prefill bundle returns ``(logits, caches)`` only, as JAX's does: a
+    caller on a mesh calls this step with ``with_enc_out`` on the placed
+    parameters, frames and tokens, and places the encoder output by
+    ``batch_specs``' ``enc_out`` spec (``sharding.distribute``) for the
+    decode bundle."""
     if cfg.is_encdec:
         def prefill_step(params, enc_embeds, tokens):
             enc_out = encdec.encode(params, cfg, enc_embeds)
@@ -400,15 +391,11 @@ def build_step_bundle(cfg: ModelConfig, shape: Union[str, ShapeSpec], mesh,
     """Assemble (fn, arg structs, specs) for one (arch × shape) cell.
     ``shape`` names a ``SHAPES`` cell or is a ``ShapeSpec``; ``mesh`` is
     a ``DeviceMesh`` (``fn`` runs on it) or a ``sharding.AbstractMesh``
-    (structs and specs only; every arch). On a ``DeviceMesh`` that
-    shards over ``data`` or ``model`` the config must be one the DTensor
-    path covers (``check_sharded_support``). A prefill cell's cache holds
-    ``cache_len`` positions, its ``seq_len`` by default as in JAX; a
-    server passes its decode cell's, so the prefill's caches are the
-    decode step's."""
+    (structs and specs only); every arch builds on both. A prefill cell's
+    cache holds ``cache_len`` positions, its ``seq_len`` by default as in
+    JAX; a server passes its decode cell's, so the prefill's caches are
+    the decode step's."""
     ss = shape_spec(shape)
-    if isinstance(mesh, DeviceMesh) and sharding.is_wide(mesh, rules):
-        check_sharded_support(cfg)
     pstruct = params_struct(cfg)
     pspecs = param_specs(pstruct, mesh, rules)
     ins = input_specs(cfg, ss)

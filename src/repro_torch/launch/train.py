@@ -11,9 +11,8 @@ and its restore reshards them onto its own mesh; on a mesh whose only
 wide axis is ``pod`` it is data parallel over it (one rank per pod, an
 f32 gradient mean, or with ``compress=True`` the int8-compressed one).
 ``--compress-grads`` without a mesh is the plain step, as in the JAX
-package. Every registered config trains on one device, the
-encoder-decoder (seamless-m4t-medium) included; dense models train on a
-wide mesh.
+package. Every registered config trains on one device and on a wide
+mesh, the encoder-decoder (seamless-m4t-medium) included.
 
 Fault tolerance in the loop:
 

@@ -29,7 +29,9 @@ the axis divides them, kv heads ``Shard`` where it divides them, else a
 replicated K/V of which each rank takes the kv heads its q heads use),
 then the kernel is called on the contiguous local tensors
 (``to_local``/``from_local``). A replicated K/V that ranks slice gets its
-gradient back as a partial sum over ``model``.
+gradient back as a partial sum over ``model``. Cross-attention follows
+the same rule, its K/V projected from the encoder's output, which is
+batch-sharded as the decoder's stream is.
 """
 from __future__ import annotations
 
@@ -76,22 +78,25 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 class _LocalHeads:
-    """Self-attention on this rank's heads, for a DTensor ``x`` (B, S, d)
+    """Attention on this rank's heads, for a DTensor ``x`` (B, S, d)
     batch-sharded over the data axes: ``q`` the local (B_l, S, Hq_l, D)
     queries, ``kv`` the local K and V of the kv heads the rank holds (all,
-    or its shard), both roped; ``out`` wraps a local (B_l, S, Hq_l, D)
-    result back into a DTensor (B, S, Hq·D). Decode's (B, d) token gives
-    (B_l, H_l, D) alike."""
+    or its shard), both roped by ``positions`` (``None``: no rope); ``out``
+    wraps a local (B_l, S, Hq_l, D) result back into a DTensor (B, S,
+    Hq·D). Decode's (B, d) token gives (B_l, H_l, D) alike. K and V come
+    from ``x``, or for cross-attention from ``kv_x`` (B, Se, d), the
+    encoder's output batch-sharded as ``x`` is."""
 
     def __init__(self, p: Params, x: DTensor, cfg: ModelConfig,
-                 positions: DTensor):
+                 positions, kv_x: DTensor = None):
         mesh = x.device_mesh
         lay = sharding.head_layout(mesh, cfg.n_heads, cfg.n_kv_heads)
         self.lay = lay
-        q, k, v = (sharding.pin_heads(apply_linear(p[n], x), sh)
-                   for n, sh in (("wq", lay.q_sharded),
-                                 ("wk", lay.kv_sharded),
-                                 ("wv", lay.kv_sharded)))
+        src = x if kv_x is None else kv_x
+        q, k, v = (sharding.pin_heads(apply_linear(p[n], t), sh)
+                   for n, t, sh in (("wq", x, lay.q_sharded),
+                                    ("wk", src, lay.kv_sharded),
+                                    ("wv", src, lay.kv_sharded)))
         self.q_dt = q
         # ranks that slice one replicated K/V hold partial gradients of it
         grad_pl = None
@@ -102,16 +107,17 @@ class _LocalHeads:
         kl = k.to_local(grad_placements=grad_pl)
         vl = v.to_local(grad_placements=grad_pl)
         hd = cfg.hd
-        lead = tuple(ql.shape[:-1])
         held = cfg.n_kv_heads // lay.m if lay.kv_sharded else cfg.n_kv_heads
-        pos = positions.to_local()
-        if cfg.mrope_sections is not None:
-            pos = mrope_positions_text(pos)
-        self.q = apply_rope(ql.reshape(lead + (lay.hq_local, hd)), pos,
-                            cfg.rope_theta, cfg.mrope_sections)
-        self.kv = (apply_rope(kl.reshape(lead + (held, hd)), pos,
-                              cfg.rope_theta, cfg.mrope_sections),
-                   vl.reshape(lead + (held, hd)))
+        q = ql.reshape(tuple(ql.shape[:-1]) + (lay.hq_local, hd))
+        k = kl.reshape(tuple(kl.shape[:-1]) + (held, hd))
+        v = vl.reshape(tuple(vl.shape[:-1]) + (held, hd))
+        if positions is not None:
+            pos = positions.to_local()
+            if cfg.mrope_sections is not None:
+                pos = mrope_positions_text(pos)
+            q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+        self.q, self.kv = q, (k, v)
         self.lo = lay.kv_lo(sharding.model_rank(mesh))
 
     def kv_used(self, k: torch.Tensor, v: torch.Tensor
@@ -310,7 +316,11 @@ def _project_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
 def cross_attend(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Decoder queries x (B, S, d) over the encoder's output (B, Se, d):
-    no causal mask, no rope; S may be shorter or longer than Se."""
+    no causal mask, no rope; S may be shorter or longer than Se. On
+    DTensors the flash kernel runs on the rank's local heads."""
+    if isinstance(x, DTensor):
+        lh = _LocalHeads(p, x, cfg, None, kv_x=enc_out)
+        return apply_linear(p["wo"], lh.flash(False, None))
     B, S, _ = x.shape
     q = apply_linear(p["wq"], x).view(B, S, cfg.n_heads, cfg.hd)
     k, v = _project_kv(p, enc_out, cfg)
@@ -322,7 +332,16 @@ def cross_attend_decode(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
                         cfg: ModelConfig) -> torch.Tensor:
     """One decoder token x (B, d) against the encoder's output (B, Se, d),
     its K/V projected anew on every call, as in the JAX package: decode
-    attention with every length ``Se``."""
+    attention with every length ``Se``. On DTensors the decode kernel runs
+    on the rank's local heads and rows."""
+    if isinstance(x, DTensor):
+        lh = _LocalHeads(p, x, cfg, None, kv_x=enc_out)
+        k, v = lh.kv_used(*lh.kv)
+        lengths = torch.full((k.shape[0],), k.shape[1], dtype=torch.int32,
+                             device=k.device)
+        o = ops.decode_attention(lh.q.contiguous(), k, v, lengths,
+                                 window=None)
+        return apply_linear(p["wo"], lh.out(o))
     B, _ = x.shape
     Se = enc_out.shape[1]
     q = apply_linear(p["wq"], x).view(B, cfg.n_heads, cfg.hd)

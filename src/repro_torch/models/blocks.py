@@ -172,11 +172,11 @@ def _pinned(x: torch.Tensor) -> torch.Tensor:
     return pin_dp(x) if isinstance(x, DTensor) else x
 
 
-def _layer(stacked: Tuple[Params, ...], i: int, x: torch.Tensor
-           ) -> Tuple[Params, ...]:
-    """Layer ``i``'s parameters of every pattern position; on a wide mesh
-    with their ``data`` shards gathered."""
-    layer = tuple(layer_slice(s, i) for s in stacked)
+def _layer(stacked: Any, i: int, x: torch.Tensor) -> Any:
+    """Layer ``i`` of stacked parameters (one tree, or a tuple of them,
+    one per pattern position); on a wide mesh with their ``data`` shards
+    gathered."""
+    layer = layer_slice(stacked, i)
     return fsdp_gather(layer) if isinstance(x, DTensor) else layer
 
 

@@ -18,19 +18,31 @@ Logits are the f32 product of the final hidden state with the tied
 ``lm.with_f32_head(params, cfg)``, which converts it to f32 once; training
 passes the parameters as they are, so the gradient reaches the bf16
 ``embed``.
+
+On a wide mesh (DTensor parameters placed by ``distributed/sharding.py``,
+the inputs by ``batch_specs``) both stacks run as the decoder-only models
+do (``models/blocks.py``, ``models/lm.py``): each layer's weights have
+their ``data`` shards gathered at their use, the residual stream is
+pinned batch-sharded over the data axes after every half of a block
+(self-attention, cross-attention, MLP), attention runs on each rank's
+local heads (cross-attention's K/V from the encoder's output, which is
+batch-sharded as the decoder's stream), the token lookup goes through
+``lm._vocab_lookup`` and the tied head through ``lm._logits``. The
+decoder caches come back stacked over the layers, and the bundles of
+``launch/steps.py`` place them by ``cache_specs_tree``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import lm
+from repro_torch.models.blocks import _layer, _pinned
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_embedding,
                                        init_mlp, init_norm)
-from repro_torch.models.lm import masked_nll
 from repro_torch.models.tree import layer_slice, stacked_init, tree_map
 
 Params = Dict[str, Any]
@@ -79,40 +91,34 @@ def _n_layers(stacked: Params) -> int:
     return next(iter(stacked["norm1"].values())).shape[0]
 
 
-def _positions(B_: int, S: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(
-        B_, S)
-
-
 def encode(params: Params, cfg: ModelConfig,
            enc_embeds: torch.Tensor) -> torch.Tensor:
     """enc_embeds (B, Se, d) -> the encoder's output (B, Se, d) in
     ``cfg.compute_dtype``."""
-    x = enc_embeds.to(cfg.compute_dtype)
-    pos = _positions(x.shape[0], x.shape[1], x.device)
+    x = _pinned(enc_embeds.to(cfg.compute_dtype))
+    pos = lm._positions(cfg, x)
     stacked = params["enc_blocks"]
     for i in range(_n_layers(stacked)):
-        p = layer_slice(stacked, i)
+        p = _layer(stacked, i, x)
         h = apply_norm(p["norm1"], x, cfg.norm)
-        x = x + attn.attend_train(p["attn"], h, cfg, pos, causal=False)
+        x = _pinned(x + attn.attend_train(p["attn"], h, cfg, pos,
+                                          causal=False))
         h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], h, cfg.act)
-    return apply_norm(params["enc_norm"], x, cfg.norm)
+        x = _pinned(x + apply_mlp(p["mlp"], h, cfg.act))
+    return apply_norm(lm._top(params, x, ("enc_norm",))["enc_norm"], x,
+                      cfg.norm)
 
 
-def _embed(params: Params, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
-    # gather first, then convert: the same values as converting the table
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
-
-
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    head = params.get("head_f32")
-    if head is None:
-        head = params["embed"]
-    return x.float() @ head.float().T
+def _dec_rest(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              enc_out: torch.Tensor, decode: bool) -> torch.Tensor:
+    """A decoder block's cross-attention and MLP halves, after its
+    self-attention half has been added to ``x``."""
+    x = _pinned(x)
+    h = apply_norm(p["norm_x"], x, cfg.norm)
+    cross = attn.cross_attend_decode if decode else attn.cross_attend
+    x = _pinned(x + cross(p["cross_attn"], h, enc_out, cfg))
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    return _pinned(x + apply_mlp(p["mlp"], h, cfg.act))
 
 
 def forward_train(params: Params, cfg: ModelConfig,
@@ -120,18 +126,15 @@ def forward_train(params: Params, cfg: ModelConfig,
                   ) -> torch.Tensor:
     """enc_embeds (B, Se, d), tokens (B, S) -> logits (B, S, V) f32."""
     enc_out = encode(params, cfg, enc_embeds)
-    x = _embed(params, cfg, tokens)
-    pos = _positions(x.shape[0], x.shape[1], x.device)
+    x = lm._embed_inputs(params, cfg, tokens, None)
+    pos = lm._positions(cfg, x)
     stacked = params["dec_blocks"]
     for i in range(_n_layers(stacked)):
-        p = layer_slice(stacked, i)
+        p = _layer(stacked, i, x)
         h = apply_norm(p["norm1"], x, cfg.norm)
         x = x + attn.attend_train(p["self_attn"], h, cfg, pos, causal=True)
-        h = apply_norm(p["norm_x"], x, cfg.norm)
-        x = x + attn.cross_attend(p["cross_attn"], h, enc_out, cfg)
-        h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], h, cfg.act)
-    return _logits(params, cfg, x)
+        x = _dec_rest(p, cfg, x, enc_out, decode=False)
+    return lm._logits(params, cfg, x)
 
 
 def loss_fn(params: Params, cfg: ModelConfig,
@@ -141,7 +144,7 @@ def loss_fn(params: Params, cfg: ModelConfig,
     tokens (B, S), targets (B, S) with a negative target masked."""
     logits = forward_train(params, cfg, batch["enc_embeds"],
                            batch["tokens"])
-    loss = masked_nll(logits, batch["targets"])
+    loss = lm.masked_nll(logits, batch["targets"])
     return loss, {"loss": loss, "nll": loss}
 
 
@@ -163,23 +166,19 @@ def dec_prefill(params: Params, cfg: ModelConfig, enc_out: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """tokens (B, S) over enc_out (B, Se, d) -> (logits of the last
     position (B, V) f32, decoder caches padded to ``cache_len``)."""
-    x = _embed(params, cfg, tokens)
-    pos = _positions(x.shape[0], x.shape[1], x.device)
+    x = lm._embed_inputs(params, cfg, tokens, None)
+    pos = lm._positions(cfg, x)
     stacked = params["dec_blocks"]
     caches = []
     for i in range(_n_layers(stacked)):
-        p = layer_slice(stacked, i)
+        p = _layer(stacked, i, x)
         h = apply_norm(p["norm1"], x, cfg.norm)
         o, cache = attn.attend_prefill(p["self_attn"], h, cfg, pos,
                                        cache_len)
         caches.append(cache)
-        x = x + o
-        h = apply_norm(p["norm_x"], x, cfg.norm)
-        x = x + attn.cross_attend(p["cross_attn"], h, enc_out, cfg)
-        h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], h, cfg.act)
+        x = _dec_rest(p, cfg, x + o, enc_out, decode=False)
     stacked_caches = tree_map(lambda *xs: torch.stack(xs), *caches)
-    return _logits(params, cfg, x[:, -1:, :])[:, 0, :], stacked_caches
+    return lm._logits(params, cfg, x[:, -1:, :])[:, 0, :], stacked_caches
 
 
 def dec_decode_step(params: Params, cfg: ModelConfig, enc_out: torch.Tensor,
@@ -187,16 +186,12 @@ def dec_decode_step(params: Params, cfg: ModelConfig, enc_out: torch.Tensor,
                     position: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """token (B,) int, position (B,) int32 -> (logits (B, V) f32, caches
     written in place)."""
-    x = params["embed"][token.long()].to(cfg.compute_dtype)   # (B, d)
+    x = lm._embed_inputs(params, cfg, token, None)           # (B, d)
     stacked = params["dec_blocks"]
     for i in range(_n_layers(stacked)):
-        p = layer_slice(stacked, i)
+        p = _layer(stacked, i, x)
         h = apply_norm(p["norm1"], x, cfg.norm)
         o, _ = attn.attend_decode(p["self_attn"], h, cfg,
                                   layer_slice(caches, i), position)
-        x = x + o
-        h = apply_norm(p["norm_x"], x, cfg.norm)
-        x = x + attn.cross_attend_decode(p["cross_attn"], h, enc_out, cfg)
-        h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], h, cfg.act)
-    return _logits(params, cfg, x[:, None, :])[:, 0, :], caches
+        x = _dec_rest(p, cfg, x + o, enc_out, decode=True)
+    return lm._logits(params, cfg, x[:, None, :])[:, 0, :], caches

@@ -427,9 +427,11 @@ class ShardedDeploymentHandle:
                    RequestContext(trace_id=trace,
                                   parent_span=span.span_id))
         try:
-            parts = eng.router.scatter(self.handles, karr, ts_arr,
-                                       row_arr, ctx=ctx,
-                                       owners=eng.owners_of(karr))
+            owners = eng.owners_of(karr)
+            parts = self._rerouted(
+                eng.router.scatter(self.handles, karr, ts_arr, row_arr,
+                                   ctx=ctx, owners=owners),
+                owners, karr, ts_arr, row_arr, ctx)
             columns, status, _tvers, any_shed = \
                 eng.router.gather(parts, B)
         except BaseException as e:
@@ -484,6 +486,39 @@ class ShardedDeploymentHandle:
             table_version=max(vv, default=-1),
             latency={"serve_s": wall},
             version_vector=vv, watermark=wm, feature_age=age)
+
+    def _rerouted(self, parts, owners: np.ndarray, karr: np.ndarray,
+                  ts_arr: np.ndarray, row_arr: Optional[np.ndarray], ctx
+                  ) -> List[Tuple[np.ndarray, object]]:
+        """``parts`` with every sub-batch that a ``remove_shard`` turned
+        away sent again to its keys' current owners. A scatter that read
+        the route table before the shard left the ring can submit to its
+        queue after ``retire_queue``; the queue sheds it at once
+        (``worker_down``), and without this the batch would come back
+        degraded or shed although every key has a live owner. A shard
+        that died, not removed, is not retried here: its rows take the
+        degradation ladder."""
+        eng = self.engine
+        out = []
+        todo = list(parts)
+        for _ in range(len(eng.shards) + 1):
+            late = []
+            for idx, it in todo:
+                if (it.shed and it.shed_reason == "worker_down"
+                        and int(owners[idx[0]]) in eng._retired):
+                    late.append(idx)
+                else:
+                    out.append((idx, it))
+            if not late:
+                return out
+            idx = np.concatenate(late)
+            owners = np.empty(len(karr), owners.dtype)
+            owners[idx] = eng.owners_of(karr[idx])
+            todo = [(idx[j], it) for j, it in eng.router.scatter(
+                self.handles, karr[idx], ts_arr[idx],
+                row_arr[idx] if row_arr is not None else None, ctx=ctx,
+                owners=owners[idx])]
+        return out + todo
 
     # ------------------------------------------------------ stale tier
     @staticmethod

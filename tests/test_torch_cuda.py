@@ -1871,6 +1871,49 @@ def test_local_heads_kernel_calls_equal_the_full_call(card, Hq, Hkv, D, m,
         rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
 
 
+@pytest.mark.parametrize("B,Sq,Sk", [
+    (2, 128, 256),       # mesh_encdec trains: 128 tokens over 256 frames
+    (2, 64, 1024),       # and serves: 64-token prompts over 1024 frames
+    (2, 256, 256),       # the encoder's own calls
+    (2, 1024, 1024),
+    (3, 37, 16),         # a decoder longer than the encoder, odd rows
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encdec_local_heads_kernel_calls_equal_the_full_call(card, B, Sq,
+                                                             Sk, dtype):
+    """seamless-m4t-medium at model=2 (16 q and 16 kv heads of 64: 8 and
+    8 a rank, ``sharding.head_layout``) on one data rank's rows: the
+    non-causal flash call of its encoder and of its cross-attention (``Sq``
+    tokens over ``Sk`` frames) and the cross decode call at every length
+    ``Sk``, each rank's local heads against the one full call and the
+    plain version, within the kernels' tolerance."""
+    from repro_torch.distributed import sharding
+    lay = sharding.head_layout(
+        sharding.AbstractMesh((2, 2), ("data", "model")), 16, 16)
+    assert (lay.q_sharded, lay.kv_sharded, lay.hq_local) == (True, True, 8)
+    D, m, h = 64, 2, 8
+    q = _randn((B, Sq, 16, D), dtype, card, 31)
+    k = _randn((B, Sk, 16, D), dtype, card, 32)
+    v = _randn((B, Sk, 16, D), dtype, card, 33)
+    full = ops.flash_attention(q, k, v, causal=False)
+    parts = [ops.flash_attention(*(t[:, :, r * h:(r + 1) * h].contiguous()
+                                   for t in (q, k, v)), causal=False)
+             for r in range(m)]
+    for want in (full, ref.flash_attention_ref(q, k, v, causal=False)):
+        torch.testing.assert_close(torch.cat(parts, 2), want,
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    qd = _randn((B, 16, D), dtype, card, 34)
+    lengths = torch.full((B,), Sk, dtype=torch.int32, device=card)
+    full = ops.decode_attention(qd, k, v, lengths)
+    parts = [ops.decode_attention(qd[:, r * h:(r + 1) * h].contiguous(),
+                                  k[:, :, r * h:(r + 1) * h].contiguous(),
+                                  v[:, :, r * h:(r + 1) * h].contiguous(),
+                                  lengths) for r in range(m)]
+    for want in (full, ref.decode_attention_ref(qd, k, v, lengths)):
+        torch.testing.assert_close(torch.cat(parts, 1), want,
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
 def test_ssd_block_on_a_one_rank_cuda_mesh_equals_the_meshless_block(
         card, tmp_path):
     """One mamba2-780m SSD block at full width (f32; 48 heads of 64,
@@ -1967,6 +2010,10 @@ try:
     batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
                              dtype=torch.int32, device="cuda")
              for k in ("tokens", "targets")}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.tensor(
+            rng.standard_normal((4, 24, cfg.d_model)), dtype=torch.float32,
+            device="cuda")
     ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
     p = sharding.distribute(p0, mesh, sharding.param_specs(p0, mesh))
     s = adamw.adamw_init(p, ocfg)
@@ -2152,3 +2199,76 @@ def test_mm_f32_on_the_card_is_one_bf16_gemm_with_f32_sums(card, shapes):
     want = torch.autograd.grad(x @ w, (x, w), gy)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", ["1,2", "2,1"])
+def test_two_process_encdec_mesh_on_the_card_matches_the_meshless_step(
+        card, tmp_path, shape):
+    """Two processes share the card on a (1, 2) mesh (the heads and the
+    vocab over ``model``) and a (2, 1) mesh (the batch and the frames
+    over ``data``): reduced seamless-m4t-medium, 3 steps of 4 x 16 tokens
+    over 24 frames (f32), against the meshless step on the card: losses
+    and gradient norms within 1e-5 relative, parameters within 1e-4
+    relative L2; the flash kernel launched for the encoder, the decoder's
+    self- and its cross-attention on each rank's local heads."""
+    import pickle
+    import subprocess
+    import sys
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.optim import adamw
+    _build.library()            # built once here; the ranks load it
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    (tmp_path / "rank.py").write_text(MESH_RANK)
+    env = dict(os.environ, PYTHONPATH=src)
+    arch = "seamless-m4t-medium"
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "rank.py"), str(r),
+         str(tmp_path / "store"), str(tmp_path / f"out{r}.pkl"), arch,
+         shape, "0"],
+        env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for r in (0, 1)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = [pickle.loads((tmp_path / f"out{r}.pkl").read_bytes())
+             for r in (0, 1)]
+    cfg = reduced(get_config(arch))
+    params = _on(steps.init_params(torch.Generator().manual_seed(0), cfg),
+                 "cuda")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 16)),
+                             dtype=torch.int32, device=card)
+             for k in ("tokens", "targets")}
+    batch["enc_embeds"] = torch.tensor(
+        rng.standard_normal((4, 24, cfg.d_model)), dtype=torch.float32,
+        device=card)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = steps.make_train_step(cfg, ocfg)
+    s = adamw.adamw_init(params, ocfg)
+    losses, norms = [], []
+    for _ in range(3):
+        params, s, m = step(params, s, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    want = [t.cpu().double().numpy() for _, t in
+            tree_flatten_with_path(params)]
+    for res in ranks:
+        assert res["device"].startswith("cuda")
+        # 2 encoder + 2 x 2 decoder calls a step, no remat, 3 steps
+        assert res["flash"] == (cfg.encoder_layers + 2 * cfg.n_layers) * 3
+        np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(res["norms"], norms, rtol=1e-5)
+        num = sum(float(((a - b) ** 2).sum())
+                  for a, b in zip(res["params"], want))
+        den = sum(float((b ** 2).sum()) for b in want)
+        assert (num / den) ** 0.5 <= 1e-4

@@ -26,8 +26,10 @@ against the JAX package's on the CPU.
   compressed steps.
 * One rank, in this process: the same step on a ``(1, 1, 1)`` mesh
   against JAX's on its one device, the uncompressed one against the
-  plain step, and the refusals (a non-dense family on a mesh whose data
-  axis has two ranks).
+  plain step.
+* Reduced seamless-m4t-medium on the two ranks' ``(1, 2, 1)`` mesh (the
+  data axis over both): the compressed step against JAX's on two host
+  devices and against the port's uncompressed step.
 
 Spawned ranks and the JAX subprocess are started together and each is
 joined with a 120 s timeout; every one still running is killed.
@@ -353,7 +355,7 @@ RANK = textwrap.dedent("""
     from repro_torch import convert
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed import collectives
+    from repro_torch.distributed import collectives, sharding
     from repro_torch.launch import mesh as tmesh, steps
     from repro_torch.launch.train import TrainLoop
     from repro_torch.models.tree import tree_flatten_with_path
@@ -401,14 +403,26 @@ RANK = textwrap.dedent("""
         res["loop_losses"] = [h["loss"] for h in ran["history"]]
         res["loop_params"] = [t.numpy().astype(np.float64)
                               for _, t in tree_flatten_with_path(loop.params)]
+        # reduced seamless on a (1, 2, 1) mesh: its data axis shards the
+        # batch over the two ranks, and the one pod's int8 reduce is the
+        # round trip of every gradient
         wide = tmesh.make_mesh((1, 2, 1), ("pod", "data", "model"),
                                device_type="cpu")
-        try:
-            steps.make_train_step(reduced(get_config("seamless-m4t-medium")),
-                                  ocfg, mesh=wide, compress_crosspod=True)
-            res["wide"] = None
-        except NotImplementedError as e:
-            res["wide"] = str(e)
+        scfg = reduced(get_config("seamless-m4t-medium"))
+        sp = convert.lm_params(d["seamless_params"], scfg, "cpu")
+        sb = {k: torch.from_numpy(v) for k, v in d["seamless"].items()}
+        for c in (False, True):
+            step = steps.make_train_step(scfg, ocfg, mesh=wide,
+                                         compress_crosspod=c)
+            p = sharding.distribute(sp, wide, sharding.param_specs(sp, wide))
+            s = adamw.adamw_init(p, ocfg)
+            losses, params = [], []
+            for _ in range(d["steps"]):
+                p, s, m = step(p, s, sb)
+                losses.append(float(m["loss"]))
+                params.append([t.full_tensor().numpy().astype(np.float64)
+                               for _, t in tree_flatten_with_path(p)])
+            res[f"wide_{c}"] = (losses, params)
     finally:
         dist.destroy_process_group()
     with open(out, "wb") as f:
@@ -444,6 +458,21 @@ JAX_STEP = textwrap.dedent("""
             res["losses"].append(float(m["loss"]))
             res["params"].append([np.asarray(x, np.float64)
                                   for x in jax.tree_util.tree_leaves(p)])
+    # reduced seamless, compressed, on (1, 2, 1)
+    scfg = reduced(get_config("seamless-m4t-medium"))
+    wide = make_mesh((1, 2, 1), ("pod", "data", "model"))
+    step = jax.jit(make_train_step(scfg, ocfg, mesh=wide,
+                                   compress_crosspod=True))
+    p = jax.tree_util.tree_map(jnp.asarray, d["seamless_params"])
+    s = adamw_init(p, ocfg)
+    batch = {k: jnp.asarray(v) for k, v in d["seamless"].items()}
+    res["wide"] = ([], [])
+    with wide:
+        for _ in range(d["steps"]):
+            p, s, m = step(p, s, batch)
+            res["wide"][0].append(float(m["loss"]))
+            res["wide"][1].append([np.asarray(x, np.float64)
+                                   for x in jax.tree_util.tree_leaves(p)])
     with open(sys.argv[2], "wb") as f:
         pickle.dump(res, f)
 """)
@@ -479,6 +508,12 @@ def two_ranks(tmp_path_factory):
                "b": rng.normal(0, 5.0, (2, 48)).astype(np.float32),
                "z": np.zeros((2, 7), np.float32)}}
     d["x"][1, :4] = [0.0, 2.5, -7.5, 1e-9]
+    d["seamless_params"] = _np(j_steps.init_params(
+        jax.random.PRNGKey(2), j_reduced(j_get_config("seamless-m4t-medium"))))
+    d["seamless"] = dict(
+        enc_embeds=rng.standard_normal((4, 8, 64)).astype(np.float32),
+        **{k: rng.integers(0, 256, (4, 6)).astype(np.int32)
+           for k in ("tokens", "targets")})
     inp = tmp / "in.pkl"
     inp.write_bytes(pickle.dumps(d))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
@@ -569,12 +604,28 @@ def test_train_loop_on_a_pod_mesh_runs_the_compressed_step(two_ranks):
             np.testing.assert_array_equal(x, y)
 
 
-def test_a_mesh_over_data_or_model_raises(two_ranks):
-    """A mesh whose data axis has two ranks runs the decoder-only models
-    through the sharding rules (``tests/test_torch_sharding*.py``); the
-    encoder-decoder, which the DTensor path does not cover, raises,
-    naming what it lacks."""
-    _, ranks, _ = two_ranks
-    for r in (0, 1):
-        assert "the encoder-decoder (models/encdec.py)" in ranks[r]["wide"]
-        assert "data or model axis has several ranks" in ranks[r]["wide"]
+def test_compressed_seamless_step_on_a_wide_mesh(two_ranks):
+    """Reduced seamless-m4t-medium on the two ranks' (1, 2, 1) mesh (its
+    ``data`` axis over both): the compressed step runs on the ``(data,
+    model)`` submesh and reduces over the one pod with the int8 round
+    trip, both ranks alike. Against JAX's compressed step on the same
+    mesh of two host devices, with the module's tolerance; against the
+    port's uncompressed step on the mesh: the first loss equal (the
+    reduce comes after it), every element within the 3 steps' bound
+    ``3·2·lr``, and some element moved by the round trip (an element
+    whose gradient is below the int8 step moves by up to ``lr`` more or
+    less, so the later losses part by the int8 error, not by 1e-5)."""
+    _, ranks, jres = two_ranks
+    (lu, pu), (lc, pc) = ranks[0]["wide_False"], ranks[0]["wide_True"]
+    assert ranks[1]["wide_True"][0] == lc
+    for a, b in zip(ranks[1]["wide_True"][1], pc):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    _hold_steps(lc, pc, *jres["wide"])
+    assert lc[0] == lu[0]
+    moved = 0
+    for got, want in zip(pc, pu):
+        for a, b in zip(got, want):
+            assert np.abs(a - b).max() <= STEPS * 2 * LR
+            moved += int((a != b).sum())
+    assert moved

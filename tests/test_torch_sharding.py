@@ -22,8 +22,9 @@ against the JAX package's on the CPU.
   block; the local head counts the kernel saw; ``TrainLoop(mesh=)`` bit
   for bit ``make_train_step``; a checkpoint saved on ``(2, 2)`` restored
   onto ``(4, 1)`` and then onto no mesh, bit for bit; the decode
-  bundle's greedy tokens equal to ``ModelServer``'s; the encoder-decoder
-  refused. The ``(2, 2)`` world also runs a ``(2, 2, 1)`` mesh over
+  bundle's greedy tokens equal to ``ModelServer``'s; every registered
+  arch building a train step and a decode bundle, reduced seamless
+  training a step. The ``(2, 2)`` world also runs a ``(2, 2, 1)`` mesh over
   ``("pod", "data", "model")``: the pod axis composes with ``data`` for
   the batch (against JAX's meshless step), and the int8 pod reduce
   against JAX's compressed step on four host devices (the tolerance of
@@ -278,23 +279,6 @@ def test_head_layout(hq, hkv, m, want):
             assert (q0 + h) // rep == k0 + h // local_rep
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_non_dense_families_refused_on_a_wide_mesh(arch):
-    """Every decoder-only family runs on a wide mesh (the SSD scan of
-    mamba2 and jamba, the vision frontend of qwen2-vl, the MoE families
-    among them); only the encoder-decoder is refused, and named."""
-    cfg = get_config(arch)
-    if not cfg.is_encdec:
-        steps.check_sharded_support(cfg)
-        return
-    with pytest.raises(NotImplementedError) as e:
-        steps.check_sharded_support(cfg)
-    msg = str(e.value)
-    assert "encoder-decoder" in msg and arch in msg, (arch, msg)
-    for what in ("SSD scan", "frontend", "MoE's dispatch"):
-        assert what not in msg, (arch, msg)
-
-
 def test_bundles_on_abstract_meshes_match_jax():
     """``build_step_bundle`` on the abstract production meshes: the
     argument structs on ``meta`` and the input/output specs equal JAX's
@@ -328,7 +312,7 @@ RANK = textwrap.dedent("""
     torch.set_num_threads(1)
     from repro_torch import convert
     from repro_torch.configs.base import ShapeSpec, reduced
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, list_archs
     from repro_torch.distributed import sharding
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as tmesh, steps
@@ -532,18 +516,28 @@ RANK = textwrap.dedent("""
         res["bundle_tokens"] = torch.stack(got, 1).numpy()
         res["cache_placed"] = cache_ok
 
-        # the encoder-decoder on the wide mesh: the step and a bundle
+        # every registered arch, the encoder-decoder among them, builds a
+        # train step and a decode bundle on the mesh (the bundle's specs
+        # those of the abstract mesh of this shape); reduced seamless
+        # takes one train step there
+        am = sharding.AbstractMesh(shape, ("data", "model"))
+        res["built"] = {}
+        for arch in list_archs():
+            rc = reduced(get_config(arch))
+            made = steps.make_train_step(rc, ocfg, mesh=mesh)
+            b = steps.build_step_bundle(rc, "decode_32k", mesh)
+            ab = steps.build_step_bundle(rc, "decode_32k", am)
+            res["built"][arch] = (
+                callable(made), b.kind, b.mesh is mesh,
+                [tuple(x) for x in sharding.spec_leaves(b.in_specs)]
+                == [tuple(x) for x in sharding.spec_leaves(ab.in_specs)])
         seamless = reduced(get_config("seamless-m4t-medium"))
-        res["refused"] = []
-        for make in (lambda: steps.make_train_step(seamless, ocfg,
-                                                   mesh=mesh),
-                     lambda: steps.build_step_bundle(seamless, "decode_32k",
-                                                     mesh)):
-            try:
-                make()
-                res["refused"].append(None)
-            except NotImplementedError as e:
-                res["refused"].append(str(e))
+        sp = steps.init_params(torch.Generator().manual_seed(0), seamless)
+        sp = sharding.distribute(sp, mesh, sharding.param_specs(sp, mesh))
+        _, _, m = steps.make_train_step(seamless, ocfg, mesh=mesh)(
+            sp, adamw.adamw_init(sp, ocfg),
+            {k: torch.from_numpy(v) for k, v in d["seamless"].items()})
+        res["seamless"] = (float(m["loss"]), float(m["grad_norm"]))
 
         # batches the data axis does not split into even rows (B=1: the
         # sequence-sharded cache): train, prefill and decode
@@ -686,6 +680,10 @@ def worlds(tmp_path_factory):
                          .astype(np.int32) for k in ("tokens", "targets")},
                         rng.integers(0, jc.vocab_size, (b, 8))
                         .astype(np.int32)) for b in UNEVEN}}
+    d["seamless"] = dict(
+        enc_embeds=rng.standard_normal((4, 8, 64)).astype(np.float32),
+        **{k: rng.integers(0, 256, (4, 6)).astype(np.int32)
+           for k in ("tokens", "targets")})
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     (tmp / "rank.py").write_text(RANK)
     (tmp / "jax_ref.py").write_text(JAX_REF)
@@ -914,15 +912,34 @@ def test_decode_bundle_greedy_tokens_equal_model_server(worlds, world):
         assert all(res["cache_placed"])
 
 
-@pytest.mark.parametrize("world", list(WORLDS))
-def test_a_non_dense_family_is_refused_on_the_mesh(worlds, world):
-    """Reduced seamless-m4t-medium on the world: ``make_train_step`` and
-    ``build_step_bundle`` both refuse it, naming the encoder-decoder."""
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_registered_arch_builds_on_a_wide_mesh(worlds, arch):
+    """Every registered config, reduced, the encoder-decoder included,
+    builds a train step and a decode bundle on each world's mesh, the
+    bundle's input specs those of the abstract mesh of its shape: no
+    config is refused where the data or model axis has several ranks."""
     _, ranks, _, _ = worlds
+    for w in WORLDS:
+        for res in ranks[w]:
+            assert res["built"][arch] == (True, "decode", True, True), w
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_the_encoder_decoder_trains_on_the_mesh(worlds, world):
+    """One step of reduced seamless-m4t-medium on the world from seeded
+    parameters: the loss and the gradient norm within 1e-5 relative of
+    the port's meshless step, on every rank
+    (``tests/test_torch_sharding_encdec.py`` holds it to JAX)."""
+    d, ranks, _, _ = worlds
+    cfg = t_base.reduced(get_config("seamless-m4t-medium"))
+    ocfg = adamw.AdamWConfig(lr=LR, warmup_steps=0)
+    p = steps.init_params(torch.Generator().manual_seed(0), cfg)
+    _, _, m = steps.make_train_step(cfg, ocfg)(
+        p, adamw.adamw_init(p, ocfg),
+        {k: torch.from_numpy(v) for k, v in d["seamless"].items()})
+    want = (float(m["loss"]), float(m["grad_norm"]))
     for res in ranks[world]:
-        assert len(res["refused"]) == 2
-        assert all(r is not None and "encoder-decoder" in r
-                   for r in res["refused"])
+        np.testing.assert_allclose(res["seamless"], want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("b", UNEVEN)

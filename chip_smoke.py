@@ -207,7 +207,10 @@ then:
    greedy token may differ only at a near-tie), the flash and decode
    kernels' launches on each rank's local heads, and a reduced
    checkpoint saved on the world restored onto the meshless loop bit
-   for bit;
+   for bit; each rank's first training step runs under the dry run's
+   ``StepCounter`` (its collective bytes by kind and mesh axis) with
+   the peak reset before it (``max_memory_allocated``), and each rank's
+   state bytes asked of the allocator are kept, for step 23;
 20. the MoE families on that world (``mesh_moe``, a budget of 240 s, the
    same 4 processes): granite-moe-3b-a800m at full width, 2 of 32
    layers, ``TrainLoop(mesh=)`` 3 steps of 4 x 128 tokens in f32 at
@@ -241,11 +244,12 @@ then:
    that is larger: jamba, whose top-2-of-16 routings flip under the
    mesh's rounding; the flipped routings printed); the card's bytes in
    use, and the attention launches by rank printed and asserted;
-22. the encoder-decoder on that world (``mesh_encdec``, a budget of
-   100 s, the same 4 processes): seamless-m4t-medium at full width (8
-   of its 16 heads of 64 a model rank, its 256,206 vocab rows 128,103 a
-   model rank), 2 + 2 of 12 + 12 layers, ``TrainLoop(mesh=)`` 3 steps of
-   4 x 128 tokens over 256 frames in f32 at lr 1e-5 against the meshless
+22. the encoder-decoder on a second (2, 2) world (``mesh_encdec``, a
+   budget of 100 s, 4 more processes, beside those of steps 19-21):
+   seamless-m4t-medium at full width (8 of its 16 heads of 64 a model
+   rank, its 256,206 vocab rows 128,103 a model rank), 2 + 2 of 12 +
+   12 layers, ``TrainLoop(mesh=)`` 3 steps of 4 x 128 tokens over 256
+   frames in f32 at lr 1e-5 against the meshless
    loop on the card (losses and gradient norms within 1e-5 relative,
    parameters within 1e-4 relative L2, each rank's state bytes asked of
    the allocator within 4 KiB of the specs' share); served in f32 and
@@ -254,7 +258,22 @@ then:
    from ``make_prefill_step(with_enc_out=True)`` placed by the ``enc_out``
    spec, against ``ModelServer`` as in step 19 (f32: every greedy token
    equal; bf16: within 2e-2); the attention launches by rank printed and
-   asserted.
+   asserted;
+23. the dry run (``dryrun``, a budget of 90 s on one host core at the
+   lowest priority, run beside steps 15-18 and joined before step 19):
+   ``repro_torch.launch.dryrun.run_cell``, one subprocess running a
+   cell after another, on fake CUDA tensors for the ``train``
+   phase's main path (no mesh), the ``mesh`` phase's training on a fake
+   (2, 2) world, qwen2-1.5b ``train_4k`` and mixtral-8x22b ``decode_32k``
+   on a fake (16, 16) pod; held to the card: the (2, 2) cell's argument
+   bytes within 4 KiB of each mesh rank's state bytes asked of the
+   allocator plus its share of the batch, its collective bytes by kind
+   equal to those the dry run's counter read on rank 0's first training
+   step, its predicted peak (arguments + temporaries) within 15 % of
+   each rank's first-step ``max_memory_allocated``, and the no-mesh
+   cell's within 15 % of the ``train`` phase's peak (reset after the
+   loop is built); the pod cells' fit, dominant term and three terms
+   printed (datasheet figures: computed, not measured).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -268,6 +287,19 @@ batch) and the serve phase of step 7 on an engine with the default
 flags, and prints the card and ``{"calls": [...], "serve": {...}}``: the
 quick way to time two trees of the kernels and of the request path
 against each other in one run.
+
+    python3 chip_smoke.py --train
+
+runs only step 12's full-depth main path and prints the card and
+``{"train": {...}}`` (step p50, first step, peak): the same for two
+trees of the training step.
+
+    python3 chip_smoke.py --decode
+
+runs only step 15's main path (qwen2-1.5b served at full depth, its
+admissions and decode steps) and prints the card and ``{"decode":
+{...}}`` (decode step p50 and p99, the device's busy share): the same
+for two trees of the decode step.
 """
 from __future__ import annotations
 
@@ -3820,11 +3852,13 @@ def train_main_path(ts_: TrainSizes, device) -> Dict[str, object]:
     from repro_torch.launch.train import TrainLoop
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config(ts_.arch)
-    torch.cuda.reset_peak_memory_stats()
     loop = TrainLoop(cfg, opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=2,
                                               total_steps=ts_.steps),
                      seed=0, device=device)
     n_params = sum(t.numel() for t in _leaves_of(loop.params))
+    # the peak of the steps: the state held, and what a step adds to it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(17)
     toks = rng.integers(0, cfg.vocab_size, (ts_.batch, ts_.seq + 1))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
@@ -5919,18 +5953,124 @@ def _mesh_serve(ms, cfg, mesh, toks, rank: int, gen_device: str = "cpu",
     return out
 
 
+def _count_first_step(loop, mesh) -> Dict[str, object]:
+    """Wraps ``loop.train_step`` so that its next call runs under the dry
+    run's ``StepCounter`` with the peak reset before it; the returned
+    dict fills in then: the collective bytes by kind and by mesh axis
+    and the step's ``max_memory_allocated``. The counter decomposes
+    nothing, so the step runs the ops it runs unwatched."""
+    from repro_torch.launch.dryrun import StepCounter
+    step, out = loop.train_step, {}
+
+    def first(*args):
+        loop.train_step = step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with StepCounter(mesh, decompose=False) as c:
+            res = step(*args)
+        torch.cuda.synchronize()
+        out.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                   collectives=dict(c.collectives), by_axis=c.by_axis)
+        return res
+
+    loop.train_step = first
+    return out
+
+
+def _first_world(a: dict, ms: MeshSizes, mesh, rank: int,
+                 res: Dict[str, object], same_point: List[str]) -> None:
+    """A rank's ``mesh``, ``mesh_moe`` and ``mesh_families`` work, its
+    results into ``res``."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import TrainLoop
+    # training, f32: the TrainLoop places its state by the rules
+    cfg = _mesh_cfg(ms, "float32")
+    batch, toks = _mesh_inputs(ms, cfg.vocab_size)
+    torch.cuda.synchronize()
+    before, asked = torch.cuda.memory_allocated(), _requested()
+    loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=3)
+    torch.cuda.synchronize()
+    res["state_bytes_measured"] = torch.cuda.memory_allocated() - before
+    res["state_bytes_requested"] = _requested() - asked
+    res["batch_share"] = sum(v.nbytes for v in batch.values()
+                             ) // ms.shape[0]
+    res["first_step"] = _count_first_step(loop, mesh)
+    res["state_bytes_computed"] = (
+        _spec_share_bytes(loop.params, sharding.param_specs(
+            loop.params, mesh), mesh)
+        + _spec_share_bytes(loop.opt_state, sharding.opt_specs(
+            loop.opt_state, mesh), mesh))
+    res["unsharded_bytes"] = sum(
+        t.numel() * t.element_size()
+        for t in _leaves_of(loop.params) + _leaves_of(loop.opt_state))
+    f0 = flash_attention.launches
+    times: List[float] = []
+    ran = loop.run(iter([batch] * ms.train_steps),
+                   steps=ms.train_steps, log_every=0,
+                   on_metrics=_step_timer(times))
+    res["train_flash"] = flash_attention.launches - f0
+    res["losses"] = [h["loss"] for h in ran["history"]]
+    res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
+    # the first step ran under the counter: its time kept apart
+    res["counted_step_ms"], res["step_ms"] = times[0], times[1:]
+    ref = (torch.load(a["ref"]) if rank == 0 else None)
+    num = den = 0.0
+    for i, t in enumerate(_leaves_of(loop.params)):
+        full = t.full_tensor()                  # every rank
+        if rank == 0:
+            want = ref[i].to("cuda").double()
+            num += float(((full.double() - want) ** 2).sum())
+            den += float((want ** 2).sum())
+    res["param_rel_l2"] = (num / den) ** 0.5 if rank == 0 else None
+    del loop, ref
+    torch.cuda.empty_cache()
+
+    # serving, f32 then bf16: the prefill and decode bundles
+    for dtype in MESH_SERVE:
+        res[dtype] = _mesh_serve(ms, _mesh_cfg(ms, dtype), mesh, toks,
+                                 rank)
+        torch.cuda.empty_cache()
+
+    # a reduced checkpoint saved on the world
+    rcfg = reduced(_mesh_cfg(ms, "float32"))
+    rloop = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=4,
+                      ckpt_dir=a["ckpt"])
+    rb = {k: v[:, :16] for k, v in batch.items()}
+    rb = {k: np.clip(v, 0, rcfg.vocab_size - 1) for k, v in rb.items()}
+    rloop.run(iter([rb] * ms.ckpt_steps), steps=ms.ckpt_steps,
+              log_every=0)
+    rloop.save(block=True)
+    full = [t.full_tensor().cpu() for t in _leaves_of(rloop.params)]
+    if rank == 0:
+        res["ckpt_params"] = full
+    del rloop, full
+    torch.cuda.empty_cache()
+
+    # the MoE families on the same world (the mesh_moe phase)
+    res["moe"] = moe_rank(MoeMeshSizes(**a["moe"]), mesh, rank,
+                          a["moe_ref"])
+    _freed()
+    # the SSD and the vision frontend (the mesh_families phase)
+    res["families"] = families_rank(FamilyMeshSizes(**a["families"]),
+                                    mesh, rank, a["tmp"],
+                                    tuple(same_point))
+    _freed()
+
+
 def mesh_rank(arg: str) -> None:
-    """One rank of the world (``chip_smoke.py --mesh-rank <json>``): on
-    the card, gloo between the processes that share it."""
+    """One rank of a world (``chip_smoke.py --mesh-rank <json>``): on the
+    card, gloo between the processes that share it. The first world runs
+    the ``mesh``, ``mesh_moe`` and ``mesh_families`` work
+    (``_first_world``), a second one of as many processes beside it
+    (``encdec_world`` in the argument) the ``mesh_encdec`` work."""
     import pickle
     from datetime import timedelta
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs.base import reduced
-    from repro_torch.distributed import gloo_cuda, sharding
-    from repro_torch.kernels import flash_attention
+    from repro_torch.distributed import gloo_cuda
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import TrainLoop
     a = json.loads(arg)
     ms = MeshSizes(**{k: tuple(v) if k == "shape" else v
                       for k, v in a["sizes"].items()})
@@ -5944,78 +6084,20 @@ def mesh_rank(arg: str) -> None:
     gloo_cuda.install()
     res: Dict[str, object] = {"rank": rank}
     try:
+        # started beside the references: run once they are written
+        deadline = time.monotonic() + ms.join_s
+        while not os.path.exists(a["ready"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the references were not written")
+            time.sleep(0.1)
+        same_point = json.loads(Path(a["ready"]).read_text())["same_point"]
         mesh = make_mesh(ms.shape, ("data", "model"))
         res["coords"] = [mesh.get_local_rank(d) for d in ("data", "model")]
-        # training, f32: the TrainLoop places its state by the rules
-        cfg = _mesh_cfg(ms, "float32")
-        batch, toks = _mesh_inputs(ms, cfg.vocab_size)
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=3)
-        torch.cuda.synchronize()
-        res["state_bytes_measured"] = torch.cuda.memory_allocated() - before
-        res["state_bytes_computed"] = (
-            _spec_share_bytes(loop.params, sharding.param_specs(
-                loop.params, mesh), mesh)
-            + _spec_share_bytes(loop.opt_state, sharding.opt_specs(
-                loop.opt_state, mesh), mesh))
-        res["unsharded_bytes"] = sum(
-            t.numel() * t.element_size()
-            for t in _leaves_of(loop.params) + _leaves_of(loop.opt_state))
-        f0 = flash_attention.launches
-        times: List[float] = []
-        ran = loop.run(iter([batch] * ms.train_steps),
-                       steps=ms.train_steps, log_every=0,
-                       on_metrics=_step_timer(times))
-        res["train_flash"] = flash_attention.launches - f0
-        res["losses"] = [h["loss"] for h in ran["history"]]
-        res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
-        res["step_ms"] = times
-        ref = (torch.load(a["ref"]) if rank == 0 else None)
-        num = den = 0.0
-        for i, t in enumerate(_leaves_of(loop.params)):
-            full = t.full_tensor()                  # every rank
-            if rank == 0:
-                want = ref[i].to("cuda").double()
-                num += float(((full.double() - want) ** 2).sum())
-                den += float((want ** 2).sum())
-        res["param_rel_l2"] = (num / den) ** 0.5 if rank == 0 else None
-        del loop, ref
-        torch.cuda.empty_cache()
-
-        # serving, f32 then bf16: the prefill and decode bundles
-        for dtype in MESH_SERVE:
-            res[dtype] = _mesh_serve(ms, _mesh_cfg(ms, dtype), mesh, toks,
-                                     rank)
-            torch.cuda.empty_cache()
-
-        # a reduced checkpoint saved on the world
-        rcfg = reduced(_mesh_cfg(ms, "float32"))
-        rloop = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=4,
-                          ckpt_dir=a["ckpt"])
-        rb = {k: v[:, :16] for k, v in batch.items()}
-        rb = {k: np.clip(v, 0, rcfg.vocab_size - 1) for k, v in rb.items()}
-        rloop.run(iter([rb] * ms.ckpt_steps), steps=ms.ckpt_steps,
-                  log_every=0)
-        rloop.save(block=True)
-        full = [t.full_tensor().cpu() for t in _leaves_of(rloop.params)]
-        if rank == 0:
-            res["ckpt_params"] = full
-        del rloop, full
-        torch.cuda.empty_cache()
-
-        # the MoE families on the same world (the mesh_moe phase)
-        res["moe"] = moe_rank(MoeMeshSizes(**a["moe"]), mesh, rank,
-                              a["moe_ref"])
-        _freed()
-        # the SSD and the vision frontend (the mesh_families phase)
-        res["families"] = families_rank(FamilyMeshSizes(**a["families"]),
-                                        mesh, rank, a["tmp"],
-                                        tuple(a["same_point"]))
-        _freed()
-        # the encoder-decoder (the mesh_encdec phase)
-        res["encdec"] = encdec_rank(EncDecMeshSizes(**a["encdec"]), mesh,
-                                    rank, a["tmp"])
+        if a["encdec_world"]:
+            res["encdec"] = encdec_rank(EncDecMeshSizes(**a["encdec"]),
+                                        mesh, rank, a["tmp"])
+        else:
+            _first_world(a, ms, mesh, rank, res, same_point)
     finally:
         dist.destroy_process_group()
     with open(a["out"], "wb") as f:
@@ -7280,12 +7362,14 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     meshless reference included), returned second, and the
     ``mesh_families`` phase (``families_rank``, held by
     ``mesh_families_check``; budget 300 s, its meshless reference
-    included), returned third, and the ``mesh_encdec`` phase
+    included), returned third. The ``mesh_encdec`` phase
     (``encdec_rank``, held by ``mesh_encdec_check``; budget 100 s, its
-    meshless reference included), returned fourth. The references run
-    first, one after the other, each freed before the next: jamba's, the
-    largest (about 26.5 GB), before seamless's; then the ranks hold their
-    shards, jamba's drawn by one rank at a time."""
+    meshless reference included), returned fourth, runs on a second
+    world of as many processes beside the first. The ranks of both start
+    first and wait while the references run, one after the other, each
+    freed before the next: jamba's, the largest (about 26.5 GB), before
+    seamless's; then the ranks hold their shards, jamba's drawn by one
+    rank at a time."""
     import pickle
     import shutil
     import tempfile
@@ -7295,7 +7379,31 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="smoke-mesh-")
     n = ms.shape[0] * ms.shape[1]
+    ready = os.path.join(tmp, "ready.json")
+    procs = []
     try:
+        # the ranks start first and wait for ``ready`` (written once the
+        # references are), so their start overlaps the references; the
+        # encoder-decoder's ranks are a second world beside the first
+        sizes = dataclasses.asdict(ms)
+        for world in ("rank", "enc"):
+            for r in range(n):
+                arg = json.dumps({
+                    "rank": r, "world": n, "sizes": sizes,
+                    "encdec_world": world == "enc",
+                    "store": os.path.join(tmp, f"{world}_store"),
+                    "ready": ready,
+                    "ref": os.path.join(tmp, "ref_params.pt"),
+                    "ckpt": os.path.join(tmp, "ckpt"),
+                    "out": os.path.join(tmp, f"{world}{r}.pkl"),
+                    "moe": dataclasses.asdict(mz),
+                    "moe_ref": os.path.join(tmp, "moe_ref_params.pt"),
+                    "families": dataclasses.asdict(fz),
+                    "encdec": dataclasses.asdict(ez), "tmp": tmp})
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--mesh-rank", arg], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
         ref = mesh_reference(ms, tmp)
         moe_ref = moe_reference(mz, tmp)
         fam_ref = families_reference(fz, tmp)
@@ -7308,49 +7416,31 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         _freed()
         _build.library()               # built here; the ranks load it
         log(f"mesh phases: the card's bytes in use {card_used_bytes(device)}"
-            f" before the ranks start")
-        sizes = dataclasses.asdict(ms)
-        procs = []
-        for r in range(n):
-            arg = json.dumps({"rank": r, "world": n, "sizes": sizes,
-                              "store": os.path.join(tmp, "store"),
-                              "ref": os.path.join(tmp, "ref_params.pt"),
-                              "ckpt": os.path.join(tmp, "ckpt"),
-                              "out": os.path.join(tmp, f"rank{r}.pkl"),
-                              "moe": dataclasses.asdict(mz),
-                              "moe_ref": os.path.join(tmp,
-                                                      "moe_ref_params.pt"),
-                              "families": dataclasses.asdict(fz),
-                              "encdec": dataclasses.asdict(ez),
-                              "same_point": same_point, "tmp": tmp})
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--mesh-rank", arg], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
+            f" before the ranks run")
+        Path(ready + ".tmp").write_text(json.dumps(
+            {"same_point": same_point}))
+        os.replace(ready + ".tmp", ready)
         t_world = time.perf_counter()
-        try:
-            with CardPeak(device) as world_peak:
-                # every rank's end before judging: the first rank to fail
-                # is not always the lowest (the others then lose a peer)
-                failed = []
-                for r, p in enumerate(procs):
-                    out, _ = p.communicate(timeout=ms.join_s)
-                    if p.returncode != 0:
-                        failed.append(f"mesh rank {r} failed (exit "
-                                      f"{p.returncode}):\n{out[-3000:]}")
-                if failed:
-                    raise AssertionError("\n".join(failed))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        with CardPeak(device) as world_peak:
+            # every rank's end before judging: the first rank to fail is
+            # not always the lowest (the others then lose a peer)
+            failed = []
+            for i, p in enumerate(procs):
+                out, _ = p.communicate(timeout=ms.join_s)
+                if p.returncode != 0:
+                    failed.append(f"mesh rank {i % n} of world {i // n} "
+                                  f"failed (exit {p.returncode}):\n"
+                                  f"{out[-3000:]}")
+            if failed:
+                raise AssertionError("\n".join(failed))
         ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
                  for r in range(n)]
+        for r, rk in enumerate(ranks):
+            rk["encdec"] = pickle.loads(
+                Path(tmp, f"enc{r}.pkl").read_bytes())["encdec"]
         world_s = (time.perf_counter() - t_world
                    - max(r["moe"]["seconds"] for r in ranks)
-                   - max(r["families"]["seconds"] for r in ranks)
-                   - max(r["encdec"]["seconds"] for r in ranks))
+                   - max(r["families"]["seconds"] for r in ranks))
         rcfg = reduced(_mesh_cfg(ms, "float32"))
         meshless = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), device="cuda",
                              ckpt_dir=os.path.join(tmp, "ckpt"))
@@ -7359,6 +7449,10 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         restored = [t.cpu() for t in _leaves_of(meshless.params)]
         del meshless
     finally:
+        for p in procs:                # a failure before the join
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
@@ -7371,7 +7465,11 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     per_rank = [{"coords": r["coords"],
                  "state_bytes_measured": r["state_bytes_measured"],
                  "state_bytes_computed": r["state_bytes_computed"],
+                 "state_bytes_requested": r["state_bytes_requested"],
+                 "batch_share": r["batch_share"],
+                 "first_step": r["first_step"],
                  "train_flash": r["train_flash"], "step_ms": r["step_ms"],
+                 "counted_step_ms": r["counted_step_ms"],
                  **{f"{dt}_{k}": r[dt][k] for dt in MESH_SERVE
                     for k in ("flash", "decode", "serve_s")}}
                 for r in ranks]
@@ -7466,8 +7564,10 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         f"{ez.prompt_len} over {ez.enc_len} frames, {ez.serve_steps} "
         f"teacher-forced steps): {json.dumps(enc_out)}; phase "
         f"{enc_out['seconds']:.3f} s; {card_line()}")
+    # the encoder-decoder's world ran beside the first: its reference
+    # alone was serial
     out["seconds"] = (time.perf_counter() - t_phase - moe_out["seconds"]
-                      - fam_out["seconds"] - enc_out["seconds"])
+                      - fam_out["seconds"] - enc_ref["seconds"])
     log(f"mesh phase ({ms.shape} over (data, model), {n} processes on the "
         f"card, gloo; {ms.arch} full width, {ms.layers} layers): training "
         f"f32 {ms.train_steps} steps of {ms.train_batch} x "
@@ -7476,8 +7576,9 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
         f"gradient norms {r0['grad_norms']} vs meshless "
         f"{ref['grad_norms']} ({gnorm_rel:.3e}), "
         f"parameters {r0['param_rel_l2']:.3e} relative L2, step ms "
-        f"{r0['step_ms']} (meshless {ref['step_ms']}); per-rank state "
-        f"bytes measured/computed "
+        f"{r0['step_ms']} after the counted first "
+        f"{r0['counted_step_ms']:.3f} (meshless {ref['step_ms']}); "
+        f"per-rank state bytes measured/computed "
         f"{[(r['state_bytes_measured'], r['state_bytes_computed']) for r in ranks]}"
         f" of {r0['unsharded_bytes']} unsharded; serving "
         f"{ms.serve_batch} prompts of {ms.prompt_len}, {ms.serve_steps} "
@@ -7489,13 +7590,204 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     return out, moe_out, fam_out, enc_out
 
 
+# ---------------------------------------------------------------------------
+# the dry run: the port's steps on fake tensors, held to the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_BUDGET_S = 90.0    # the four cells, one host core
+DRYRUN_ARG_SLACK = 4096   # argument bytes against the allocator's
+DRYRUN_PEAK_GAP = 0.15    # a predicted peak against the measured one
+
+
+def dryrun_cells(ts_: TrainSizes = TrainSizes(),
+                 ms: MeshSizes = MeshSizes()) -> Dict[str, Dict[str, object]]:
+    """name -> ``repro_torch.launch.dryrun.run_cell`` arguments (the
+    CLI's flags): hold_train the ``train`` phase's main path (no mesh),
+    hold_mesh the ``mesh`` phase's training on a fake world of its
+    shape, then two production cells on the fake (16, 16) pod; all on
+    fake CUDA tensors."""
+    from repro_torch.configs.registry import get_config
+    d, m = ms.shape
+    return {
+        "hold_train": dict(arch=ts_.arch, shape=f"train:{ts_.batch}x"
+                           f"{ts_.seq}", mesh_kind="none",
+                           remat=get_config(ts_.arch).remat, accum=1),
+        "hold_mesh": dict(arch=ms.arch, periods=ms.layers, dtype="float32",
+                          shape=f"train:{ms.train_batch}x{ms.train_seq}",
+                          mesh_kind=f"{d}x{m}",
+                          remat=get_config(ms.arch).remat, accum=1),
+        "qwen2_train_4k_pod": dict(arch="qwen2-1.5b", shape="train_4k",
+                                   mesh_kind="pod"),
+        "mixtral_decode_32k_pod": dict(arch="mixtral-8x22b",
+                                       shape="decode_32k", mesh_kind="pod")}
+
+
+# the dry run's subprocess: ``run_cell`` on each cell of argv[1] (a JSON
+# object, name -> arguments), one after another, into argv[2]
+DRYRUN_CHILD = """
+import json, sys, torch
+from repro_torch.launch import dryrun
+torch.set_num_threads(1)
+cells = {name: dryrun.run_cell(device="cuda", **kw)
+         for name, kw in json.loads(sys.argv[1]).items()}
+with open(sys.argv[2], "w") as f:
+    json.dump(cells, f)
+"""
+
+
+class DryRun:
+    """The dry run beside the single-process phases: a thread of this
+    process runs ``DRYRUN_CHILD`` over ``dryrun_cells``, one cell after
+    another in one subprocess pinned to one host core and at the lowest
+    priority (``os.sched_setaffinity``, ``os.nice`` in the child, so the
+    phases' own threads on that core keep it) with one torch thread, its
+    fake tensors on CUDA (the kernels' ops); each cell sets up its fake
+    world and takes it down. ``start`` as the ``model`` phase starts,
+    ``join`` before ``mesh``: it adds no wall time while it fits beside
+    them."""
+
+    def __init__(self) -> None:
+        import tempfile
+        import threading
+        self.tmp = tempfile.mkdtemp(prefix="smoke-dryrun-")
+        self.cells: Dict[str, dict] = {}
+        self.seconds = 0.0
+        self.error = ""
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.core = max(os.sched_getaffinity(0))
+        # built here: an import in the thread could meet one of the
+        # main thread's on a module lock
+        self.todo = dryrun_cells()
+
+    def _child(self) -> None:
+        os.sched_setaffinity(0, {self.core})
+        os.nice(19)
+
+    def _run(self) -> None:
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        out = os.path.join(self.tmp, "cells.json")
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(
+                [sys.executable, "-c", DRYRUN_CHILD,
+                 json.dumps(self.todo), out], capture_output=True,
+                text=True, env=env, timeout=600, cwd=str(SRC.parent),
+                preexec_fn=self._child)
+            self.seconds = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"dry run failed ({p.returncode}):\n"
+                                     f"{p.stdout[-2000:]}"
+                                     f"{p.stderr[-3000:]}")
+            self.cells = json.loads(Path(out).read_text())
+            bad = {k: c["status"] for k, c in self.cells.items()
+                   if c["status"] != "ok"}
+            if bad:
+                raise AssertionError(f"dry run cells not ok: {bad}")
+        except Exception as e:        # reported by join
+            self.error = f"{type(e).__name__}: {e}"
+
+    def start(self) -> "DryRun":
+        self.thread.start()
+        return self
+
+    def join(self) -> Dict[str, object]:
+        import shutil
+        self.thread.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        if self.error:
+            raise AssertionError(self.error)
+        return {"cells": self.cells, "seconds": self.seconds,
+                "cell_seconds": {k: c["lower_s"] + c["compile_s"]
+                                 for k, c in self.cells.items()},
+                "core": self.core}
+
+
+def _predicted_peak(cell: dict) -> int:
+    mem = cell["memory"]
+    return mem["argument_bytes"] + mem["temp_bytes"]
+
+
+def dryrun_check(dry: Dict[str, object], mesh: Dict[str, object],
+                 trained: Dict[str, object]) -> Dict[str, object]:
+    """The dry run's cells against what the card measured: hold_mesh's
+    argument bytes within ``DRYRUN_ARG_SLACK`` of each mesh rank's state
+    bytes asked of the allocator plus its share of the batch, its
+    collective bytes equal to rank 0's first step's kind by kind, its
+    predicted peak (arguments + temporaries) within ``DRYRUN_PEAK_GAP``
+    of each rank's first-step peak; hold_train's predicted peak within
+    ``DRYRUN_PEAK_GAP`` of the ``train`` phase's. Prints hold_train's
+    counted FLOPs over the phase's model FLOPs and the production cells'
+    terms (computed from datasheet figures, not measured)."""
+    cells = dry["cells"]
+    hm, ht = cells["hold_mesh"], cells["hold_train"]
+    args, pred = hm["memory"]["argument_bytes"], _predicted_peak(hm)
+    r0 = mesh["ranks"][0]["first_step"]
+    coll = {k: int(v) for k, v in hm["collectives"].items()}
+    out: Dict[str, object] = {"hold_mesh": {
+        "argument_bytes": args, "predicted_peak": pred,
+        "collectives": coll, "collectives_by_axis":
+            hm["collectives_by_axis"], "ranks": []}}
+    for i, r in enumerate(mesh["ranks"]):
+        held = r["state_bytes_requested"] + r["batch_share"]
+        peak = r["first_step"]["peak_bytes"]
+        out["hold_mesh"]["ranks"].append({
+            "state_and_batch": held, "argument_gap": args - held,
+            "peak_bytes": peak, "peak_gap": (pred - peak) / peak,
+            "collectives": r["first_step"]["collectives"]})
+        if abs(args - held) > DRYRUN_ARG_SLACK:
+            raise AssertionError(f"dry run hold_mesh: {args} argument "
+                                 f"bytes, rank {i} holds {held}")
+        if abs(pred - peak) > DRYRUN_PEAK_GAP * peak:
+            raise AssertionError(f"dry run hold_mesh: predicted peak "
+                                 f"{pred}, rank {i} measured {peak}")
+    if coll != {k: int(v) for k, v in r0["collectives"].items()}:
+        raise AssertionError(f"dry run hold_mesh collectives {coll} vs "
+                             f"rank 0's {r0['collectives']}")
+    main_ = trained["main"]
+    pred_t, peak_t = _predicted_peak(ht), main_["peak_bytes"]
+    out["hold_train"] = {
+        "argument_bytes": ht["memory"]["argument_bytes"],
+        "temp_bytes": ht["memory"]["temp_bytes"], "predicted_peak": pred_t,
+        "peak_bytes": peak_t, "peak_gap": (pred_t - peak_t) / peak_t,
+        "flops_per_step": ht["flops_per_device"],
+        "flops_over_model_flops": (ht["flops_per_device"]
+                                   / main_["model_flops_per_step"])}
+    if abs(pred_t - peak_t) > DRYRUN_PEAK_GAP * peak_t:
+        raise AssertionError(f"dry run hold_train: predicted peak {pred_t}"
+                             f", the train phase measured {peak_t}")
+    for name in ("qwen2_train_4k_pod", "mixtral_decode_32k_pod"):
+        c = cells[name]
+        out[name] = {k: c[k] for k in (
+            "fits", "dominant", "compute_s", "memory_s", "collective_s",
+            "collective_links", "memory", "useful_flop_ratio")}
+        log(f"dry run {c['arch']} {c['shape']} on {c['mesh']} (fake "
+            f"{c['n_chips']}-rank world; datasheet figures, computed, not "
+            f"measured): fits {c['fits']} (arguments "
+            f"{c['memory']['argument_bytes']} + temporaries "
+            f"{c['memory']['temp_bytes']} bytes), dominant {c['dominant']}"
+            f"; compute {c['compute_s']:.6g} s, memory {c['memory_s']:.6g} "
+            f"s, collectives {c['collective_s']:.6g} s "
+            f"{c['collective_links']}")
+    out["seconds"] = dry["seconds"]
+    out["cell_seconds"] = dry["cell_seconds"]
+    log(f"dryrun phase (one host core, fake CUDA tensors): hold_mesh "
+        f"{json.dumps(out['hold_mesh'])}; hold_train "
+        f"{json.dumps(out['hold_train'])}; {dry['seconds']:.3f} s (budget "
+        f"{DRYRUN_BUDGET_S} s), each cell's build and trace seconds "
+        f"{dry['cell_seconds']}; {card_line()}")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 3:
         mesh_rank(sys.argv[2])
         return 0
     calls_only = sys.argv[1:] == ["--calls"]
-    if sys.argv[1:] and not calls_only:
-        print(f"usage: {sys.argv[0]} [--calls]", file=sys.stderr)
+    train_only = sys.argv[1:] == ["--train"]
+    decode_only = sys.argv[1:] == ["--decode"]
+    if sys.argv[1:] and not (calls_only or train_only or decode_only):
+        print(f"usage: {sys.argv[0]} [--calls | --train | --decode]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port "
@@ -7520,6 +7812,19 @@ def main() -> int:
         log(card)
         log(json.dumps({"calls": calls, "serve": report}))
         return 0
+    if train_only:
+        main_ = train_main_path(TrainSizes(), "cuda")
+        log(card)
+        log(json.dumps({"train": {k: main_[k] for k in (
+            "step_ms_p50", "first_step_ms", "peak_bytes")}}))
+        return 0
+    if decode_only:
+        rep = model_main_path(ModelSizes(), "cuda")["report"]
+        log(card)
+        log(json.dumps({"decode": {k: rep[k] for k in (
+            "decode_step_p50_ms", "decode_step_p99_ms", "decode_steps",
+            "busy")}}))
+        return 0
     wall: Dict[str, float] = {}       # each step's seconds, host clock
 
     def timed(name: str, fn: Callable, *args):
@@ -7537,11 +7842,15 @@ def main() -> int:
                  shard, Sizes(), "cuda")
     base = timed("baselines", baselines_phase, Sizes(), "cuda")
     trained = timed("train", train_phase, "cuda")
+    dry = DryRun().start()          # beside model, families and encdec
     mres = timed("model", run_model, "cuda", ModelSizes())
     fam = timed("families", families_phase, "cuda")
     enc = timed("encdec", encdec_phase, "cuda")
+    dry_out = timed("dryrun_join", dry.join)
+    wall["dryrun"] = dry_out["seconds"]
     mesh, mesh_moe, mesh_fam, mesh_enc = timed("mesh_phases", mesh_phase,
                                                "cuda")
+    dried = dryrun_check(dry_out, mesh, trained)
     log(json.dumps({"phase_seconds": wall}))
     log(json.dumps({k: res[k] for k in ("serve", "ingest_s", "peak_bytes",
                                         "engine_stats", "busy", "calls")}))
@@ -7560,6 +7869,7 @@ def main() -> int:
     log(json.dumps({"mesh_moe": mesh_moe}))
     log(json.dumps({"mesh_families": mesh_fam}))
     log(json.dumps({"mesh_encdec": mesh_enc}))
+    log(json.dumps({"dryrun": dried}))
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},

@@ -12,6 +12,13 @@ through the plain version in f32 and differentiates that (the JAX package
 has no backward kernel either; a hand-written one is open work). Calling
 ``flash_attention_cuda`` itself on inputs that need a gradient raises, so
 no path drops the gradient quietly.
+
+The launch is the torch op ``repro_torch::flash_attention_fwd``
+(``torch.library``): its CUDA implementation is the kernel, its fake
+implementation gives the output's shape and dtype, so a step traced on
+fake CUDA tensors (``launch/dryrun.py``) goes through it, and its FLOP
+formula (``torch.utils.flop_counter``) counts ``4·B·Hq·D`` for every
+(query, key) pair the causal or window mask keeps.
 """
 from __future__ import annotations
 
@@ -19,12 +26,15 @@ import ctypes
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_train", "launches",
-           "HEAD_DIMS", "DTYPES", "check_query", "require_aligned"]
+           "HEAD_DIMS", "DTYPES", "check_query", "require_aligned",
+           "LIB", "kept_pairs"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P,) * 4 + (_I,) * 9 + (_F, _P)
@@ -85,17 +95,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require(q, "q", q.dtype, (B, Sq, Hq, D), dev)
     _build.require(k, "k", q.dtype, (B, Sk, Hkv, D), dev)
     _build.require(v, "v", q.dtype, (B, Sk, Hkv, D), dev)
-    require_aligned(q=q, k=k, v=v)
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     scale = float(D ** -0.5 if scale is None else scale)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                     window, scale)
+
+
+# ---------------------------------------------------------------------------
+# the torch op: the kernel on CUDA tensors, shapes on fake ones
+# ---------------------------------------------------------------------------
+
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+           "int? window, float scale) -> Tensor")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int], scale: float
+            ) -> torch.Tensor:
+    """The op's CUDA implementation: one kernel launch (arguments checked
+    by ``flash_attention_cuda``)."""
+    require_aligned(q=q, k=k, v=v)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     if Sk == 0:
         return out.zero_()
+    dev = q.device
     fn = _build.function("flash_attention_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
@@ -105,6 +136,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(code, "flash_attention")
     _build.count_launch(sys.modules[__name__])
     return out
+
+
+LIB.impl("flash_attention_fwd", _launch, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd")
+def _fake(q, k, v, causal, window, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def kept_pairs(Sq: int, Sk: int, causal: bool,
+               window: Optional[int]) -> int:
+    """The (query, key) pairs the mask keeps: query ``i`` at position
+    ``i + Sk - Sq`` sees keys ``j <= pos`` (causal) and ``j > pos -
+    window`` (window), as :func:`ref.flash_attention_ref` masks."""
+    pos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(Sq,
+                                                                 np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, v_shape, causal, window, scale, *args,
+           out_shape=None, **kwargs) -> int:
+    """QK^T and PV, two FLOPs a multiply-add each, over the kept pairs."""
+    B, Sq, Hq, D = q_shape
+    return 4 * B * Hq * D * kept_pairs(Sq, k_shape[1], causal, window)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,7 +4,10 @@ Each op has a hand-written CUDA kernel (``repro_torch.kernels.<name>``)
 and a plain PyTorch version (``repro_torch.kernels.ref``):
 
 * tensors on a CUDA device launch the kernel (whose wrapper raises on
-  anything it cannot take);
+  anything it cannot take); the two attention kernels launch through
+  their torch ops (``repro_torch::flash_attention_fwd``,
+  ``repro_torch::decode_attention``), so fake CUDA tensors take the ops'
+  fake implementations and FLOP formulas (``launch/dryrun.py``);
 * tensors on the CPU take the plain version.
 
 There is no switch and no fallback: a CUDA tensor never takes the plain

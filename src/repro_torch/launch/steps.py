@@ -118,6 +118,25 @@ def _plain(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def _select(ok: torch.Tensor, new: Any, old: Any) -> Any:
+    """Each leaf of ``new`` where ``ok`` (a boolean scalar on the
+    device), else ``old``'s, leaf by leaf; a DTensor pair (AdamW keeps
+    each leaf's placements) selects on its local pieces."""
+
+    def pick(n: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        if not isinstance(o, DTensor):
+            return torch.where(ok, n, o)
+        return DTensor.from_local(torch.where(ok, n.to_local(),
+                                              o.to_local()),
+                                  o.device_mesh, o.placements,
+                                  run_check=False, shape=o.shape,
+                                  stride=o.stride())
+
+    return tree_unflatten(old, [
+        pick(n, o) for (_, n), (_, o) in zip(tree_flatten_with_path(new),
+                                             tree_flatten_with_path(old))])
+
+
 def _pod_of(mesh) -> Optional[Tuple[Any, int, int]]:
     """(the ``pod`` axis's process group, its ranks, this rank's pod
     coordinate), or None for a mesh without a ``pod`` axis."""
@@ -214,13 +233,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     def apply_update(params, opt_state: OptState, grads, loss, metrics):
         new_p, new_s, om = adamw_update(grads, opt_state, params, opt_cfg)
-        # non-finite guard: no update, the old state kept; on a mesh the
-        # norm is a full reduction, so every rank decides alike
+        # non-finite guard: no update, the old state kept, selected on
+        # the device as JAX's jnp.where does (no host sync); on a mesh
+        # the norm is a full reduction, so every rank selects alike
         gnorm = om.get("grad_norm")
-        ok = gnorm is None or bool(torch.isfinite(_plain(gnorm)))
-        if not ok:
-            new_p, new_s = params, opt_state
-        om["skipped"] = torch.tensor(0.0 if ok else 1.0)
+        if gnorm is None:
+            om["skipped"] = torch.zeros((), device=loss.device)
+        else:
+            ok = torch.isfinite(_plain(gnorm))
+            new_p = _select(ok, new_p, params)
+            new_s = _select(ok, new_s, opt_state)
+            om["skipped"] = (~ok).float()
         metrics = dict(metrics)
         metrics.update(om)
         metrics["loss"] = loss
@@ -408,7 +431,7 @@ def build_step_bundle(cfg: ModelConfig, shape: Union[str, ShapeSpec], mesh,
                           kind=ss.kind, out_specs=out_specs, mesh=mesh)
 
     if ss.kind == "train":
-        ostruct = opt_struct(cfg, opt_cfg)
+        ostruct = adamw_init(pstruct, opt_cfg)          # opt_struct's
         ospecs = opt_specs(ostruct, mesh, rules)
         fn = make_train_step(cfg, opt_cfg, accum=accum,
                              mesh=(mesh if isinstance(mesh, DeviceMesh)

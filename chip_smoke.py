@@ -7714,8 +7714,10 @@ def dryrun_check(dry: Dict[str, object], mesh: Dict[str, object],
     bytes asked of the allocator plus its share of the batch, its
     collective bytes equal to rank 0's first step's kind by kind, its
     predicted peak (arguments + temporaries) within ``DRYRUN_PEAK_GAP``
-    of each rank's first-step peak; hold_train's predicted peak within
-    ``DRYRUN_PEAK_GAP`` of the ``train`` phase's. Prints hold_train's
+    of each rank's first-step peak, nothing live at that peak with the
+    whole vocab (the loss works on vocab shards); hold_train's predicted
+    peak within ``DRYRUN_PEAK_GAP`` of the ``train`` phase's. Prints
+    hold_train's
     counted FLOPs over the phase's model FLOPs and the production cells'
     terms (computed from datasheet figures, not measured)."""
     cells = dry["cells"]
@@ -7743,6 +7745,14 @@ def dryrun_check(dry: Dict[str, object], mesh: Dict[str, object],
     if coll != {k: int(v) for k, v in r0["collectives"].items()}:
         raise AssertionError(f"dry run hold_mesh collectives {coll} vs "
                              f"rank 0's {r0['collectives']}")
+    # the vocab-parallel loss: nothing at the peak holds the whole vocab
+    from repro_torch.configs.registry import get_config
+    vocab = get_config(hm["arch"]).vocab_size
+    out["hold_mesh"]["peak_live"] = hm["peak_live"]
+    whole = [k for k in hm["peak_live"] if vocab in k["shape"]]
+    if whole:
+        raise AssertionError(f"dry run hold_mesh: the peak holds tensors "
+                             f"of the whole vocab {vocab}: {whole}")
     main_ = trained["main"]
     pred_t, peak_t = _predicted_peak(ht), main_["peak_bytes"]
     out["hold_train"] = {

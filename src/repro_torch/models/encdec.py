@@ -124,7 +124,8 @@ def _dec_rest(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def forward_train(params: Params, cfg: ModelConfig,
                   enc_embeds: torch.Tensor, tokens: torch.Tensor
                   ) -> torch.Tensor:
-    """enc_embeds (B, Se, d), tokens (B, S) -> logits (B, S, V) f32."""
+    """enc_embeds (B, Se, d), tokens (B, S) -> logits (B, S, V) f32 (on
+    a mesh vocab-sharded as ``lm.forward_train``'s, for the loss)."""
     enc_out = encode(params, cfg, enc_embeds)
     x = lm._embed_inputs(params, cfg, tokens, None)
     pos = lm._positions(cfg, x)
@@ -134,7 +135,7 @@ def forward_train(params: Params, cfg: ModelConfig,
         h = apply_norm(p["norm1"], x, cfg.norm)
         x = x + attn.attend_train(p["self_attn"], h, cfg, pos, causal=True)
         x = _dec_rest(p, cfg, x, enc_out, decode=False)
-    return lm._logits(params, cfg, x)
+    return lm._logits(params, cfg, x, pin=False)
 
 
 def loss_fn(params: Params, cfg: ModelConfig,

@@ -32,8 +32,12 @@ embedding, or its own) have their ``data`` shards gathered at their use,
 a frontend's embeddings are batch-sharded as the tokens and put ahead of
 them, the positions (text positions over the whole sequence, M-RoPE's
 three streams expanded on each rank's local rows) are placed as the
-batch, and the logits' vocab dim (sharded over ``model``) is gathered
-before the loss or the caller reads them: ``B·S·V`` f32 per data rank.
+batch. Serving gathers the logits' vocab dim (sharded over ``model``)
+before the caller reads them. Training does not: ``forward_train``
+returns the logits as the head's product leaves them (rows over the data
+axes, vocab columns over ``model``) and ``masked_nll`` runs a
+vocab-parallel cross entropy on each rank's own piece (``_VocabNLL``), as
+GSPMD partitions the JAX package's loss.
 """
 from __future__ import annotations
 
@@ -159,35 +163,155 @@ def _vocab_lookup(tokens: DTensor, table: DTensor) -> DTensor:
     return DTensor.from_local(y, mesh, pl, run_check=False)
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            pin: bool = True) -> torch.Tensor:
+    """f32 logits of the final hidden state ``x``; on a mesh pinned to
+    ``pin_dp``'s layout (the vocab whole on every rank) unless ``pin`` is
+    False, which keeps the vocab ``Shard`` over ``model`` for the loss."""
     head = ("head_f32" if "head_f32" in params
             else "embed" if cfg.tie_embeddings else "lm_head")
     top = _top(params, x, ("final_norm", head))
     x = apply_norm(top["final_norm"], x, cfg.norm)
-    logits = matmul(x.float(), top[head].float().T)
-    return sharding.pin_dp(logits) if isinstance(logits, DTensor) else logits
+    w = top[head]
+    if not pin and isinstance(w, DTensor):
+        w = _vocab_split(w)
+    logits = matmul(x.float(), w.float().T)
+    if pin and isinstance(logits, DTensor):
+        return sharding.pin_dp(logits)
+    return logits
+
+
+def _vocab_split(w: DTensor) -> DTensor:
+    """The head ``w`` (V, d) with its vocab rows ``Shard`` over ``model``
+    where the rule tables replicate them because ``model`` does not
+    divide V (granite, mamba2, seamless at 16): each rank takes its
+    ``torch.chunk`` of the rows, with no communication, so that the
+    loss's logits are a vocab piece there too; the rows' gradient is
+    gathered back over ``model``. Where a chunk would be empty the head
+    stays replicated."""
+    mesh = w.device_mesh
+    d = sharding.mesh_dim(mesh, "model")
+    if d is None or not isinstance(w.placements[d], Replicate):
+        return w
+    m, V = mesh.size(d), w.shape[0]
+    if m == 1 or -(-V // m) * (m - 1) >= V:
+        return w
+    pl = list(w.placements)
+    pl[d] = Shard(0)
+    return w.redistribute(mesh, pl)
 
 
 def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens (B, S_txt) [+ embeds (B, F, d)] -> logits (B, S, V) f32."""
+    """tokens (B, S_txt) [+ embeds (B, F, d)] -> logits (B, S, V) f32
+    (on a mesh with the vocab dim ``Shard`` over ``model`` where the rule
+    tables shard the head: ``full_tensor()`` gives the whole)."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     x, aux = B.run_blocks_train(params["blocks"], x, cfg, _positions(cfg, x))
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, pin=False), aux
 
 
 def masked_nll(logits: torch.Tensor, targets: torch.Tensor
                ) -> torch.Tensor:
     """Mean next-token NLL of f32 ``logits`` (B, S, V) over the targets
-    (B, S) that are not negative."""
+    (B, S) that are not negative. DTensor logits take the vocab-parallel
+    path (``_vocab_nll``): nothing is gathered."""
+    if isinstance(logits, DTensor):
+        return _vocab_nll(logits, targets)
     mask = (targets >= 0).to(torch.float32)
     tgt = targets.clamp(min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _reduced(t: torch.Tensor, mesh, pl: list, dims: list, op: str
+             ) -> torch.Tensor:
+    """Every rank's ``t`` (local, placed as ``pl`` elsewhere) reduced by
+    ``op`` over the mesh dims ``dims``: a DTensor ``Partial(op)`` brought
+    to ``Replicate``, so that the collective is DTensor's own (carried by
+    ``gloo_cuda`` on the card, counted by the dry run)."""
+    if not dims:
+        return t
+    src = [Partial(op) if i in dims else p for i, p in enumerate(pl)]
+    dst = [Replicate() if i in dims else p for i, p in enumerate(pl)]
+    return DTensor.from_local(t, mesh, src, run_check=False).redistribute(
+        mesh, dst).to_local()
+
+
+class _VocabNLL(torch.autograd.Function):
+    """``masked_nll`` on one rank's piece ``x`` (b, S, v) of the logits:
+    its rows (a share of the batch over the mesh dims ``rows``) and its
+    vocab columns ``[lo, lo + v)`` (all of them where ``vocab`` is None).
+    The row max, the sum of ``exp(x - max)`` and the gold logit are
+    reduced over ``vocab`` (b·S f32 each), the masked sum and the mask
+    count over ``rows``. The backward is local: ``(softmax - onehot) ·
+    mask · g / count`` on the rank's columns, from ``lse``, the mask and
+    the targets it saves beside ``x``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, targets: torch.Tensor, mesh,
+                pl: list, rows: list, vocab: Optional[int], lo: int
+                ) -> torch.Tensor:
+        col = targets.clamp(min=0).long() - lo
+        inside = (col >= 0) & (col < x.shape[-1])
+        col = col.clamp(0, x.shape[-1] - 1)
+        over = [vocab] if vocab is not None else []
+        m = _reduced(x.amax(-1), mesh, pl, over, "max")
+        e = x - m[..., None]
+        s = _reduced(e.exp_().sum(-1), mesh, pl, over, "sum")
+        del e
+        lse = m + s.log()
+        gold = torch.gather(x, -1, col[..., None])[..., 0]
+        gold = _reduced(gold * inside.to(x.dtype), mesh, pl, over, "sum")
+        mask = (targets >= 0).to(x.dtype)
+        tot = torch.stack([((lse - gold) * mask).sum(), mask.sum()])
+        tot = _reduced(tot, mesh, [Replicate()] * mesh.ndim, rows, "sum")
+        count = torch.clamp(tot[1], min=1.0)
+        ctx.save_for_backward(x, lse, mask, targets, count)
+        ctx.lo = lo
+        return tot[0] / count
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, lse, mask, targets, count = ctx.saved_tensors
+        col = targets.clamp(min=0).long() - ctx.lo
+        inside = (col >= 0) & (col < x.shape[-1])
+        grad = x - lse[..., None]
+        grad.exp_()
+        grad.scatter_add_(-1, col.clamp(0, x.shape[-1] - 1)[..., None],
+                          -inside[..., None].to(grad.dtype))
+        grad.mul_((mask * (g / count))[..., None])
+        return grad, None, None, None, None, None, None
+
+
+def _vocab_nll(logits: DTensor, targets: DTensor) -> DTensor:
+    """``masked_nll`` of DTensor logits as the head's product leaves
+    them (see ``_VocabNLL``): on each mesh dim the batch's rows
+    ``Shard``, the vocab ``Shard`` over ``model``, or replicated. The
+    targets are placed as the rows. The loss comes back replicated."""
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    md = sharding.mesh_dim(mesh, "model")
+    pl = list(logits.placements)
+    for i, p in enumerate(pl):
+        if not (isinstance(p, Replicate) or p == Shard(0)
+                or (i == md and p == Shard(last))):
+            raise ValueError(f"masked_nll of logits placed as {tuple(pl)}")
+    tpl = [p if p == Shard(0) else Replicate() for p in pl]
+    targets = targets.redistribute(mesh, tpl).to_local()
+    wide = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    rows = [i for i in wide if tpl[i] == Shard(0)]
+    vocab = md if md in wide and pl[md] != tpl[md] else None
+    lo = 0
+    if vocab is not None:
+        lo = mesh.get_local_rank(vocab) * -(-logits.shape[-1]
+                                            // mesh.size(vocab))
+    loss = _VocabNLL.apply(logits.to_local(), targets, mesh, tpl, rows,
+                           vocab, lo)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def loss_fn(params: Params, cfg: ModelConfig,

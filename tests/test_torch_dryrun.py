@@ -22,6 +22,10 @@ on its CPU placeholder devices).
   ``FakeTensorMode`` with no host sync (``_local_scalar_dense``); a
   non-finite step keeps the state bit for bit and reports a tensor
   ``skipped == 1``.
+* (g) The vocab-parallel loss at qwen2-1.5b ``train_4k``'s logits on
+  the fake ``pod`` world: its peak at most four local shards, nothing
+  with the whole vocab or microbatch, only its all-reduces; and that
+  cell at one layer period fits the card.
 * (f) The CLI with ``--device cpu`` on one small cell writes a cell with
   JAX's keys and the port's listed additions, and runs two cells one
   after another in one process; ``--device cuda`` without a CUDA build
@@ -544,6 +548,63 @@ def test_nonfinite_step_keeps_the_state_bit_for_bit():
         assert torch.equal(a, b_)
     _, o3, m3 = step(params, warm, batch)
     assert float(m3["skipped"]) == 0.0 and int(o3.count) == 2
+
+
+# ---------------------------------------------------------------------------
+# (g) the vocab-parallel loss at the production layout
+# ---------------------------------------------------------------------------
+
+def test_the_loss_holds_local_pieces_at_train_4k():
+    """``lm.masked_nll`` alone, forward and backward, at qwen2-1.5b
+    ``train_4k``'s logits (a microbatch of 128 × 4096 × 151,936 f32) on
+    the fake ``pod`` world: rank 0's temporaries peak at no more than four
+    local shards (8 × 4096 × 9,496 f32, 1.245 GB), nothing it makes has
+    the whole vocab or the whole microbatch, and its only collectives are
+    the all-reduces of 8 × 4096 f32 rows over ``model`` (three) and of
+    the masked sum and count over ``data``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import lm
+    B, S, V = 128, 4096, 151936
+    shard = (B // 16) * S * (V // 16) * 4
+    with dryrun.fake_world("pod", "cpu") as mesh:
+        fake = dryrun._tracked_fake_mode("cpu")
+        with fake:
+            xl = torch.empty(B // 16, S, V // 16, requires_grad=True)
+            tl = torch.empty(B // 16, S, dtype=torch.int32)
+            fake.hold([xl, tl])
+            logits = DTensor.from_local(xl, mesh, ts.placements(
+                mesh, ts.Spec("data", None, "model")), run_check=False)
+            targets = DTensor.from_local(tl, mesh, ts.placements(
+                mesh, ts.Spec("data")), run_check=False)
+            fake.tracking = True
+            with dryrun.StepCounter(mesh) as counter:
+                loss = lm.masked_nll(logits, targets)
+                grad, = torch.autograd.grad(loss, xl)
+            fake.tracking = False
+    assert grad.shape == xl.shape and loss.shape == ()
+    assert 0 < fake.peak <= 4 * shard
+    made = [kind[1] for kind in fake._kinds]
+    assert made and all(V not in shape and B not in shape for shape in made)
+    assert counter.by_axis["model"]["all-reduce"] == 3 * (B // 16) * S * 4
+    assert counter.by_axis["data"]["all-reduce"] == 2 * 4
+    assert counter.collectives["all-gather"] == 0
+
+
+def test_qwen2_train_4k_fits_the_pod_at_one_period():
+    """``run_cell`` of qwen2-1.5b ``train_4k`` on ``pod`` at one layer
+    period (the loss's bytes do not depend on depth), the plain versions
+    on fake CPU tensors: it fits an 80 GB card, nothing at its peak has
+    the whole vocab or the whole microbatch, and the logits' vocab dim is
+    not gathered over ``model``."""
+    cell = dryrun.run_cell("qwen2-1.5b", "train_4k", "pod", device="cpu",
+                           periods=1)
+    assert cell["status"] == "ok" and cell["fits"]
+    vocab = get_config("qwen2-1.5b").vocab_size
+    for kind in cell["peak_live"]:
+        assert kind["shape"][-1] != vocab and kind["shape"][0] != 128, kind
+    # what is gathered over model is less than one local logit shard
+    shard = 8 * 4096 * (vocab // 16) * 4
+    assert cell["collectives_by_axis"]["model"]["all-gather"] < shard
 
 
 # ---------------------------------------------------------------------------

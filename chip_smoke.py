@@ -205,7 +205,12 @@ then:
    prefill and decode bundles against ``ModelServer``, teacher-forced,
    in f32 (every greedy token equal) and bf16 (logits' relative L2; a
    greedy token may differ only at a near-tie), the flash and decode
-   kernels' launches on each rank's local heads, and a reduced
+   kernels' launches on each rank's local heads, the JAX package's
+   streaming layout (``act_dp`` ("data",), ``act_sp`` "model": 2
+   training steps and the f32 prefill with every head on every rank and
+   the flash kernel on each rank's half of the rows at its ``q_offset``,
+   against the same meshless references; ``mesh_cp_check``, about 25
+   s), and a reduced
    checkpoint saved on the world restored onto the meshless loop bit
    for bit; each rank's first training step runs under the dry run's
    ``StepCounter`` (its collective bytes by kind and mesh axis) with
@@ -4106,8 +4111,11 @@ def attention_cases(device) -> Dict[str, float]:
     (seamless at model=2: 8 of its 16 heads of 64 on a data rank's 2
     rows; the encoder over 256 and 1024 frames, the decoder's self calls
     over 128 and 64 tokens, its cross calls non-causal over the frames,
-    decoded over the 72-row cache and every one of 1024 frames). Returns
-    the largest absolute difference."""
+    decoded over the 72-row cache and every one of 1024 frames); and
+    flash at a query offset (0, a point off the tile edges, ``Sk − Sq``)
+    at the ``mesh`` phase's context-parallel calls (a rank's 64 of 128
+    training rows and 32 of 64 prompt rows, every qwen2-1.5b head) and
+    at ragged tiles. Returns the largest absolute difference."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import apply_rope, mrope_positions_text
     from repro_torch.kernels.decode_attention import SPLIT
@@ -4169,6 +4177,22 @@ def attention_cases(device) -> Dict[str, float]:
                         ops.flash_attention(q, k, v, **kw),
                         ref.flash_attention_ref(q, k, v, **kw),
                         f"flash {dtype} {(B, Sq, Sk, Hq, Hkv, D)} {kw}"))
+        # context parallelism: a rank's rows at their global positions
+        for B, Sq, Sk, Hq, Hkv, D in ((2, 64, 128, 12, 2, 128),
+                                      (2, 32, 64, 12, 2, 128),
+                                      (1, 100, 300, 4, 2, 64),
+                                      (2, 48, 200, 6, 2, 80)):
+            q = _randn((B, Sq, Hq, D), dtype, device, 25)
+            k = _randn((B, Sk, Hkv, D), dtype, device, 26)
+            v = _randn((B, Sk, Hkv, D), dtype, device, 27)
+            for off in (0, (Sk - Sq) // 2 + 3, Sk - Sq):
+                for window in (None, 32):
+                    kw = dict(causal=True, window=window, q_offset=off)
+                    errs["flash_attention"] = max(
+                        errs["flash_attention"], _attn_err(
+                            ops.flash_attention(q, k, v, **kw),
+                            ref.flash_attention_ref(q, k, v, **kw),
+                            f"flash {dtype} {(B, Sq, Sk, Hq, Hkv, D)} {kw}"))
         for B, S, Hq, Hkv, D in ((4, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                                  (3, 64, 4, 1, 32), (16, 1024, 12, 2, 128),
                                  (2, 100, 9, 3, 80), (6, 300, 12, 2, 128),
@@ -4297,7 +4321,8 @@ def attention_work(name: str, a: tuple, kw: dict) -> Dict[str, float]:
         q, k, _ = a
         B, Sq, Hq, D = q.shape
         Sk = k.shape[1]
-        qpos = np.arange(Sq) + (Sk - Sq)
+        off = kw.get("q_offset")
+        qpos = np.arange(Sq) + (Sk - Sq if off is None else off)
         hi = np.minimum(Sk, qpos + 1) if kw.get("causal", True) else \
             np.full(Sq, Sk)
         lo = (np.maximum(0, qpos - kw["window"] + 1)
@@ -4317,8 +4342,9 @@ def library_call(name: str, a: tuple, kw: dict) -> Callable[[], object]:
     """One PyTorch call computing the same function, timed as a yardstick
     only: scaled_dot_product_attention on (B, H, S, D) views, GQA by
     enable_gqa (or K/V repeated first where the installed torch lacks
-    it), causal for prefill, a boolean length mask (built beforehand) for
-    decode."""
+    it), causal for prefill (at a ``q_offset``, a boolean causal mask
+    from it, built beforehand), a boolean length mask (built beforehand)
+    for decode."""
     import torch.nn.functional as F
     try:
         x = torch.zeros((1, 2, 1, 16), device=a[0].device)
@@ -4327,9 +4353,15 @@ def library_call(name: str, a: tuple, kw: dict) -> Callable[[], object]:
         gqa = True
     except TypeError:
         gqa = False
+    mask = None
     if name == "flash_attention":
         q, k, v = (t.transpose(1, 2) for t in a)
         causal = kw.get("causal", True)
+        if kw.get("q_offset") is not None:
+            qpos = (torch.arange(q.shape[2], device=q.device)[:, None]
+                    + kw["q_offset"])
+            mask = torch.arange(k.shape[2], device=q.device)[None, :] <= qpos
+            causal = False
     else:
         q0, kc, vc, lengths = a
         q = q0[:, :, None, :]
@@ -4345,6 +4377,7 @@ def library_call(name: str, a: tuple, kw: dict) -> Callable[[], object]:
     extra = {"enable_gqa": True} if gqa else {}
     if name == "flash_attention":
         return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask,
                                                       is_causal=causal,
                                                       **extra)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -4360,8 +4393,11 @@ def time_attention(calls: Dict[str, tuple], reps: int, device
              "decode_attention": ref.decode_attention_ref}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     res = {}
-    for name, (a, kw) in calls.items():
+    for name, (a, kw_) in calls.items():
         kfn = getattr(ops, name)
+        # the kernel streams whatever ``block_k`` says; its plain version
+        # is the dense one
+        kw = {k: v for k, v in kw_.items() if k != "block_k"}
         err = _attn_err(kfn(*a, **kw), plain[name](*a, **kw),
                         f"{name} main path")
         work = attention_work(name, a, kw)
@@ -4634,6 +4670,20 @@ def run_model(device, ms: ModelSizes) -> Dict[str, object]:
             f"({v['bound_by']}: {v['bytes']} bytes, {v['flops']} flops); "
             f"per call with host work: kernel {v['call_ms']:.5f} ms, plain "
             f"{v['plain_call_ms']:.5f} ms")
+    # one context-parallel rank's call (the mesh phase's training: 64 of
+    # 128 rows at q_offset 64, every head of qwen2-1.5b, here in bf16)
+    q = _randn((2, 64, 12, 128), torch.bfloat16, device, 28)
+    k, v = (_randn((2, 128, 2, 128), torch.bfloat16, device, sd)
+            for sd in (29, 30))
+    cp = time_attention({"flash_attention": (
+        (q, k, v), {"causal": True, "q_offset": 64})}, ms.reps,
+        device)["flash_attention"]
+    errs["flash_attention"] = max(errs["flash_attention"], cp["max_abs_err"])
+    log(f"time flash_attention at q_offset 64 {cp['shape']}: device per "
+        f"launch: kernel {cp['ms']:.6f} ms, plain {cp['plain_ms']:.6f} ms, "
+        f"library {cp['library_ms']:.6f} ms (an explicit causal mask), "
+        f"bound {cp['bound_ms']:.6f} ms ({cp['bound_by']}: {cp['bytes']} "
+        f"bytes, {cp['flops']} flops)")
     cli = serve_cli(device)
     kernels = [{
         "name": k, "route": "cuda", "source": ATTN_KERNELS[k][0],
@@ -4644,6 +4694,10 @@ def run_model(device, ms: ModelSizes) -> Dict[str, object]:
         "library_ms": timing[k]["library_ms"],
         "call_ms": timing[k]["call_ms"],
         "plain_call_ms": timing[k]["plain_call_ms"]} for k in ATTN_KERNELS]
+    kernels[0]["at_q_offset"] = {
+        k: cp[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by", "max_abs_err", "shape")}
+    kernels[0]["at_q_offset"]["q_offset"] = 64
     return {"kernels": kernels, "model": main["report"],
             "model_cuda_vs_cpu": cmp, "serve_cli": cli}
 
@@ -5717,6 +5771,10 @@ class MeshSizes:
     serve_steps: int = 8
     ckpt_steps: int = 2            # the reshard check, reduced width
     join_s: float = 900.0          # mesh_moe and mesh_families run on it
+    # the streaming layout (act_dp ("data",), act_sp "model"): context
+    # parallel training and a prefill, held to the meshless references
+    cp_steps: int = 2
+    cp_block: int = 64             # attn_block_k: the CPU's streaming form
 
 
 def _mesh_cfg(ms: MeshSizes, dtype: str):
@@ -6033,6 +6091,10 @@ def _first_world(a: dict, ms: MeshSizes, mesh, rank: int,
                                  rank)
         torch.cuda.empty_cache()
 
+    # the streaming layout: context-parallel training and prefill
+    res["cp"] = _cp_rank(ms, mesh, rank)
+    torch.cuda.empty_cache()
+
     # a reduced checkpoint saved on the world
     rcfg = reduced(_mesh_cfg(ms, "float32"))
     rloop = TrainLoop(rcfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=4,
@@ -6057,6 +6119,135 @@ def _first_world(a: dict, ms: MeshSizes, mesh, rank: int,
                                     mesh, rank, a["tmp"],
                                     tuple(same_point))
     _freed()
+
+
+def _cp_cfg(ms: MeshSizes):
+    """The ``mesh`` phase's f32 config in the JAX package's streaming
+    layout (its dry run's ``--attn-block``): q, k and v batch-sharded over
+    ``data`` with every head, q's rows over ``model``."""
+    return dataclasses.replace(_mesh_cfg(ms, "float32"),
+                               attn_block_k=ms.cp_block, act_dp=("data",),
+                               act_sp="model")
+
+
+def _cp_rank(ms: MeshSizes, mesh, rank: int) -> Dict[str, object]:
+    """A rank's context-parallel work: ``TrainLoop(mesh=)`` for
+    ``cp_steps`` steps from the ``mesh`` phase's seed and batch, then the
+    f32 prefill bundle on its prompts (parameters from seed 5): the
+    losses and gradient norms, the prefill logits (rank 0), the caches'
+    placements against the decode bundle's specs, the flash launches of
+    each (the count reset just before) and every flash call's query rows,
+    key rows and ``q_offset``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import TrainLoop
+    t0 = time.perf_counter()
+    cfg = _cp_cfg(ms)
+    batch, toks = _mesh_inputs(ms, cfg.vocab_size)
+    seen: List[tuple] = []
+    flash = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[1], k.shape[1], kw.get("q_offset")))
+        return flash(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    try:
+        loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=3)
+        flash_attention.launches = 0
+        ran = loop.run(iter([batch] * ms.cp_steps), steps=ms.cp_steps,
+                       log_every=0)
+        torch.cuda.synchronize()
+        out = {"train_flash": flash_attention.launches,
+               "train_seen": sorted(set(seen)),
+               "losses": [h["loss"] for h in ran["history"]],
+               "grad_norms": [h["grad_norm"] for h in ran["history"]]}
+        del loop
+        torch.cuda.empty_cache()
+        B, P = ms.serve_batch, ms.prompt_len
+        C = P + ms.serve_steps
+        pb = steps.build_step_bundle(cfg, ShapeSpec("prompt", P, B,
+                                                    "prefill"),
+                                     mesh, cache_len=C)
+        db = steps.build_step_bundle(cfg, ShapeSpec("serve", C, B,
+                                                    "decode"), mesh)
+        params = _placed_params(cfg, lambda t: pb.place(t)[0], "cpu",
+                                False)
+        tok = sharding.distribute(torch.as_tensor(toks[:, :P],
+                                                  device="cuda"),
+                                  mesh, pb.in_specs[1])
+        seen.clear()
+        flash_attention.launches = 0
+        logits, caches = pb.fn(params, tok)
+        logits = logits.full_tensor().float().cpu()
+        torch.cuda.synchronize()
+        out.update(prefill_flash=flash_attention.launches,
+                   prefill_seen=sorted(set(seen)),
+                   cache_placed=all(
+                       tuple(t.placements) == sharding.placements(mesh, sp)
+                       for t, sp in zip(_leaves_of(caches),
+                                        sharding.spec_leaves(
+                                            db.in_specs[1]))))
+        if rank == 0:
+            out["logits"] = logits
+        del params, caches
+    finally:
+        ops.flash_attention = flash
+    out["model_rank"] = mesh.get_local_rank("model")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_cp_check(ms: MeshSizes, ref: Dict[str, object],
+                  ranks: List[Dict[str, object]]) -> Dict[str, object]:
+    """The context-parallel work against the ``mesh`` phase's meshless
+    references: losses and gradient norms of the first ``cp_steps``
+    steps within 1e-5 relative, the f32 prefill logits within 1e-4
+    relative L2 with every greedy token equal; on every rank, the
+    flash kernel launched on its ``model`` coordinate's rows (training
+    ``train_seq/2`` of ``train_seq``, the prefill ``prompt_len/2`` of
+    ``prompt_len``) at ``q_offset`` = that coordinate times the rows,
+    once a layer in the prefill and twice a layer a step in training
+    (the forward and the remat recompute), and the caches in the decode
+    bundle's placements."""
+    cps = [r["cp"] for r in ranks]
+    r0 = cps[0]
+    n = ms.cp_steps
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(r0["losses"], ref["losses"][:n]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in
+                    zip(r0["grad_norms"], ref["grad_norms"][:n]))
+    prefill = _mesh_logits(r0["logits"][None], ref["float32"][:1])
+    for c in cps:
+        m = c["model_rank"]
+        tr, pr = ms.train_seq // 2, ms.prompt_len // 2
+        want = {"train_seen": [(tr, ms.train_seq, m * tr)],
+                "prefill_seen": [(pr, ms.prompt_len, m * pr)],
+                "train_flash": 2 * ms.layers * n,
+                "prefill_flash": ms.layers, "cache_placed": True}
+        got = {k: c[k] for k in want}
+        if got != want:
+            raise AssertionError(f"mesh cp (model rank {m}): {got}, "
+                                 f"expected {want}")
+        if (c["losses"], c["grad_norms"]) != (r0["losses"],
+                                               r0["grad_norms"]):
+            raise AssertionError("mesh cp: ranks disagree on the losses")
+    if (loss_rel > 1e-5 or gnorm_rel > 1e-5 or prefill["rel_l2"] > 1e-4
+            or prefill["mismatches"]):
+        raise AssertionError(f"mesh cp vs meshless: losses "
+                             f"{r0['losses']} vs {ref['losses'][:n]}, "
+                             f"gradient norms {r0['grad_norms']} vs "
+                             f"{ref['grad_norms'][:n]}, prefill {prefill}")
+    return {"losses": r0["losses"], "losses_meshless": ref["losses"][:n],
+            "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+            "prefill": prefill,
+            "launches": {"flash_attention": sum(
+                c["train_flash"] + c["prefill_flash"] for c in cps)},
+            "rows": [(c["model_rank"], c["train_seen"], c["prefill_seen"])
+                     for c in cps],
+            "seconds": max(c["seconds"] for c in cps)}
 
 
 def mesh_rank(arg: str) -> None:
@@ -7520,6 +7711,12 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
             r[dt]["flash"] for dt in MESH_SERVE) for r in ranks),
         "decode_attention": sum(r[dt]["decode"] for r in ranks
                                 for dt in MESH_SERVE)}
+    cp_out = mesh_cp_check(ms, ref, ranks)
+    out["cp"] = cp_out
+    log(f"mesh cp ({ms.shape} over (data, model); {ms.arch} full width, "
+        f"{ms.layers} layers, f32, act_dp ('data',), act_sp 'model': each "
+        f"rank's flash on its model coordinate's rows at their offset): "
+        f"{json.dumps(cp_out)}; {cp_out['seconds']:.3f} s; {card_line()}")
     moe_out = mesh_moe_check(mz, moe_ref, ranks)
     # the reference on the card, then the slowest rank's MoE work
     moe_out["seconds"] = moe_ref["seconds"] + max(
@@ -7887,6 +8084,7 @@ def main() -> int:
              "families": fam["launches"],
              "encdec": enc["launches"],
              "mesh": mesh["launches"],
+             "mesh_cp": mesh["cp"]["launches"],
              "mesh_moe": mesh_moe["launches"],
              "mesh_families": mesh_fam["launches"],
              "mesh_encdec": mesh_enc["launches"]}

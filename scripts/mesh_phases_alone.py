@@ -1,6 +1,7 @@
 """The smoke's mesh phases alone, with its dry run beside them, on one card.
 
-``chip_smoke.mesh_phase`` (the ``mesh``, ``mesh_moe`` and
+``chip_smoke.mesh_phase`` (the ``mesh`` work with its context-parallel
+part, the ``mesh_moe`` and
 ``mesh_families`` work on one (2, 2) world of 4 processes, ``mesh_encdec``
 on a second beside it, every check of those phases) while
 ``chip_smoke.DryRun`` runs its four cells on one host core; then
@@ -40,7 +41,8 @@ def main() -> None:
     res = cs.dryrun_check(got, mesh, own)
     print(json.dumps({
         "mesh_phases_s": t_mesh, "dryrun_s": got["seconds"],
-        "mesh_s": mesh.get("seconds"), "moe_s": moe.get("seconds"),
+        "mesh_s": mesh.get("seconds"), "cp_s": mesh["cp"]["seconds"],
+        "moe_s": moe.get("seconds"),
         "fam_s": fam.get("seconds"), "enc_s": enc.get("seconds"),
         "world_s": mesh.get("world_s"),
         "counted_step_ms": [r["counted_step_ms"] for r in mesh["ranks"]],
@@ -48,7 +50,9 @@ def main() -> None:
         "hold_mesh_gaps": [(r["argument_gap"], r["peak_gap"])
                            for r in res["hold_mesh"]["ranks"]],
         "world_card_peak_bytes": fam.get("world_card_peak_bytes"),
-        "launches": {"mesh": mesh["launches"], "mesh_moe": moe["launches"],
+        "launches": {"mesh": mesh["launches"],
+                     "mesh_cp": mesh["cp"]["launches"],
+                     "mesh_moe": moe["launches"],
                      "mesh_families": fam["launches"],
                      "mesh_encdec": enc["launches"]}}))
 

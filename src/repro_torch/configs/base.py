@@ -6,10 +6,12 @@ ids to them. ``reduced(cfg)`` shrinks any config to a CPU-runnable smoke
 variant of the same family. The schema and the config modules are the JAX
 package's (``repro.configs``), kept field for field so both packages read
 the same configs. ``remat`` steers training's rematerialisation here as
-there (``models/blocks.py``), and ``moe_groups`` the MoE dispatch groups
-(``models/moe.py``); the fields that steer only the JAX package's mesh and
-dry-run lowering (``scan_layers``, ``attn_block_k``, ``act_dp``,
-``act_sp``) are carried and ignored here. ``SHAPES`` and
+there (``models/blocks.py``), ``moe_groups`` the MoE dispatch groups
+(``models/moe.py``), and ``attn_block_k``, ``act_dp`` and ``act_sp`` the
+streaming attention layout (``models/attention.py``: the streaming plain
+version on the CPU, and on a mesh q, k and v pinned batch-sharded with
+every head, q's rows over ``act_sp``); ``scan_layers`` steers only the
+JAX package's lowering and is carried and ignored here. ``SHAPES`` and
 ``input_specs`` name the four shape cells of the JAX package's dry run;
 the specs are tensors on the ``meta`` device, which allocate nothing.
 """
@@ -83,9 +85,15 @@ class ModelConfig:
     long_context_ok: bool = False    # sub-quadratic path exists (long_500k)
     source: str = ""                 # provenance note
     scan_layers: bool = True         # JAX package only (lax.scan vs loop)
-    attn_block_k: int = 0            # JAX package only (dry-run lowering)
-    act_dp: Tuple[str, ...] = ()     # JAX package only (mesh pinning)
-    act_sp: Optional[str] = None     # JAX package only (mesh pinning)
+    # streaming attention (JAX's dry run ``--attn-block``): the KV block of
+    # the streaming plain version on the CPU (0: dense; the kernel streams
+    # on the card whatever it is)
+    attn_block_k: int = 0
+    # on a mesh: attention's q/k/v batch-sharded over these axes with every
+    # head on every rank (JAX's _pin_dp; () keeps the local-heads layout)
+    act_dp: Tuple[str, ...] = ()
+    # and q's sequence over this axis (context parallelism), K/V replicated
+    act_sp: Optional[str] = None
     moe_groups: int = 0              # MoE dispatch groups (per-group capacity)
 
     @property

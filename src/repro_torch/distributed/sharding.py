@@ -33,9 +33,10 @@ places a tree by its specs, the counterpart of ``device_put`` with
 The DTensor execution helpers the dense model path uses on a wide mesh
 sit at the end: ``fsdp_gather`` (each weight's ``data`` shards gathered
 at its use, its ``model`` placement kept), ``pin_dp`` (activations
-batch-sharded over ``dp_axes``, JAX's ``_pin_dp``) and ``head_layout``
+batch-sharded over ``dp_axes``, JAX's ``_pin_dp``), ``head_layout``
 (which q and kv heads each ``model`` rank takes to the attention
-kernels).
+kernels) and ``act_specs`` (attention's layout under ``cfg.act_dp`` and
+``cfg.act_sp``: every head, q's rows over ``act_sp``).
 """
 from __future__ import annotations
 
@@ -60,7 +61,8 @@ __all__ = ["ShardingRules", "DEFAULT_RULES", "Spec", "AbstractMesh",
            "is_wide", "mesh_dim", "fsdp_gather", "pin_dp", "pin_heads",
            "like", "model_rank", "HeadLayout", "head_layout", "matmul",
            "from_local", "mm_f32", "ExpertLayout", "expert_layout",
-           "local", "grad_summed_over", "batch_dims"]
+           "local", "grad_summed_over", "batch_dims", "act_specs",
+           "SEQ_QUANTUM"]
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -503,6 +505,31 @@ def pin_dp(x: DTensor, rules: ShardingRules = DEFAULT_RULES) -> DTensor:
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+SEQ_QUANTUM = 16    # JAX's _pin_dp shards a sequence only where 16 divides it
+
+
+def act_specs(mesh: Mesh, act_dp: Sequence[str], act_sp: Optional[str],
+              batch: int, seq: int) -> Tuple[Spec, Spec]:
+    """The specs of attention's q and of its k/v (batch, sequence first)
+    in JAX's pinned layout (``_pin_dp`` under ``cfg.act_dp``): the batch
+    over the ``act_dp`` axes where they divide it (as ``pin_dp``), every
+    head on every rank; q's sequence also over ``act_sp`` (context
+    parallelism) where ``SEQ_QUANTUM`` and that axis divide it, K/V's
+    replicated over it. An ``act_dp`` axis the mesh lacks is refused, as
+    JAX refuses it."""
+    names = _axes(mesh)
+    missing = [a for a in act_dp if a not in names]
+    if missing:
+        raise ValueError(f"act_dp {tuple(act_dp)} names {missing}, not "
+                         f"in the mesh's {tuple(names)}")
+    b = _fit(mesh, tuple(act_dp), batch)
+    sp = None
+    if (act_sp is not None and seq % SEQ_QUANTUM == 0
+            and _fit(mesh, act_sp, seq) is not None):
+        sp = act_sp
+    return Spec(b, sp), Spec(b)
 
 
 def from_local(t: torch.Tensor, mesh: DeviceMesh,

@@ -4,8 +4,10 @@
 // one element type (bf16 or f32); f32 accumulation and softmax.
 //
 // Replaces the TPU kernel flash_attention_pallas (src/repro/kernels/
-// flash_attention.py). Same function: queries right-aligned
-// (query i sits at position i + Sk - Sq), KV head h / rep, keep a key iff
+// flash_attention.py). Same function: query i sits at position
+// i + q_offset (the wrapper's default Sk - Sq right-aligns the queries, the
+// Pallas kernel's only layout; a context-parallel rank passes its first
+// row's global position), KV head h / rep, keep a key iff
 // kpos <= qpos (causal) and kpos > qpos - window, running max from -1e30,
 // masked probabilities exactly 0, a row with nothing kept writes 0. The
 // Pallas kernel walks a sequential grid over K blocks with VMEM scratch and
@@ -71,7 +73,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
-    int Hkv, int causal, int window, float scale_log2) {
+    int Hkv, int causal, int window, int q_offset, float scale_log2) {
   constexpr int C4 = D / 4;                  // float4 chunks of a row
   constexpr int CPT = C4 / kThreadsPerRow;   // chunks per thread
   static_assert(C4 % kThreadsPerRow == 0, "D must be a multiple of 16");
@@ -88,7 +90,6 @@ __global__ void __launch_bounds__(kFlashThreads) flash_attention_kernel(
   const int q0 = qt * kRowsPerBlock;
   const int qi = q0 + row;
   const bool row_ok = qi < Sq;
-  const int q_offset = Sk - Sq;
   const int qpos = qi + q_offset;
 
   float4 qr[CPT], acc[CPT];
@@ -224,7 +225,7 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+    int Sq, int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
     float scale_log2) {
   constexpr int SD = mma_stride<D>();
   constexpr int KSTEPS = D / 16;        // k-steps of QK^T
@@ -246,7 +247,6 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;      // row of the quad in the fragment
   const int tq = lane & 3;      // lane within the quad
-  const int q_offset = Sk - Sq;
   const size_t q_ld = static_cast<size_t>(Hq) * D;
   __nv_bfloat16* ob = out + ((static_cast<size_t>(b) * Sq + q0) * Hq + h) * D;
 
@@ -468,7 +468,7 @@ template <int D, int G>
 __global__ void __launch_bounds__(128 * G) flash_attention_wg_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+    int Sq, int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
     float scale_log2) {
   constexpr int ROWS = 64;              // query rows of a warpgroup
   constexpr int NTH = 128 * G;          // threads of the block
@@ -493,7 +493,6 @@ __global__ void __launch_bounds__(128 * G) flash_attention_wg_kernel(
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int q_offset = Sk - Sq;
   const size_t q_ld = static_cast<size_t>(Hq) * D;
   __nv_bfloat16* ob =
       out + ((static_cast<size_t>(b) * Sq + q0) * Hq + h0 + wg) * D;
@@ -676,7 +675,7 @@ struct FlashLaunch {
   const void* k;
   const void* v;
   void* out;
-  int B, Sq, Sk, Hq, Hkv, causal, window;
+  int B, Sq, Sk, Hq, Hkv, causal, window, q_offset;
   float scale_log2;
   cudaStream_t stream;
 
@@ -695,7 +694,7 @@ struct FlashLaunch {
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
         static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, causal, window,
-        scale_log2);
+        q_offset, scale_log2);
     return static_cast<int>(cudaGetLastError());
   }
 
@@ -719,13 +718,13 @@ struct FlashLaunch {
                                       stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-          causal, window, scale_log2);
+          causal, window, q_offset, scale_log2);
     } else {
       const dim3 grid((Sq + kRowsPerBlock - 1) / kRowsPerBlock, Hq, B);
       flash_attention_kernel<T, D><<<grid, kFlashThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-          causal, window, scale_log2);
+          causal, window, q_offset, scale_log2);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -733,16 +732,17 @@ struct FlashLaunch {
 
 }  // namespace attn
 
-// dtype: 0 = f32, 1 = bf16. window <= 0 means no window.
+// dtype: 0 = f32, 1 = bf16. window <= 0 means no window. Query row i sits
+// at position i + q_offset.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Sk, int Hq, int Hkv, int D, int dtype, int causal, int window,
-    float scale, void* stream) {
+    int q_offset, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const attn::FlashLaunch f{q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                            window, scale * attn::kLog2e,
+                            window, q_offset, scale * attn::kLog2e,
                             static_cast<cudaStream_t>(stream)};
   return attn::dispatch(dtype, D, f);
 }

@@ -108,19 +108,28 @@ def preagg_window(values: torch.Tensor, ts: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, block_k: int = 0,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention.
-    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D). On the card,
-    inputs that need a gradient (grad mode on) take the kernel inside
-    its autograd Function."""
+    q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D); query i at
+    position ``i + q_offset`` (default ``Sk − Sq``, right-aligned). On the
+    card, inputs that need a gradient (grad mode on) take the kernel inside
+    its autograd Function. ``block_k > 0`` with ``Sk > block_k`` selects
+    the streaming plain version on CPU tensors, as JAX's op does on its
+    path without Pallas; the kernel, which streams anyway, ignores it."""
     if not _on_cuda(q):
+        if block_k and k.shape[1] > block_k:
+            return ref.flash_attention_stream(
+                q, k, v, causal=causal, window=window, scale=scale,
+                block_k=block_k, q_offset=q_offset)
         fn = ref.flash_attention_ref
     elif torch.is_grad_enabled() and any(t.requires_grad
                                          for t in (q, k, v)):
         fn = flash_attention_train
     else:
         fn = flash_attention_cuda
-    return fn(q, k, v, causal=causal, window=window, scale=scale)
+    return fn(q, k, v, causal=causal, window=window, scale=scale,
+              q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -22,6 +22,8 @@ Both clamped to retention. All aggregates reduce over that interval.
                         table row with ts ≤ req_ts, as a masked argmax over
                         positions + one-hot gather of the joined columns.
 ``flash_attention_ref``  — causal / sliding-window GQA attention (dense).
+``flash_attention_stream`` — the same attention as an online softmax over
+                           KV blocks, never building the (Sq, Sk) scores.
 ``decode_attention_ref`` — one-token GQA attention over a KV cache, prefix
                            or rolling-ring layout.
 
@@ -42,8 +44,9 @@ _BIG_I32 = 2**30
 
 __all__ = ["window_agg_ref", "fused_window_ref", "preagg_window_ref",
            "last_join_ref", "window_bounds", "check_fused_specs",
-           "flash_attention_ref", "decode_attention_ref", "FUSED_FIELDS",
-           "NEG_INF", "POS_INF", "ATTN_NEG_INF"]
+           "flash_attention_ref", "flash_attention_stream",
+           "decode_attention_ref", "FUSED_FIELDS", "NEG_INF", "POS_INF",
+           "ATTN_NEG_INF"]
 
 FUSED_FIELDS = ("sum", "sumsq", "count", "min", "max", "first", "last")
 
@@ -442,27 +445,40 @@ def preagg_window_ref(values: torch.Tensor, ts: torch.Tensor,
 # Model-side attention
 # ---------------------------------------------------------------------------
 #
-# Both keep the JAX reference's rounding: logits in the input dtype, softmax
-# in f32, probabilities cast back to the input dtype before the PV product.
+# The dense two keep the JAX reference's rounding: logits in the input dtype,
+# softmax in f32, probabilities cast back to the input dtype before the PV
+# product (the streaming form keeps flash_attention_xla's: f32 throughout).
 # The heads stay grouped (``(Hkv, rep)``), with no repeat of K/V. A row that
 # keeps no key gets the uniform average of V here (softmax of equal masked
 # logits), where the kernels write 0; no prefill or decode of the model
 # produces such a row.
 
+def _query_positions(Sq: int, Sk: int, q_offset: Optional[int],
+                     device) -> torch.Tensor:
+    """Positions of the Sq query rows: ``q_offset + i`` (``Sk − Sq`` by
+    default: right-aligned, the JAX package's only layout)."""
+    off = Sk - Sq if q_offset is None else int(q_offset)
+    return torch.arange(Sq, device=device) + off
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        q_offset: Optional[int] = None) -> torch.Tensor:
     """Reference GQA attention. q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) ->
-    (B, Sq, Hq, D); queries right-aligned (query i at position
-    i + Sk − Sq). ``window``: sliding-window span, None = full."""
+    (B, Sq, Hq, D); query i at position ``i + q_offset`` (by default
+    ``Sk − Sq``: right-aligned). ``window``: sliding-window span, None =
+    full. A context-parallel rank passes the global position of its first
+    query row as ``q_offset``, so its rows equal those rows of the
+    whole-sequence call."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, Sq, Hkv, rep, D)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * scale
-    qpos = (torch.arange(Sq, device=q.device) + (Sk - Sq))[:, None]
+    qpos = _query_positions(Sq, Sk, q_offset, q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -473,6 +489,58 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits.float(), dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(q.dtype), v)
     return out.reshape(B, Sq, Hq, D)
+
+
+def flash_attention_stream(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None,
+                           block_k: int = 1024,
+                           q_offset: Optional[int] = None) -> torch.Tensor:
+    """Streaming online-softmax attention over KV blocks of ``block_k``
+    (the JAX package's ``flash_attention_xla``): the flash kernel's
+    algorithm in plain ops, so no (Sq, Sk) score tensor is ever made. The
+    same rounding as JAX's: ``q·scale`` in f32, scores and probabilities
+    in f32, a running max from ``-1e30``, masked probabilities exactly 0,
+    ``acc / max(l, 1e-30)``, then q's dtype. Where ``block_k`` does not
+    divide Sk it is :func:`flash_attention_ref`, as there. Every block is
+    visited (no causal skipping), as in JAX's scan."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    bk = min(block_k, Sk)
+    if bk <= 0 or Sk % bk:
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset)
+    qg = (q.float() * scale).reshape(B, Sq, Hkv, rep, D)
+    qpos = _query_positions(Sq, Sk, q_offset, q.device)[:, None]
+    acc = torch.zeros((B, Sq, Hkv, rep, D), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, Sq, Hkv, rep), ATTN_NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, Hkv, rep), dtype=torch.float32, device=q.device)
+    for k_lo in range(0, Sk, bk):
+        kb = k[:, k_lo:k_lo + bk].float()
+        vb = v[:, k_lo:k_lo + bk].float()
+        s = torch.einsum("bqhrd,bkhd->bqhrk", qg, kb)
+        kpos = (k_lo + torch.arange(bk, device=q.device))[None, :]
+        mask = torch.ones((Sq, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, ATTN_NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = (acc * alpha[..., None]
+               + torch.einsum("bqhrk,bkhd->bqhrd", p, vb))
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

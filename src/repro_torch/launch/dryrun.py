@@ -4,21 +4,27 @@ JAX package's ``repro.launch.dryrun``).
 
 Each cell sets up and takes down its own world: a fake process group of
 the mesh's size (``torch.testing._internal.distributed.fake_pg``, backend
-``"fake"``: rank 0 of a world whose collectives move nothing), the
+``"fake"``: one rank of a world whose collectives move nothing), the
 production mesh over it (``launch/mesh.py``), the bundle's arguments
 materialised as fake tensors on the mesh's device and placed by
 ``StepBundle.place``, then the real step run once at full depth under
 a ``FakeTensorMode`` (no memory, no arithmetic). PyTorch runs eagerly,
 so every layer of every microbatch is counted as it runs: no
-extrapolation over depth. Per cell it reports, for rank 0:
+extrapolation over depth. The traced rank is rank 0, or, where the cell
+shards attention's query rows over ``model`` (``--attn-block``: JAX's
+``act_sp``), the rank at the last ``model`` coordinate and the first of
+every other axis: under a causal mask its rows keep the most (query, key)
+pairs, so the compute term is the heaviest rank's, and every spec divides
+its dim, so its shapes and bytes are rank 0's (``flops_model_rank`` in
+the cell). Per cell it reports, for the traced rank:
 
-* memory: argument bytes (rank 0's local shards; DTensor's chunking
-  gives rank 0 the largest, as GSPMD's padding does), output and alias
-  bytes (outputs that share an argument's storage: the caches the decode
-  step writes in place), temporary bytes (the peak of the bytes the step
-  allocates and holds beyond its arguments) and the largest kinds of
-  tensor live at that peak, and whether arguments plus temporaries fit
-  the card;
+* memory: argument bytes (the traced rank's local shards; DTensor's
+  chunking gives rank 0 the largest, as GSPMD's padding does), output
+  and alias bytes (outputs that share an argument's storage: the caches
+  the decode step writes in place), temporary bytes (the peak of the
+  bytes the step allocates and holds beyond its arguments) and the
+  largest kinds of tensor live at that peak, and whether arguments plus
+  temporaries fit the card;
 * FLOPs from ``torch.utils.flop_counter``'s formulas (the attention
   kernels' ops register theirs), counted on the local tensors;
 * bytes accessed: every dispatched op's operand and result bytes (eager
@@ -39,6 +45,8 @@ takes the plain versions, as the CPU does (the tests).
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k \\
         --mesh pod,multipod
+    python -m repro_torch.launch.dryrun --attn-block 512  # JAX's streaming
+        # layout; cells into experiments/dryrun_torch_attn512/
     python -m repro_torch.launch.dryrun --all      # every cell, both meshes
     python -m repro_torch.launch.dryrun --arch qwen2-1.5b --periods 2 \\
         --dtype float32 --shape train:4x128 --mesh 2x2 --device cpu
@@ -73,7 +81,7 @@ from repro_torch.distributed.sharding import AbstractMesh
 from repro_torch.models.tree import tree_flatten_with_path, tree_unflatten
 
 __all__ = ["run_cell", "trace_step", "place_arguments", "applicable",
-           "StepCounter", "parse_shape",
+           "StepCounter", "parse_shape", "flops_rank",
            "parse_mesh", "fake_world", "argument_bytes", "cell_path",
            "main", "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "NVLINK_BW",
            "IB_BW", "NODE_CARDS", "KINDS"]
@@ -381,12 +389,14 @@ def parse_mesh(mesh_kind: str) -> Optional[Tuple[Tuple[int, ...],
 
 class fake_world:
     """``with fake_world(mesh_kind, device) as mesh``: a fake process
-    group of the mesh's size (this process is its rank 0) and the mesh
-    over it, taken down on exit; ``mesh`` is None for ``none``."""
+    group of the mesh's size (this process is its rank ``rank``, 0 by
+    default) and the mesh over it, taken down on exit; ``mesh`` is None
+    for ``none``."""
 
-    def __init__(self, mesh_kind: str, device: str) -> None:
+    def __init__(self, mesh_kind: str, device: str, rank: int = 0) -> None:
         self.layout = parse_mesh(mesh_kind)
         self.device = device
+        self.rank = rank
 
     def __enter__(self):
         if self.layout is None:
@@ -394,7 +404,7 @@ class fake_world:
         from torch.testing._internal.distributed.fake_pg import FakeStore
         from repro_torch.launch.mesh import make_mesh, make_production_mesh
         shape, axes = self.layout
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
+        dist.init_process_group("fake", store=FakeStore(), rank=self.rank,
                                 world_size=math.prod(shape))
         try:
             if axes == ("data", "model") and shape == (16, 16):
@@ -410,6 +420,13 @@ class fake_world:
     def __exit__(self, *exc) -> None:
         if self.layout is not None:
             dist.destroy_process_group()
+            # DTensor's sharding-propagation caches keep output specs on
+            # this world's mesh; the next world's mesh of the same shape
+            # and names is equal to it, so without this it would be served
+            # this one's process groups (which name others on another rank)
+            from torch.distributed.tensor.debug import (
+                _clear_sharding_prop_cache)
+            _clear_sharding_prop_cache()
 
 
 def _derived(cfg: ModelConfig, ss: ShapeSpec, arch: str,
@@ -441,6 +458,22 @@ def _derived(cfg: ModelConfig, ss: ShapeSpec, arch: str,
                               act_dp=act_dp, act_sp=act_sp,
                               moe_groups=moe_groups)
     return cfg, accum, remat
+
+
+def flops_rank(cfg: ModelConfig, layout) -> Tuple[int, int]:
+    """``(rank, model coordinate)`` of the rank a cell is traced on: rank
+    0, or where ``cfg.act_sp`` shards attention's query rows, the rank at
+    the last coordinate of that axis and the first of every other (the
+    mesh is row-major), whose rows keep the most pairs under a causal or
+    window mask (a row's kept keys never fall as its position grows)."""
+    if layout is None or cfg.act_sp is None:
+        return 0, 0
+    shape, axes = layout
+    if cfg.act_sp not in axes:
+        return 0, 0
+    i = axes.index(cfg.act_sp)
+    last = shape[i] - 1
+    return last * math.prod(shape[i + 1:]), last
 
 
 def _fake_args(structs: Any, device: str) -> Any:
@@ -479,7 +512,7 @@ def trace_step(cfg: ModelConfig, ss: ShapeSpec, mesh, device: str, *,
     """One step of ``build_step_bundle(cfg, ss, mesh)`` run on fake
     tensors (``mesh`` a ``DeviceMesh`` over a world, or None for one
     device: the bundle of a ``(1, 1)`` abstract mesh): its
-    ``StepCounter`` (``counter``), rank 0's ``memory`` bytes (arguments,
+    ``StepCounter`` (``counter``), this rank's ``memory`` bytes (arguments,
     outputs, aliases, temporaries), what the temporaries' peak held
     (``peak_live``) and the seconds spent building and placing
     (``lower_s``) and stepping (``step_s``)."""
@@ -540,9 +573,11 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
     if not ok:
         return cell
     ss = parse_shape(shape)
-    world = fake_world(mesh_kind, device)
-    cfg, accum, remat = _derived(cfg, ss, arch, world.layout, accum, remat,
+    layout = parse_mesh(mesh_kind)
+    cfg, accum, remat = _derived(cfg, ss, arch, layout, accum, remat,
                                  attn_block)
+    traced, model_rank = flops_rank(cfg, layout)
+    world = fake_world(mesh_kind, device, traced)
     if periods:
         cfg = scale_layers(cfg, periods)
     if dtype:
@@ -581,6 +616,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
         "accum": accum,
         "remat": remat,
         "attn_block": attn_block,
+        "flops_model_rank": model_rank,
         "n_chips": n_chips,
         "measure_mode": "eager-full-depth(every layer counted)",
         "raw_full_compile": {"flops": flops_dev, "bytes": bytes_dev,
@@ -647,14 +683,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--mesh", default="pod,multipod",
                     help="pod, multipod, none or DxM, comma-joined")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--out", default=None,
+                    help="cell directory (default experiments/dryrun_torch, "
+                         "or experiments/dryrun_torch_attn<N> with "
+                         "--attn-block N)")
     ap.add_argument("--accum", type=int, default=None)
     ap.add_argument("--remat", default=None)
     ap.add_argument("--compress", action="store_true",
                     help="int8 cross-pod gradient all-reduce")
     ap.add_argument("--attn-block", type=int, default=0,
-                    help="KV block for streaming attention (0=dense; "
-                         "carried into the config, which the port ignores)")
+                    help="KV block for streaming attention (0=dense): JAX's "
+                         "streaming layout (q/k/v pinned over the data "
+                         "axes, q's rows over model; local MoE groups)")
     ap.add_argument("--force", action="store_true",
                     help="recompute cached cells")
     ap.add_argument("--rules", default="default")
@@ -673,6 +713,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     archs = [args.arch] if args.arch else list_archs()
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = args.mesh.split(",")
+    if args.out is None:
+        args.out = "experiments/dryrun_torch" + (
+            f"_attn{args.attn_block}" if args.attn_block else "")
     os.makedirs(args.out, exist_ok=True)
 
     todo = []

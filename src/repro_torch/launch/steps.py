@@ -201,11 +201,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     wide = mesh is not None and sharding.is_wide(mesh, rules)
     pod = _pod_of(mesh) if mesh is not None else None
 
-    def grads_of(params, batch, place=lambda mb: mb):
+    def grads_of(params, batch, place=lambda mb: mb, step_cfg=cfg):
         """Gradients of ``place(microbatch)`` for each microbatch of the
-        global ``batch``."""
+        global ``batch``, the model run under ``step_cfg``."""
         if accum == 1:
-            loss, metrics, grads = _value_and_grad(params, cfg, place(batch))
+            loss, metrics, grads = _value_and_grad(params, step_cfg,
+                                                   place(batch))
             return grads, loss, metrics
         b = next(iter(batch.values())).shape[0]
         if b % accum:
@@ -215,7 +216,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         for i in range(accum):
             mb = {k: v.reshape((accum, b // accum) + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
-            loss, metrics, g = _value_and_grad(params, cfg, place(mb))
+            loss, metrics, g = _value_and_grad(params, step_cfg, place(mb))
             if g_sum is None:
                 g_sum, l_sum = g, loss
             else:
@@ -303,6 +304,10 @@ def _sharded_train_step(cfg: ModelConfig, mesh, rules: ShardingRules, pod,
     ipod = names.index("pod")
     sub = mesh[tuple(n for n in names if n != "pod")]
     place = placer(sub)
+    # each pod's step runs on the submesh, which has no pod axis: the
+    # activation pins name the axes it has (JAX's cfg_local)
+    cfg_local = dataclasses.replace(
+        cfg, act_dp=tuple(a for a in cfg.act_dp if a != "pod"))
 
     def to_sub(t: DTensor) -> DTensor:
         pl = tuple(p for i, p in enumerate(t.placements) if i != ipod)
@@ -312,7 +317,7 @@ def _sharded_train_step(cfg: ModelConfig, mesh, rules: ShardingRules, pod,
     def train_step(params, opt_state: OptState, batch):
         batch = _pod_rows(global_batch(batch), npods, r)
         grads, loss, metrics = grads_of(tree_map(to_sub, params), batch,
-                                        place)
+                                        place, cfg_local)
 
         def reduce(g: DTensor, p: DTensor) -> DTensor:
             total = psum_int8(g.to_local(), group,

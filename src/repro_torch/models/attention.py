@@ -32,6 +32,16 @@ then the kernel is called on the contiguous local tensors
 gradient back as a partial sum over ``model``. Cross-attention follows
 the same rule, its K/V projected from the encoder's output, which is
 batch-sharded as the decoder's stream is.
+
+With ``cfg.act_dp`` set (the JAX package's streaming layout, its dry run's
+``--attn-block``), ``attend_train`` and ``attend_prefill`` on a mesh lay
+attention out as JAX's ``_pin_dp`` does instead (``_PinnedRows``): q, k
+and v batch-sharded over the ``act_dp`` axes with every head on every
+rank, and with ``cfg.act_sp`` q's rows sharded over that axis (context
+parallelism) against K/V replicated over it; the kernel runs on the
+rank's rows at ``q_offset`` = their first global position. Every flash
+call passes ``block_k=cfg.attn_block_k``: on CPU tensors a sequence
+longer than it takes the streaming plain version, as JAX's op does.
 """
 from __future__ import annotations
 
@@ -119,6 +129,7 @@ class _LocalHeads:
             k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
         self.q, self.kv = q, (k, v)
         self.lo = lay.kv_lo(sharding.model_rank(mesh))
+        self.block_k = cfg.attn_block_k
 
     def kv_used(self, k: torch.Tensor, v: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -132,7 +143,7 @@ class _LocalHeads:
         """The flash kernel on the local heads, as a DTensor."""
         return self.out(ops.flash_attention(
             self.q.contiguous(), *self.kv_used(*self.kv), causal=causal,
-            window=window))
+            window=window, block_k=self.block_k))
 
     def out(self, o: torch.Tensor) -> DTensor:
         o = o.reshape(tuple(o.shape[:-2]) + (-1,))
@@ -140,14 +151,107 @@ class _LocalHeads:
                                   self.q_dt.placements, run_check=False)
 
     def kv_placements(self) -> tuple:
-        """A K/V cache's (B, S, H, D) placements as the rank holds it: the
-        batch as the activations, the heads ``Shard`` over ``model`` when
-        the kv heads are sharded, replicated otherwise."""
-        pl = list(self.q_dt.placements)
-        d = sharding.mesh_dim(self.q_dt.device_mesh, "model")
-        if d is not None:
-            pl[d] = Shard(2) if self.lay.kv_sharded else Replicate()
-        return tuple(pl)
+        """A K/V cache's (B, S, H, D) placements as the rank holds it
+        (``_kv_placements``)."""
+        return _kv_placements(self.q_dt, self.lay)
+
+    def cache(self, t: torch.Tensor, cfg: ModelConfig, cache_len: int
+              ) -> DTensor:
+        """The prompt's local K or V as a cache of ``ring_len`` slots in
+        ``kv_placements``."""
+        return DTensor.from_local(_ring_cache(t, cfg, cache_len),
+                                  self.q_dt.device_mesh,
+                                  self.kv_placements(), run_check=False)
+
+
+def _kv_placements(x: DTensor, lay: sharding.HeadLayout) -> tuple:
+    """A K/V cache's (B, S, H, D) placements as the decode step takes
+    it: the batch as ``x``'s, the heads ``Shard`` over ``model`` when the
+    kv heads are sharded, replicated otherwise."""
+    pl = list(x.placements)
+    d = sharding.mesh_dim(x.device_mesh, "model")
+    if d is not None:
+        pl[d] = Shard(2) if lay.kv_sharded else Replicate()
+    return tuple(pl)
+
+
+class _PinnedRows:
+    """Attention in the JAX package's pinned layout (``_pin_dp`` under
+    ``cfg.act_dp``) for a DTensor ``x`` (B, S, d): q, k and v taken
+    through DTensor's redistribution to ``sharding.act_specs`` (the batch
+    over ``act_dp``, every head on every rank; q's rows also ``Shard``
+    over ``act_sp`` where the sequence allows, K/V replicated over it), so
+    the pin overrides ``head_layout``'s heads as JAX's overrides GSPMD's.
+    ``q`` holds the local (B_l, c, Hq, D) rows from position ``q_offset``
+    (None: the whole sequence), ``kv`` the local (B_l, S, Hkv, D) K and V,
+    roped by ``positions``. A rank's K/V gradient is a partial sum over
+    ``act_sp`` (each rank attends its own rows to all of K/V)."""
+
+    def __init__(self, p: Params, x: DTensor, cfg: ModelConfig,
+                 positions: DTensor):
+        mesh = x.device_mesh
+        B, S = x.shape[:2]
+        q_spec, kv_spec = sharding.act_specs(mesh, cfg.act_dp, cfg.act_sp,
+                                             B, S)
+        self.q_pl = sharding.placements(mesh, q_spec)
+        kv_pl = sharding.placements(mesh, kv_spec)
+        sp = q_spec[1]
+        grad_pl = None
+        if sp is not None:
+            grad_pl = list(kv_pl)
+            grad_pl[sharding.mesh_dim(mesh, sp)] = Partial()
+        q = apply_linear(p["wq"], x).redistribute(mesh, self.q_pl)
+        k, v = (apply_linear(p[n], x).redistribute(mesh, kv_pl).to_local(
+            grad_placements=grad_pl) for n in ("wk", "wv"))
+        ql = q.to_local()
+        c, hd = ql.shape[1], cfg.hd
+        self.q_offset = mesh.get_local_rank(sp) * c if sp else None
+        self.shape = (B, S, cfg.n_heads * hd)
+        q = ql.reshape(ql.shape[0], c, cfg.n_heads, hd)
+        k = k.reshape(k.shape[0], S, cfg.n_kv_heads, hd)
+        v = v.reshape(v.shape[0], S, cfg.n_kv_heads, hd)
+        qpos, kpos = (positions.redistribute(mesh, pl).to_local()
+                      for pl in (self.q_pl, kv_pl))
+        if cfg.mrope_sections is not None:
+            qpos, kpos = mrope_positions_text(qpos), mrope_positions_text(kpos)
+        self.q = apply_rope(q, qpos, cfg.rope_theta, cfg.mrope_sections)
+        self.kv = (apply_rope(k, kpos, cfg.rope_theta, cfg.mrope_sections),
+                   v)
+        self.mesh, self.kv_pl, self.block_k = mesh, kv_pl, cfg.attn_block_k
+
+    def flash(self, causal: bool, window) -> DTensor:
+        """The flash kernel on the rank's rows, as a DTensor in the
+        residual stream's layout (``sharding.pin_dp``)."""
+        o = ops.flash_attention(
+            self.q.contiguous(), self.kv[0].contiguous(),
+            self.kv[1].contiguous(), causal=causal, window=window,
+            block_k=self.block_k, q_offset=self.q_offset)
+        o = sharding.from_local(o.reshape(o.shape[0], o.shape[1], -1),
+                                self.mesh, self.q_pl, self.shape)
+        return sharding.pin_dp(o)
+
+    def cache(self, t: torch.Tensor, cfg: ModelConfig, cache_len: int
+              ) -> DTensor:
+        """The prompt's local K or V (B_l, S, Hkv, D) as a cache of
+        ``ring_len`` slots in the placements the decode step takes
+        (``_kv_placements``), not the pin's replicated heads: where those
+        are sharded over ``model`` each rank keeps its slice (no
+        communication)."""
+        kc = _ring_cache(t, cfg, cache_len)
+        shape = (self.shape[0],) + tuple(kc.shape[1:])
+        full = sharding.from_local(kc, self.mesh, self.kv_pl, shape)
+        lay = sharding.head_layout(self.mesh, cfg.n_heads, cfg.n_kv_heads)
+        return full.redistribute(self.mesh, _kv_placements(full, lay))
+
+
+def _attention_on_mesh(p: Params, x: DTensor, cfg: ModelConfig,
+                       positions: DTensor):
+    """The DTensor path of ``attend_train`` and ``attend_prefill``: the
+    pinned layout where ``cfg.act_dp`` asks for it, local heads
+    otherwise."""
+    if cfg.act_dp:
+        return _PinnedRows(p, x, cfg, positions)
+    return _LocalHeads(p, x, cfg, positions)
 
 
 def attend_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -155,10 +259,11 @@ def attend_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  ) -> torch.Tensor:
     window = cfg.sliding_window if causal else None
     if isinstance(x, DTensor):
-        lh = _LocalHeads(p, x, cfg, positions)
+        lh = _attention_on_mesh(p, x, cfg, positions)
         return apply_linear(p["wo"], lh.flash(causal, window))
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window,
+                            block_k=cfg.attn_block_k)
     B, S = x.shape[:2]
     return apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
 
@@ -186,15 +291,14 @@ def attend_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} < prompt length {S}")
     if isinstance(x, DTensor):
-        lh = _LocalHeads(p, x, cfg, positions)
+        lh = _attention_on_mesh(p, x, cfg, positions)
         o = lh.flash(True, cfg.sliding_window)
-        mesh, pl = lh.q_dt.device_mesh, lh.kv_placements()
-        cache = {n: DTensor.from_local(_ring_cache(t, cfg, cache_len), mesh,
-                                       pl, run_check=False)
+        cache = {n: lh.cache(t, cfg, cache_len)
                  for n, t in zip(("k", "v"), lh.kv)}
         return apply_linear(p["wo"], o), cache
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                            block_k=cfg.attn_block_k)
     out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
     return out, {"k": _ring_cache(k, cfg, cache_len),
                  "v": _ring_cache(v, cfg, cache_len)}
@@ -317,14 +421,16 @@ def cross_attend(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Decoder queries x (B, S, d) over the encoder's output (B, Se, d):
     no causal mask, no rope; S may be shorter or longer than Se. On
-    DTensors the flash kernel runs on the rank's local heads."""
+    DTensors the flash kernel runs on the rank's local heads (no pin, as
+    JAX's ``cross_attend`` has none)."""
     if isinstance(x, DTensor):
         lh = _LocalHeads(p, x, cfg, None, kv_x=enc_out)
         return apply_linear(p["wo"], lh.flash(False, None))
     B, S, _ = x.shape
     q = apply_linear(p["wq"], x).view(B, S, cfg.n_heads, cfg.hd)
     k, v = _project_kv(p, enc_out, cfg)
-    o = ops.flash_attention(q, k, v, causal=False, window=None)
+    o = ops.flash_attention(q, k, v, causal=False, window=None,
+                            block_k=cfg.attn_block_k)
     return apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
 
 

@@ -255,3 +255,77 @@ def test_attention_wrappers_refuse_cpu_tensors(fn, args):
              if fn is decode_attention_cuda else ())
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         fn(*ts, *extra)
+
+
+# ---------------------------------------------------------------------------
+# the streaming plain version (JAX's flash_attention_xla) and q_offset
+# ---------------------------------------------------------------------------
+
+STREAM_TOL = {"f32": 1e-5, "bf16": 2e-2}
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [(2, 128, 128, 4, 2, 32),
+                                              (1, 64, 128, 6, 2, 16)])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("block_k", [16, 64, 48])     # 48: the fallback
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_stream_matches_jax_xla(B, Sq, Sk, Hq, Hkv, D,
+                                                causal, window, block_k,
+                                                dtype):
+    """The online softmax over KV blocks against JAX's streaming form, on
+    the same numpy inputs: both compute in f32 and round once to the
+    input dtype (1e-5 in f32, another summation order; 2e-2 in bf16, as
+    the kernels are held). A block that does not divide Sk is the dense
+    reference in both packages."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        7, dtype, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))
+    got = tref.flash_attention_stream(tq, tk, tv, causal=causal,
+                                      window=window, block_k=block_k)
+    want = jref.flash_attention_xla(jq, jk, jv, causal=causal,
+                                    window=window, block_k=block_k)
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, Hq, D)
+    _close(got, want, STREAM_TOL[dtype])
+
+
+@pytest.mark.parametrize("block_k,Sk,streams", [(16, 64, True),
+                                                (64, 64, False),
+                                                (0, 64, False)])
+def test_ops_flash_attention_block_k_takes_the_streaming_version(
+        monkeypatch, block_k, Sk, streams):
+    """``block_k`` set and ``Sk > block_k``: CPU tensors reach the
+    streaming plain version (as JAX's op reaches ``flash_attention_xla``),
+    otherwise the dense one, with the same values either way."""
+    _, (q, k, v) = _inputs(8, "f32", (1, 32, 4, 16), (1, Sk, 2, 16),
+                           (1, Sk, 2, 16))
+    calls = []
+    stream = tref.flash_attention_stream
+
+    def counted(*a, **kw):
+        calls.append(kw["block_k"])
+        return stream(*a, **kw)
+
+    monkeypatch.setattr(tref, "flash_attention_stream", counted)
+    got = ops.flash_attention(q, k, v, window=24, block_k=block_k)
+    assert calls == ([block_k] if streams else [])
+    _close(got, tref.flash_attention_ref(q, k, v, window=24).numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("m", [2, 4])
+def test_flash_attention_ref_q_offset_gives_the_rows_exactly(causal, window,
+                                                             m):
+    """A context-parallel rank's call: rows ``[r·c, (r+1)·c)`` of q at
+    ``q_offset = r·c`` against the whole K/V equal those rows of the
+    whole-sequence call bit for bit, and so does the streaming version
+    against its own whole-sequence call."""
+    B, S, Hq, Hkv, D = 2, 64, 6, 2, 16
+    _, (q, k, v) = _inputs(9, "f32", (B, S, Hq, D), (B, S, Hkv, D),
+                           (B, S, Hkv, D))
+    c = S // m
+    for fn, kw in ((tref.flash_attention_ref, {}),
+                   (tref.flash_attention_stream, {"block_k": 16})):
+        full = fn(q, k, v, causal=causal, window=window, **kw)
+        for r in range(m):
+            rows = fn(q[:, r * c:(r + 1) * c].contiguous(), k, v,
+                      causal=causal, window=window, q_offset=r * c, **kw)
+            assert torch.equal(rows, full[:, r * c:(r + 1) * c]), (fn, r)

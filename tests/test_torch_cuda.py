@@ -531,6 +531,58 @@ def test_flash_attention_kernel(card, B, Sq, Sk, Hq, Hkv, D, causal, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 64, 128, 12, 2, 128),     # a rank's rows of the mesh's CP training
+    (2, 32, 64, 12, 2, 128),      # ... and of its CP prefill
+    (1, 100, 300, 4, 2, 64),      # ragged query and key tiles
+    (2, 48, 200, 6, 2, 80),       # the mma.sync kernel
+])
+@pytest.mark.parametrize("where", ["zero", "mid", "right"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_a_query_offset(card, B, Sq, Sk, Hq, Hkv,
+                                                  D, where, causal, window,
+                                                  dtype):
+    """A context-parallel rank's call: Sq query rows at ``q_offset`` (0,
+    a point off every tile edge in between, ``Sk − Sq``) against all Sk
+    keys, the kernel against the plain version at the same offset."""
+    off = {"zero": 0, "mid": (Sk - Sq) // 2 + 3, "right": Sk - Sq}[where]
+    q = _randn((B, Sq, Hq, D), dtype, card, 26)
+    k = _randn((B, Sk, Hkv, D), dtype, card, 27)
+    v = _randn((B, Sk, Hkv, D), dtype, card, 28)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=off)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if where == "right":       # the default offset is the right-aligned one
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                    window=window))
+
+
+def test_flash_attention_gradient_at_a_query_offset(card):
+    """The autograd Function at a nonzero ``q_offset``: the kernel forward
+    and the plain version's f32 gradients, both at that offset."""
+    B, Sq, Sk, Hq, Hkv, D, off = 2, 64, 128, 12, 2, 128, 64
+    q = _randn((B, Sq, Hq, D), torch.bfloat16, card, 29).requires_grad_()
+    k = _randn((B, Sk, Hkv, D), torch.bfloat16, card, 30).requires_grad_()
+    v = _randn((B, Sk, Hkv, D), torch.bfloat16, card, 31).requires_grad_()
+    dout = _randn((B, Sq, Hq, D), torch.bfloat16, card, 32)
+    out = ops.flash_attention(q, k, v, q_offset=off)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = ref.flash_attention_ref(*ins, q_offset=off)
+    wgrads = torch.autograd.grad(want, ins, dout.float())
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.detach(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(grads, wgrads):
+        torch.testing.assert_close(g.float(), w, rtol=tol, atol=tol)
+
+
 # lengths at the edges of a split: one slot, a split less one, one split,
 # one slot into the next, the whole cache and past it
 SPLIT_EDGES = (1, SPLIT - 1, SPLIT, SPLIT + 1, 300, 309)

@@ -26,10 +26,18 @@ on its CPU placeholder devices).
   the fake ``pod`` world: its peak at most four local shards, nothing
   with the whole vocab or microbatch, only its all-reduces; and that
   cell at one layer period fits the card.
+* (h) JAX's streaming layout (``--attn-block 512``) at qwen2-1.5b
+  ``train_4k`` on the fake ``pod`` at one period: the traced rank is the
+  last ``model`` coordinate's (its causal rows keep the most pairs), its
+  argument bytes are the cell's without the option, its flash calls take
+  256 query rows at that rank's offset, and nothing at its peak holds a
+  local-batch × heads × 4096² score tensor; a later cell in the same
+  process (rank 0 again) runs.
 * (f) The CLI with ``--device cpu`` on one small cell writes a cell with
   JAX's keys and the port's listed additions, and runs two cells one
   after another in one process; ``--device cuda`` without a CUDA build
-  of torch refuses.
+  of torch refuses; with ``--attn-block`` the cells go to their own
+  directory.
 """
 from __future__ import annotations
 
@@ -80,7 +88,7 @@ JAX_KEYS = {"arch", "shape", "mesh", "rules", "status", "skip_reason",
             "params_active", "model_flops_per_device", "useful_flop_ratio",
             "roofline_frac", "memory"}
 PORT_KEYS = {"device", "fits", "peak_live", "collectives_by_axis",
-             "collective_links", "datasheet"}
+             "collective_links", "datasheet", "flops_model_rank"}
 JAX_MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
                    "alias_bytes"}
 
@@ -339,11 +347,11 @@ def test_train_flops_equal_the_sum_of_products():
 # (d) the attention ops on meta tensors
 # ---------------------------------------------------------------------------
 
-def _pairs(Sq, Sk, causal, window):
+def _pairs(Sq, Sk, causal, window, q_offset=None):
     """(query, key) pairs kept, one by one, as the plain version masks."""
     n = 0
     for i in range(Sq):
-        pos = i + Sk - Sq
+        pos = i + (Sk - Sq if q_offset is None else q_offset)
         for j in range(Sk):
             if causal and j > pos:
                 continue
@@ -371,6 +379,30 @@ def test_flash_op_on_meta_shape_and_flops(B, Sq, Sk, Hq, Hkv, D, causal,
     assert out.shape == q.shape and out.dtype == q.dtype
     assert fc.get_total_flops() == 4 * B * Hq * D * _pairs(Sq, Sk, causal,
                                                            window)
+
+
+@pytest.mark.parametrize("q_offset", [0, 16, 48, 96])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+def test_flash_op_flops_at_a_query_offset(q_offset, causal, window):
+    """A context-parallel rank's call (48 rows of a sequence of 144
+    against all of its keys, the rows starting at ``q_offset``): the FLOP
+    formula counts the pairs the plain version keeps at that offset, and
+    without ``q_offset`` the right-aligned ones."""
+    from torch.utils.flop_counter import FlopCounterMode
+    B, Sq, Sk, Hq, Hkv, D = 2, 48, 144, 4, 2, 32
+    q = torch.empty(B, Sq, Hq, D, device="meta", dtype=torch.bfloat16)
+    k = torch.empty(B, Sk, Hkv, D, device="meta", dtype=torch.bfloat16)
+    for off in (q_offset, None):
+        with FlopCounterMode(display=False) as fc:
+            out = torch.ops.repro_torch.flash_attention_fwd(
+                q, k, k, causal, window, D ** -0.5, off)
+        assert out.shape == q.shape
+        assert fc.get_total_flops() == 4 * B * Hq * D * _pairs(
+            Sq, Sk, causal, window, off)
+        assert flash_attention.kept_pairs(Sq, Sk, causal, window,
+                                          off) == _pairs(Sq, Sk, causal,
+                                                         window, off)
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,ring", [
@@ -608,6 +640,48 @@ def test_qwen2_train_4k_fits_the_pod_at_one_period():
 
 
 # ---------------------------------------------------------------------------
+# (h) the streaming attention layout
+# ---------------------------------------------------------------------------
+
+def test_attn_block_cell_traces_the_heaviest_rank(monkeypatch):
+    """qwen2-1.5b ``train_4k`` on ``pod`` at one period with
+    ``attn_block=512`` (JAX's ``act_dp=("data",)``, ``act_sp="model"``):
+    the cell names model rank 15, whose argument bytes equal the cell's
+    without the option; every flash call takes that rank's 256 query
+    rows of 4096 at ``q_offset`` 15·256 against all 4096 keys; no tensor
+    at the peak is larger than the rank's rows against every key (B_l × H
+    × 256 × 4096), where the cell without the option holds B_l × H ×
+    4096² (the flash backward's plain recompute). Then a cell traced on
+    rank 0 runs in the same process."""
+    from repro_torch.kernels import ops
+    seen = []
+    flash = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), k.shape[1], kw.get("q_offset"),
+                     kw.get("block_k")))
+        return flash(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    cell = dryrun.run_cell("qwen2-1.5b", "train_4k", "pod", device="cpu",
+                           periods=1, attn_block=512)
+    cfg = get_config("qwen2-1.5b")
+    B_l, S, H = 256 // 2 // 16, 4096, cfg.n_heads      # accum 2, data 16
+    assert cell["status"] == "ok" and cell["flops_model_rank"] == 15
+    assert seen and set(seen) == {((B_l, S // 16, H, cfg.hd), S,
+                                   15 * (S // 16), 512)}
+    largest = max(k["bytes"] // k["tensors"] for k in cell["peak_live"])
+    assert largest <= B_l * H * (S // 16) * S * 4
+    base = dryrun.run_cell("qwen2-1.5b", "train_4k", "pod", device="cpu",
+                           periods=1)
+    assert base["flops_model_rank"] == 0
+    assert (cell["memory"]["argument_bytes"]
+            == base["memory"]["argument_bytes"])
+    assert max(k["bytes"] // k["tensors"] for k in base["peak_live"]) >= (
+        B_l * H * S * S * 4)
+
+
+# ---------------------------------------------------------------------------
 # (f) the CLI
 # ---------------------------------------------------------------------------
 
@@ -625,6 +699,22 @@ def test_cli_writes_a_cell_with_jax_keys(tmp_path):
     assert cell["n_chips"] == 4 and cell["device"] == "cpu"
     assert cell["memory"]["alias_bytes"] > 0      # the caches, in place
     assert cell["dominant"] in ("compute", "memory", "collective")
+
+
+def test_cli_attn_block_writes_its_own_directory(tmp_path,
+                                                monkeypatch):
+    """``--attn-block N`` without ``--out`` writes its cells under
+    ``experiments/dryrun_torch_attn<N>`` (JAX's file names), so it cannot
+    overwrite the cells without the option."""
+    monkeypatch.chdir(tmp_path)
+    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train:4x32",
+                        "--mesh", "2x2", "--periods", "1", "--device",
+                        "cpu", "--attn-block", "16"]) == 0
+    cell = json.loads((tmp_path / "experiments" / "dryrun_torch_attn16"
+                       / "qwen1.5-0.5b__train:4x32__2x2.json").read_text())
+    assert cell["status"] == "ok" and cell["attn_block"] == 16
+    assert cell["flops_model_rank"] == 1
+    assert not (tmp_path / "experiments" / "dryrun_torch").exists()
 
 
 def test_cli_runs_cells_one_after_another_in_one_process(tmp_path):

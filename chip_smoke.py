@@ -121,8 +121,12 @@ then:
    AdamW step within 1e-5); at full width and depth (bf16, remat
    ``dots``), 4 × 512 tokens, 10 steps on one batch: a falling finite
    loss, no skipped step, the flash kernel launched inside its autograd
-   Function; step p50, tokens/s, the model-FLOPs share of the bf16 peak,
-   peak memory and a profiled step's device time; a 2-layer checkpointed
+   Function and its backward kernel once a layer a step; step p50,
+   tokens/s, the model-FLOPs share of the bf16 peak, peak memory and a
+   profiled step's device time; on the first flash call of that run, the
+   backward kernel held to the plain backward and to autograd of the
+   plain version in f32 and timed beside that plain recompute,
+   ``scaled_dot_product_attention``'s backward and its bound; a 2-layer checkpointed
    resume bit for bit; ``python -m repro_torch.launch.train --reduced
    --steps 5`` on its default device;
 13. holds the two attention kernels against their plain versions, bf16 and
@@ -139,7 +143,8 @@ then:
    shapes: flash non-causal at Sq > Sk, 64 over 1024 and 1024 over 1024,
    the decoder's and the training calls, decode over 1024 rows at every
    length 1024 and at 65-93): ``rtol = atol = 2e-2`` in bf16, ``2e-5``
-   in f32;
+   in f32; the flash backward kernel at the same tolerances on the
+   training calls of the families, seamless and the mesh phases;
 14. holds ``ModelServer`` for qwen2-1.5b on the card against the same
    server on the CPU (full width, 2 layers, the same seeded parameters;
    2 prompts of 64 tokens, 8 teacher-forced steps): f32 logits within
@@ -174,7 +179,8 @@ then:
    depth) and granite (8 of 32 layers) trained 10 steps on 4 x 512
    tokens in bf16: a falling loss, no skipped step, the MoE losses in the
    metrics, step p50, tokens/s, the model-FLOPs share of the bf16 peak
-   over active parameters and peak memory;
+   over active parameters, peak memory and one backward launch a layer a
+   step;
 18. the encoder-decoder and the pod axis (``encdec``, about 150 s):
    seamless-m4t-medium at full width with 2 + 2 layers in f32, card
    against CPU (ModelServer over 256 frames, 2 prompts of 32 tokens, 8
@@ -186,8 +192,8 @@ then:
    launches 12 encoder + 12 self + 12 cross a prefill and decode launches
    12 self + 12 cross a step, asserted) and a TrainLoop on
    ``make_batches`` (4 x 512 tokens over 512 frames, 10 steps: finite
-   losses, step p50, tokens/s, the model-FLOPs share, 36 flash launches
-   a step); then the int8-compressed train step of reduced qwen1.5-0.5b
+   losses, step p50, tokens/s, the model-FLOPs share, 36 flash and 36
+   backward launches a step); then the int8-compressed train step of reduced qwen1.5-0.5b
    on a one-rank NCCL group's (1, 1, 1) CUDA mesh over ("pod", "data",
    "model"): the round trip within half a quantization step and not the
    identity, the step AdamW of it, its first step within what the int8
@@ -1195,21 +1201,22 @@ def observations_vs_cpu(engines, device, rk, rts, rrows) -> None:
 
 def launch_counts() -> Dict[str, int]:
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     fused_window, last_join, preagg_window,
-                                     window_agg)
+                                     flash_attention_bwd, fused_window,
+                                     last_join, preagg_window, window_agg)
     mods = {"window_agg": window_agg, "fused_window": fused_window,
             "preagg_window": preagg_window, "last_join": last_join,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention}
     return {k: m.launches for k, m in mods.items()}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     fused_window, last_join, preagg_window,
-                                     window_agg)
+                                     flash_attention_bwd, fused_window,
+                                     last_join, preagg_window, window_agg)
     for m in (window_agg, fused_window, preagg_window, last_join,
-              flash_attention, decode_attention):
+              flash_attention, flash_attention_bwd, decode_attention):
         m.launches = 0
 
 
@@ -3852,8 +3859,12 @@ def train_main_path(ts_: TrainSizes, device) -> Dict[str, object]:
     """qwen2-1.5b at full width and depth (bf16, remat ``dots``), batch
     ``batch`` x ``seq``, ``steps`` AdamW steps on one repeated batch:
     finite loss that falls, no skipped step, the flash kernel launched
-    (inside its autograd Function: forward and remat recompute)."""
+    (inside its autograd Function: forward and remat recompute) and its
+    backward kernel once a layer a step. The first flash call that needs
+    a gradient is captured, and the backward kernel is held to its plain
+    versions and timed on it (``flash_backward``)."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import TrainLoop
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config(ts_.arch)
@@ -3877,11 +3888,27 @@ def train_main_path(ts_: TrainSizes, device) -> Dict[str, object]:
         lat.append(now - t[0])
         t[0] = now
 
+    captured: List[tuple] = []
+    flash_fn = ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured and q.requires_grad:
+            captured.append(((q.detach(), k.detach(), v.detach()), kw))
+        return flash_fn(q, k, v, **kw)
+
     reset_launch_counts()
-    hist = loop.run(iter([batch] * ts_.steps), steps=ts_.steps,
-                    log_every=0, on_metrics=on_metrics)["history"]
+    ops.flash_attention = capture
+    try:
+        hist = loop.run(iter([batch] * ts_.steps), steps=ts_.steps,
+                        log_every=0, on_metrics=on_metrics)["history"]
+    finally:
+        ops.flash_attention = flash_fn
     require_launches(["flash_attention"], "training")
     flash = launch_counts()["flash_attention"]
+    flash_bwd = launch_counts()["flash_attention_bwd"]
+    if flash_bwd != cfg.n_layers * ts_.steps:
+        raise AssertionError(f"training: {flash_bwd} backward launches in "
+                             f"{ts_.steps} steps of {cfg.n_layers} layers")
     losses = [m["loss"] for m in hist]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
@@ -3900,7 +3927,9 @@ def train_main_path(ts_: TrainSizes, device) -> Dict[str, object]:
            "mfu_bf16_dense_peak": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "flash_launches": flash,
-           "flash_launches_per_step": flash / ts_.steps}
+           "flash_launches_per_step": flash / ts_.steps,
+           "flash_bwd_launches": flash_bwd,
+           "flash_bwd_launches_per_step": flash_bwd / ts_.steps}
     out["busy"] = train_busy(loop, batch, step_ms)
     log(f"train main path {ts_.arch} (full width and depth, bf16, remat "
         f"{cfg.remat}, B={ts_.batch} S={ts_.seq}, {ts_.steps} steps): loss "
@@ -3909,9 +3938,164 @@ def train_main_path(ts_: TrainSizes, device) -> Dict[str, object]:
         f" model FLOPs {flops:.4e}/step = {out['mfu_bf16_dense_peak']:.4f} "
         f"of the 989 TFLOP/s bf16 dense peak; peak device memory "
         f"{out['peak_bytes']} bytes; flash_attention launches {flash} "
-        f"({flash / ts_.steps:.1f} per step); {card_line()}")
+        f"({flash / ts_.steps:.1f} per step), flash_attention_bwd "
+        f"{flash_bwd} ({flash_bwd / ts_.steps:.1f} per step); "
+        f"{card_line()}")
     del loop
+    (a, kw), = captured
+    out["flash_backward"] = flash_backward(a, kw, device)
     return out
+
+
+BWD_KERNEL = {   # name -> (CUDA source, what it replaces)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none: no TPU kernel; JAX differentiates src/repro/kernels/ref.py:451 "
+        "(flash_attention_ref)"),
+}
+
+
+def _grads_err(got, want, what: str) -> float:
+    """Largest absolute difference of dq, dk, dv from ``want`` (any float
+    dtype), held at ATTN_TOL of ``got``'s dtype."""
+    err = 0.0
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        tol = ATTN_TOL[g.dtype]
+        g, w = g.float(), w.float()
+        d = float((g - w).abs().max())
+        if not bool(torch.isfinite(g).all()) or not torch.allclose(
+                g, w, rtol=tol, atol=tol):
+            raise AssertionError(f"{what} {name}: max abs diff {d}, "
+                                 f"tolerance {tol}")
+        err = max(err, d)
+    return err
+
+
+def _backward_inputs(a: tuple, kw: dict, seed: int):
+    """A flash call's q, k, v (detached), its options resolved (scale,
+    q_offset), a seeded dO and the training forward's out and lse."""
+    q, k, v = a
+    D, Sq, Sk = q.shape[-1], q.shape[1], k.shape[1]
+    opts = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                scale=kw.get("scale") or D ** -0.5,
+                q_offset=Sk - Sq if kw.get("q_offset") is None
+                else kw["q_offset"])
+    dout = _randn(tuple(q.shape), q.dtype, q.device, seed)
+    out, lse = torch.ops.repro_torch.flash_attention_fwd_lse(
+        q, k, v, opts["causal"], opts["window"], opts["scale"],
+        opts["q_offset"])
+    return q, k, v, dout, out, lse, opts
+
+
+def _plain_recompute(q, k, v, dout, opts):
+    """The backward the port had before its kernel: the plain version
+    recomputed in f32 under autograd, gradients cast back."""
+    from repro_torch.kernels import ref
+    ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    o = ref.flash_attention_ref(*ins, **opts)
+    return tuple(g.to(q.dtype) for g in torch.autograd.grad(o, ins,
+                                                           dout.float()))
+
+
+def check_flash_backward(a: tuple, kw: dict, what: str, seed: int) -> float:
+    """The backward kernel on one call's inputs against the plain backward
+    (fed the kernel forward's out and lse) and against autograd of the
+    plain version in f32; returns the largest absolute difference."""
+    from repro_torch.kernels import flash_attention_bwd as fb, ref
+    q, k, v, dout, out, lse, opts = _backward_inputs(a, kw, seed)
+    got = fb.flash_attention_bwd_cuda(dout, q, k, v, out, lse, **opts)
+    err = _grads_err(got, ref.flash_attention_bwd_ref(
+        dout, q, k, v, out, lse, **opts), f"{what} vs the plain backward")
+    ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*ins, **opts), ins,
+                               dout.float())
+    return max(err, _grads_err(got, want, f"{what} vs autograd"))
+
+
+def _sdpa_backend(fn: Callable[[], object]) -> str:
+    """Which of scaled_dot_product_attention's backends ran: the aten op
+    it dispatched to (``_scaled_dot_product_<backend>_attention``), from
+    torch.profiler's host-side events of one call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops_ = {e.name for e in prof.events()
+            if "scaled_dot_product" in e.name
+            and e.name.endswith("_attention")}
+    for backend in ("cudnn", "flash", "efficient"):
+        if any(f"_scaled_dot_product_{backend}_attention" in n for n in ops_):
+            return backend
+    return "math" if ops_ else "not seen (no attention op profiled)"
+
+
+def flash_backward(a: tuple, kw: dict, device) -> Dict[str, object]:
+    """The backward kernel on the training main path's first flash call
+    (its q, k, v; a seeded dO): held to its plain versions, then device
+    time per call (``_device_ms``) of the kernel; of the plain backward
+    the port had before it (the plain version recomputed in f32 under
+    autograd); and of the library, scaled_dot_product_attention's
+    backward by ``torch.autograd.grad`` (``enable_gqa``): its forward
+    plus backward less its forward, both timed with inputs that need a
+    gradient. The bound counts q, k, v, out, dO, lse, Di, dq, dk and dv
+    once and the five products over the kept pairs (10·B·Hq·D a pair)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels.flash_attention import kept_pairs
+    t0 = time.perf_counter()
+    err = check_flash_backward(a, kw, "flash_attention_bwd main path", 61)
+    q, k, v, dout, out, lse, opts = _backward_inputs(a, kw, 61)
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+
+    def kernel():
+        return fb.flash_attention_bwd_cuda(dout, q, k, v, out, lse, **opts)
+
+    res = {"ms": _device_ms(kernel, 20),
+           "plain_ms": _device_ms(lambda: _plain_recompute(q, k, v, dout,
+                                                           opts), 5)}
+    lib = None
+    if opts["window"] is None and opts["q_offset"] == Sk - Sq and (
+            not opts["causal"] or Sq == Sk):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=opts["causal"], scale=opts["scale"],
+                enable_gqa=True)
+
+        def lib_both():
+            return torch.autograd.grad(lib_fwd(), (qt, kt, vt), dt)
+
+        both, fwd = _device_ms(lib_both, 20), _device_ms(lib_fwd, 20)
+        lib = {"library_ms": both - fwd, "library_fwd_bwd_ms": both,
+               "library_fwd_ms": fwd, "library_backend":
+                   _sdpa_backend(lib_both)}
+    res.update(lib or {"library_ms": None,
+                       "library_backend": "none at this mask"})
+    pairs = kept_pairs(Sq, Sk, opts["causal"], opts["window"],
+                       opts["q_offset"])
+    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+              + 2 * 4 * B * Hq * Sq)
+    flops = 10.0 * B * Hq * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / BF16_FLOPS_PER_S * 1e3
+    res.update(bound_ms=max(t_bytes, t_flops),
+               bound_by="bytes" if t_bytes >= t_flops else "operations",
+               bytes=nbytes, flops=flops, max_abs_err=err,
+               shape=[list(t.shape) for t in (q, k, v)], dtype=str(q.dtype),
+               options={k_: v_ for k_, v_ in opts.items()},
+               seconds=time.perf_counter() - t0)
+    log(f"time flash_attention_bwd {res['shape']} {q.dtype} {opts}: device "
+        f"per call: kernel {res['ms']:.6f} ms, plain (f32 recompute under "
+        f"autograd) {res['plain_ms']:.6f} ms, library backward "
+        f"{res['library_ms']} ms ({res['library_backend']}), bound "
+        f"{res['bound_ms']:.6f} ms ({res['bound_by']}: {nbytes} bytes, "
+        f"{flops} flops); max abs diff {err}; {res['seconds']:.3f} s; "
+        f"{card_line()}")
+    return res
 
 
 def train_busy(loop, batch, p50_ms: float) -> Dict[str, object]:
@@ -4313,6 +4497,36 @@ def attention_cases(device) -> Dict[str, float]:
     return errs
 
 
+def backward_cases(device) -> float:
+    """The backward kernel against the plain backward and autograd of the
+    plain version in f32 on the other phases' training calls: granite's
+    heads (24/8 of 64) and seamless's (16/16 of 64, causal self-attention
+    and its non-causal encoder and cross calls) in bf16; in f32 the mesh
+    phase's local heads (6/1 of 128), a context-parallel rank's 64 of 128
+    rows at ``q_offset`` 64 and mesh_encdec's cross call (128 tokens over
+    256 frames); and ragged tiles with a window, one at a query offset.
+    Returns the largest absolute difference."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = 0.0
+    for i, (B, Sq, Sk, Hq, Hkv, D, dtype, kw) in enumerate((
+            (1, 512, 512, 24, 8, 64, bf16, {}),
+            (2, 512, 512, 16, 16, 64, bf16, {}),
+            (2, 512, 512, 16, 16, 64, bf16, {"causal": False}),
+            (2, 128, 128, 6, 1, 128, f32, {}),
+            (2, 64, 128, 12, 2, 128, f32, {"q_offset": 64}),
+            (2, 128, 256, 8, 8, 64, f32, {"causal": False}),
+            (2, 37, 53, 6, 2, 80, bf16, {"window": 16}),
+            (1, 100, 300, 4, 2, 16, f32, {"window": 32, "q_offset": 103}))):
+        a = (_randn((B, Sq, Hq, D), dtype, device, 70 + 3 * i),
+             _randn((B, Sk, Hkv, D), dtype, device, 71 + 3 * i),
+             _randn((B, Sk, Hkv, D), dtype, device, 72 + 3 * i))
+        err = max(err, check_flash_backward(
+            a, kw, f"flash_attention_bwd {dtype} "
+            f"{(B, Sq, Sk, Hq, Hkv, D)} {kw}", 90 + i))
+    torch.cuda.synchronize()
+    return err
+
+
 def attention_work(name: str, a: tuple, kw: dict) -> Dict[str, float]:
     """Bytes each call must move (inputs read once, the output written
     once; for decode only the cache rows up to each length) and the flops
@@ -4659,6 +4873,8 @@ def run_model(device, ms: ModelSizes) -> Dict[str, object]:
     """The model-server phases on ``device``; raises on any failure."""
     errs = attention_cases(device)
     log(f"attention kernel checks passed; max abs diff per kernel: {errs}")
+    bwd_err = backward_cases(device)
+    log(f"flash backward checks passed; max abs diff {bwd_err}")
     cmp = model_cuda_vs_cpu(ms, device)
     main = model_main_path(ms, device)
     timing = time_attention(main["calls"], ms.reps, device)
@@ -4699,7 +4915,7 @@ def run_model(device, ms: ModelSizes) -> Dict[str, object]:
                            "bound_by", "max_abs_err", "shape")}
     kernels[0]["at_q_offset"]["q_offset"] = 64
     return {"kernels": kernels, "model": main["report"],
-            "model_cuda_vs_cpu": cmp, "serve_cli": cli}
+            "model_cuda_vs_cpu": cmp, "serve_cli": cli, "bwd_err": bwd_err}
 
 
 # ---------------------------------------------------------------------------
@@ -5162,6 +5378,7 @@ def family_train(arch: str, layers: int, fs: FamilySizes, device
     hist = loop.run(iter([batch] * fs.train_steps), steps=fs.train_steps,
                     log_every=0, on_metrics=on_metrics)["history"]
     flash = launch_counts()["flash_attention"]
+    flash_bwd = launch_counts()["flash_attention_bwd"]
     losses = [m["loss"] for m in hist]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{arch} training loss did not fall: {losses}")
@@ -5171,9 +5388,10 @@ def family_train(arch: str, layers: int, fs: FamilySizes, device
                                        for m in hist):
         raise AssertionError(f"{arch}: MoE losses missing from the metrics")
     n_attn = _n_attention_layers(cfg)
-    if (flash == 0) != (n_attn == 0):
-        raise AssertionError(f"{arch}: {flash} flash launches for {n_attn} "
-                             f"attention layers")
+    if (flash == 0) != (n_attn == 0) or flash_bwd != n_attn * fs.train_steps:
+        raise AssertionError(f"{arch}: {flash} flash and {flash_bwd} "
+                             f"backward launches for {n_attn} attention "
+                             f"layers")
     step_ms = float(np.percentile(np.asarray(lat[1:]) * 1e3, 50))
     tokens = fs.train_batch * fs.train_seq
     active = param_count(cfg, active=True)
@@ -5186,7 +5404,8 @@ def family_train(arch: str, layers: int, fs: FamilySizes, device
            "model_flops_per_step": flops,
            "mfu_bf16_dense_peak": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "flash_launches": flash}
+           "flash_launches": flash, "flash_bwd_launches": flash_bwd,
+           "flash_bwd_launches_per_step": flash_bwd / fs.train_steps}
     if cfg.moe is not None:
         out["moe_aux_last"] = hist[-1]["moe_aux"]
         out["moe_zloss_last"] = hist[-1]["moe_zloss"]
@@ -5197,7 +5416,8 @@ def family_train(arch: str, layers: int, fs: FamilySizes, device
         f"{out['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4e}/step "
         f"over {active} active params = {out['mfu_bf16_dense_peak']:.4f} of "
         f"the 989 TFLOP/s bf16 dense peak; peak device memory "
-        f"{out['peak_bytes']} bytes; flash launches {flash}"
+        f"{out['peak_bytes']} bytes; flash launches {flash}, backward "
+        f"{flash_bwd / fs.train_steps:.1f} a step"
         + (f"; moe_aux {out['moe_aux_last']:.4f}, moe_zloss "
            f"{out['moe_zloss_last']:.4f}" if cfg.moe else "")
         + f"; {card_line()}")
@@ -5223,6 +5443,8 @@ def families_phase(device, fs: FamilySizes = FamilySizes()
         torch.cuda.empty_cache()
     out["launches"] = {k: sum(r["launches"][k] for r in out["serve"].values())
                        for k in ATTN_KERNELS}
+    out["launches"]["flash_attention_bwd"] = sum(
+        r["flash_bwd_launches"] for r in out["train"].values())
     out["seconds"] = time.perf_counter() - t_phase
     log(f"families phase: {out['seconds']:.3f} s; {card_line()}")
     return out
@@ -5497,16 +5719,18 @@ def encdec_train(es: EncDecSizes, device) -> Dict[str, object]:
     hist = loop.run(iter(batches), steps=es.train_steps, log_every=0,
                     on_metrics=on_metrics)["history"]
     flash = launch_counts()["flash_attention"]
+    flash_bwd = launch_counts()["flash_attention_bwd"]
     losses = [m["loss"] for m in hist]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{ENCDEC} training loss not finite: {losses}")
     if any(m["skipped"] for m in hist):
         raise AssertionError(f"{ENCDEC}: a skipped step")
     per_step = cfg.encoder_layers + 2 * cfg.n_layers
-    if flash != per_step * es.train_steps:
-        raise AssertionError(f"{ENCDEC}: {flash} flash launches in "
-                             f"{es.train_steps} steps, want {per_step} a "
-                             f"step")
+    if (flash != per_step * es.train_steps
+            or flash_bwd != per_step * es.train_steps):
+        raise AssertionError(f"{ENCDEC}: {flash} flash and {flash_bwd} "
+                             f"backward launches in {es.train_steps} steps, "
+                             f"want {per_step} a step each")
     step_ms = float(np.percentile(np.asarray(lat[1:]) * 1e3, 50))
     B, S, F_ = es.train_batch, es.train_seq, es.train_seq
     d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
@@ -5534,7 +5758,9 @@ def encdec_train(es: EncDecSizes, device) -> Dict[str, object]:
            "mfu_bf16_dense_peak": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "flash_launches": flash,
-           "flash_launches_per_step": flash / es.train_steps}
+           "flash_launches_per_step": flash / es.train_steps,
+           "flash_bwd_launches": flash_bwd,
+           "flash_bwd_launches_per_step": flash_bwd / es.train_steps}
     log(f"encdec train {ENCDEC} ({cfg.encoder_layers} + {cfg.n_layers} "
         f"layers, full width, bf16, "
         f"B={B} x {S} tokens over {F_} frames, {es.train_steps} steps on "
@@ -5543,7 +5769,8 @@ def encdec_train(es: EncDecSizes, device) -> Dict[str, object]:
         f"{out['tokens_per_s']:.1f} tokens/s; model FLOPs {flops:.4e}/step "
         f"= {out['mfu_bf16_dense_peak']:.4f} of the 989 TFLOP/s bf16 dense "
         f"peak; peak device memory {out['peak_bytes']} bytes; flash "
-        f"launches {flash / es.train_steps:.1f} a step; {card_line()}")
+        f"launches {flash / es.train_steps:.1f} a step, backward "
+        f"{flash_bwd / es.train_steps:.1f} a step; {card_line()}")
     del loop
     return out
 
@@ -5747,6 +5974,7 @@ def encdec_phase(device, es: EncDecSizes = EncDecSizes()
     out["launches"] = {
         "flash_attention": (out["serve"]["launches"]["flash_attention"]
                             + out["train"]["flash_launches"]),
+        "flash_attention_bwd": out["train"]["flash_bwd_launches"],
         "decode_attention": out["serve"]["launches"]["decode_attention"]}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"encdec phase: {out['seconds']:.3f} s; {card_line()}")
@@ -6041,7 +6269,7 @@ def _first_world(a: dict, ms: MeshSizes, mesh, rank: int,
     results into ``res``."""
     from repro_torch.configs.base import reduced
     from repro_torch.distributed import sharding
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
     from repro_torch.launch.train import TrainLoop
     # training, f32: the TrainLoop places its state by the rules
     cfg = _mesh_cfg(ms, "float32")
@@ -6063,12 +6291,13 @@ def _first_world(a: dict, ms: MeshSizes, mesh, rank: int,
     res["unsharded_bytes"] = sum(
         t.numel() * t.element_size()
         for t in _leaves_of(loop.params) + _leaves_of(loop.opt_state))
-    f0 = flash_attention.launches
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
     times: List[float] = []
     ran = loop.run(iter([batch] * ms.train_steps),
                    steps=ms.train_steps, log_every=0,
                    on_metrics=_step_timer(times))
     res["train_flash"] = flash_attention.launches - f0
+    res["train_flash_bwd"] = flash_attention_bwd.launches - b0
     res["losses"] = [h["loss"] for h in ran["history"]]
     res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
     # the first step ran under the counter: its time kept apart
@@ -6140,7 +6369,7 @@ def _cp_rank(ms: MeshSizes, mesh, rank: int) -> Dict[str, object]:
     key rows and ``q_offset``."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import sharding
-    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops
     from repro_torch.launch import steps
     from repro_torch.launch.train import TrainLoop
     t0 = time.perf_counter()
@@ -6156,11 +6385,12 @@ def _cp_rank(ms: MeshSizes, mesh, rank: int) -> Dict[str, object]:
     ops.flash_attention = spy
     try:
         loop = TrainLoop(cfg, opt_cfg=_mesh_opt(ms), mesh=mesh, seed=3)
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         ran = loop.run(iter([batch] * ms.cp_steps), steps=ms.cp_steps,
                        log_every=0)
         torch.cuda.synchronize()
         out = {"train_flash": flash_attention.launches,
+               "train_flash_bwd": flash_attention_bwd.launches,
                "train_seen": sorted(set(seen)),
                "losses": [h["loss"] for h in ran["history"]],
                "grad_norms": [h["grad_norm"] for h in ran["history"]]}
@@ -6226,6 +6456,7 @@ def mesh_cp_check(ms: MeshSizes, ref: Dict[str, object],
         want = {"train_seen": [(tr, ms.train_seq, m * tr)],
                 "prefill_seen": [(pr, ms.prompt_len, m * pr)],
                 "train_flash": 2 * ms.layers * n,
+                "train_flash_bwd": ms.layers * n,
                 "prefill_flash": ms.layers, "cache_placed": True}
         got = {k: c[k] for k in want}
         if got != want:
@@ -6244,7 +6475,9 @@ def mesh_cp_check(ms: MeshSizes, ref: Dict[str, object],
             "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
             "prefill": prefill,
             "launches": {"flash_attention": sum(
-                c["train_flash"] + c["prefill_flash"] for c in cps)},
+                c["train_flash"] + c["prefill_flash"] for c in cps),
+                         "flash_attention_bwd": sum(c["train_flash_bwd"]
+                                                    for c in cps)},
             "rows": [(c["model_rank"], c["train_seen"], c["prefill_seen"])
                      for c in cps],
             "seconds": max(c["seconds"] for c in cps)}
@@ -6493,7 +6726,8 @@ def moe_rank(mz: MoeMeshSizes, mesh, rank: int, ref_path: str
     read off the tensors the exchanges are given."""
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed import collectives, sharding
-    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     flash_attention_bwd)
     from repro_torch.launch.train import TrainLoop
     from repro_torch.models import moe
     t0 = time.perf_counter()
@@ -6517,6 +6751,7 @@ def moe_rank(mz: MoeMeshSizes, mesh, rank: int, ref_path: str
 
     collectives._exchange, moe._ep_gathered = count_exchange, count_gathered
     flash_attention.launches = decode_attention.launches = 0
+    flash_attention_bwd.launches = 0
     try:
         cfg = _moe_cfg(mz, mz.granite, "float32", mz.train_groups)
         batch, _ = _moe_inputs(mz, cfg.vocab_size)
@@ -6547,6 +6782,7 @@ def moe_rank(mz: MoeMeshSizes, mesh, rank: int, ref_path: str
         ran = loop.run(iter([batch] * mz.train_steps), steps=mz.train_steps,
                        log_every=0, on_metrics=_step_timer(times))
         res["train_flash"] = flash_attention.launches
+        res["train_flash_bwd"] = flash_attention_bwd.launches
         res["train_moved"] = dict(moved)
         res["losses"] = [h["loss"] for h in ran["history"]]
         res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
@@ -6633,7 +6869,8 @@ def mesh_moe_check(mz: MoeMeshSizes, ref: Dict[str, object],
                                  f"of state allocated, {asked} requested, "
                                  f"the specs give {want}; leaves (index, "
                                  f"held, share) off: {m['leaves_off']}")
-        bad = m["train_flash"] != remat * cfg.n_layers * mz.train_steps
+        bad = (m["train_flash"] != remat * cfg.n_layers * mz.train_steps
+               or m["train_flash_bwd"] != cfg.n_layers * mz.train_steps)
         for f, dt in MOE_SERVE:
             layers = _moe_cfg(mz, getattr(mz, f), dt).n_layers
             sv = m[f"{f}_{dt}"]
@@ -6680,6 +6917,7 @@ def mesh_moe_check(mz: MoeMeshSizes, ref: Dict[str, object],
                        r["moe"]["state_bytes_requested"],
                    "state_bytes_computed": r["moe"]["state_bytes_computed"],
                    "train_flash": r["moe"]["train_flash"],
+                   "train_flash_bwd": r["moe"]["train_flash_bwd"],
                    **{f"{f}_{dt}_{k}": r["moe"][f"{f}_{dt}"][k]
                       for f, dt in MOE_SERVE
                       for k in ("flash", "decode", "serve_s")},
@@ -6689,6 +6927,8 @@ def mesh_moe_check(mz: MoeMeshSizes, ref: Dict[str, object],
                 r["moe"]["train_flash"] + sum(r["moe"][f"{f}_{dt}"]["flash"]
                                               for f, dt in MOE_SERVE)
                 for r in ranks),
+            "flash_attention_bwd": sum(r["moe"]["train_flash_bwd"]
+                                       for r in ranks),
             "decode_attention": sum(r["moe"][f"{f}_{dt}"]["decode"]
                                     for r in ranks for f, dt in MOE_SERVE)}}
 
@@ -6954,7 +7194,8 @@ def families_rank(fz: FamilyMeshSizes, mesh, rank: int, tmp: str,
     from 0 for each run alone."""
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed import sharding
-    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     flash_attention_bwd)
     from repro_torch.launch.train import TrainLoop
     from repro_torch.models.tree import tree_map
     t0 = time.perf_counter()
@@ -6989,6 +7230,7 @@ def families_rank(fz: FamilyMeshSizes, mesh, rank: int, tmp: str,
         history: List[dict] = []
         points: List[List[torch.Tensor]] = []   # rank 0, on the host
         flash_attention.launches = decode_attention.launches = 0
+        flash_attention_bwd.launches = 0
         for i in range(fz.train_steps):
             if i and field in same_point:
                 # the parameters this step starts from: every rank gathers
@@ -7005,6 +7247,7 @@ def families_rank(fz: FamilyMeshSizes, mesh, rank: int, tmp: str,
                                 on_metrics=_step_timer(times))["history"]
             _freed()
         r["flash"] = flash_attention.launches
+        r["flash_bwd"] = flash_attention_bwd.launches
         r["losses"] = [h["loss"] for h in history]
         r["grad_norms"] = [h["grad_norm"] for h in history]
         r["step_ms"] = times
@@ -7117,10 +7360,13 @@ def mesh_families_check(fz: FamilyMeshSizes, ref: Dict[str, object],
                     f"mesh_families {arch} rank {rk['rank']}: {asked} bytes "
                     f"of state requested, the specs give {share}; leaves "
                     f"(index, held, share) off: {m['leaves_off']}")
-            if m["flash"] != flash:
+            if (m["flash"] != flash
+                    or m["flash_bwd"] != _n_attention(cfg) * fz.train_steps):
                 raise AssertionError(f"mesh_families {arch} rank "
-                                     f"{rk['rank']}: {m['flash']} flash "
-                                     f"launches in training, not {flash}")
+                                     f"{rk['rank']}: {m['flash']} flash and "
+                                     f"{m['flash_bwd']} backward launches "
+                                     f"in training, not {flash} and one a "
+                                     f"layer a step")
         if (loss_rel > 1e-5 or gnorm_rel > 1e-5 or point_loss_rel > 1e-5
                 or got["param_rel_l2"] > 1e-4):
             raise AssertionError(
@@ -7146,7 +7392,10 @@ def mesh_families_check(fz: FamilyMeshSizes, ref: Dict[str, object],
                  rk["families"][f"{field}_train"]["state_bytes_computed"])
                 for rk in ranks],
             "flash_by_rank": [rk["families"][f"{field}_train"]["flash"]
-                              for rk in ranks]}
+                              for rk in ranks],
+            "flash_bwd_by_rank": [
+                rk["families"][f"{field}_train"]["flash_bwd"]
+                for rk in ranks]}
     for field, dtype in FAMILY_SERVE:
         arch = getattr(fz, field)
         key = f"{field}_{dtype}"
@@ -7189,6 +7438,9 @@ def mesh_families_check(fz: FamilyMeshSizes, ref: Dict[str, object],
             for f in FAMILY_TRAIN) + sum(
             rk["families"][f"{f}_{dt}"]["flash"] for rk in ranks
             for f, dt in FAMILY_SERVE),
+        "flash_attention_bwd": sum(
+            rk["families"][f"{f}_train"]["flash_bwd"] for rk in ranks
+            for f in FAMILY_TRAIN),
         "decode_attention": sum(rk["families"][f"{f}_{dt}"]["decode"]
                                 for rk in ranks for f, dt in FAMILY_SERVE)}
     out["reference_card_used_bytes"] = {
@@ -7382,7 +7634,7 @@ def encdec_rank(ez: EncDecMeshSizes, mesh, rank: int, tmp: str
     for each run alone."""
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed import sharding
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
     from repro_torch.launch.train import TrainLoop
     t0 = time.perf_counter()
     res: Dict[str, object] = {}
@@ -7406,10 +7658,11 @@ def encdec_rank(ez: EncDecMeshSizes, mesh, rank: int, tmp: str
                                  for t in leaves)
     del leaves, held
     times: List[float] = []
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
     ran = loop.run(iter([batch] * ez.train_steps), steps=ez.train_steps,
                    log_every=0, on_metrics=_step_timer(times))
     res["train_flash"] = flash_attention.launches
+    res["train_flash_bwd"] = flash_attention_bwd.launches
     res["losses"] = [h["loss"] for h in ran["history"]]
     res["grad_norms"] = [h["grad_norm"] for h in ran["history"]]
     res["step_ms"] = times
@@ -7475,7 +7728,8 @@ def mesh_encdec_check(ez: EncDecMeshSizes, ref: Dict[str, object],
                 f"mesh_encdec rank {r['rank']}: {asked} bytes of state "
                 f"requested, the specs give {share}; leaves (index, held, "
                 f"share) off: {m['leaves_off']}")
-        bad = m["train_flash"] != per_pass * ez.train_steps
+        bad = (m["train_flash"] != per_pass * ez.train_steps
+               or m["train_flash_bwd"] != per_pass * ez.train_steps)
         for dt in MESH_SERVE:
             sv = m[dt]
             bad |= (sv["flash"] != 2 * per_pass
@@ -7514,6 +7768,7 @@ def mesh_encdec_check(ez: EncDecMeshSizes, ref: Dict[str, object],
                        r["encdec"]["state_bytes_requested"],
                    "state_bytes_computed": r["encdec"]["state_bytes_computed"],
                    "train_flash": r["encdec"]["train_flash"],
+                   "train_flash_bwd": r["encdec"]["train_flash_bwd"],
                    **{f"{dt}_{k}": r["encdec"][dt][k] for dt in MESH_SERVE
                       for k in ("flash", "decode", "serve_s",
                                 "param_bytes_requested")},
@@ -7523,6 +7778,8 @@ def mesh_encdec_check(ez: EncDecMeshSizes, ref: Dict[str, object],
                 r["encdec"]["train_flash"] + sum(r["encdec"][dt]["flash"]
                                                  for dt in MESH_SERVE)
                 for r in ranks),
+            "flash_attention_bwd": sum(r["encdec"]["train_flash_bwd"]
+                                       for r in ranks),
             "decode_attention": sum(r["encdec"][dt]["decode"]
                                     for r in ranks for dt in MESH_SERVE)}}
 
@@ -7659,7 +7916,9 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
                  "state_bytes_requested": r["state_bytes_requested"],
                  "batch_share": r["batch_share"],
                  "first_step": r["first_step"],
-                 "train_flash": r["train_flash"], "step_ms": r["step_ms"],
+                 "train_flash": r["train_flash"],
+                 "train_flash_bwd": r["train_flash_bwd"],
+                 "step_ms": r["step_ms"],
                  "counted_step_ms": r["counted_step_ms"],
                  **{f"{dt}_{k}": r[dt][k] for dt in MESH_SERVE
                     for k in ("flash", "decode", "serve_s")}}
@@ -7687,7 +7946,8 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
             raise AssertionError(f"mesh rank {r['rank']}: {m_} bytes of "
                                  f"state measured, the specs give {c_}")
         want_flash = 2 * ms.layers * ms.train_steps    # forward + remat
-        if r["train_flash"] != want_flash or any(
+        if (r["train_flash"] != want_flash
+                or r["train_flash_bwd"] != ms.layers * ms.train_steps) or any(
                 r[dt]["flash"] != ms.layers
                 or r[dt]["decode"] != ms.layers * ms.serve_steps
                 or not r[dt]["cache_placed"] for dt in MESH_SERVE):
@@ -7709,6 +7969,7 @@ def mesh_phase(device, ms: MeshSizes = MeshSizes(),
     out["launches"] = {
         "flash_attention": sum(r["train_flash"] + sum(
             r[dt]["flash"] for dt in MESH_SERVE) for r in ranks),
+        "flash_attention_bwd": sum(r["train_flash_bwd"] for r in ranks),
         "decode_attention": sum(r[dt]["decode"] for r in ranks
                                 for dt in MESH_SERVE)}
     cp_out = mesh_cp_check(ms, ref, ranks)
@@ -8023,7 +8284,8 @@ def main() -> int:
         main_ = train_main_path(TrainSizes(), "cuda")
         log(card)
         log(json.dumps({"train": {k: main_[k] for k in (
-            "step_ms_p50", "first_step_ms", "peak_bytes")}}))
+            "step_ms_p50", "first_step_ms", "peak_bytes", "busy",
+            "flash_backward")}}))
         return 0
     if decode_only:
         rep = model_main_path(ModelSizes(), "cuda")["report"]
@@ -8080,7 +8342,9 @@ def main() -> int:
     phase = {"baselines": {k: sum(v.get(k, 0)
                                   for v in base["launches"].values())
                            for k in KERNELS},
-             "train": {"flash_attention": trained["main"]["flash_launches"]},
+             "train": {"flash_attention": trained["main"]["flash_launches"],
+                       "flash_attention_bwd":
+                           trained["main"]["flash_bwd_launches"]},
              "families": fam["launches"],
              "encdec": enc["launches"],
              "mesh": mesh["launches"],
@@ -8088,7 +8352,14 @@ def main() -> int:
              "mesh_moe": mesh_moe["launches"],
              "mesh_families": mesh_fam["launches"],
              "mesh_encdec": mesh_enc["launches"]}
-    kernels = res["kernels"] + mres["kernels"]
+    fb = trained["main"]["flash_backward"]
+    kernels = res["kernels"] + mres["kernels"] + [{
+        "name": name, "route": "cuda", "source": src, "replaces": what,
+        "launches": trained["main"]["flash_bwd_launches"],
+        "max_abs_err": max(fb["max_abs_err"], mres["bwd_err"]),
+        **{k: fb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library_backend", "shape")}}
+        for name, (src, what) in BWD_KERNEL.items()]
     for k in kernels:
         k["phase_launches"] = {p: v[k["name"]] for p, v in phase.items()
                                if k["name"] in v}

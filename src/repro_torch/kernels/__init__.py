@@ -11,6 +11,7 @@ Kernels:
     preagg_window  — bucketed pre-aggregate window lookup (paper Eq. 2)
     last_join      — point-in-time LAST JOIN row lookup over a right table
     flash_attention  — causal / sliding-window GQA attention (prefill)
+    flash_attention_bwd — its dq, dk and dv (training)
     decode_attention — one-token GQA attention over a KV cache (decode)
 """
 from repro_torch.kernels import ops, ref

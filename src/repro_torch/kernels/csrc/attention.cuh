@@ -1,9 +1,9 @@
 // Shared helpers of the attention kernels (flash_attention,
-// decode_attention): four-element loads and stores that convert between
-// the tensor's element type (bf16 or f32) and f32, the masked-score value,
-// the PTX wrappers (cp.async, ldmatrix, mma.sync), the opt-in to more than
-// 48 KB of dynamic shared memory and the launch-time dispatch over head
-// dims.
+// flash_attention_bwd, decode_attention): four-element loads and stores
+// that convert between the tensor's element type (bf16 or f32) and f32,
+// the masked-score value, a row's log-sum-exp, the PTX wrappers (cp.async,
+// ldmatrix, mma.sync), the opt-in to more than 48 KB of dynamic shared
+// memory and the launch-time dispatch over head dims.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,6 +18,7 @@ namespace attn {
 // maximum stays finite.
 constexpr float kNegInit = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -38,6 +39,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 __device__ __forceinline__ float4 scale4(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+// A row's log-sum-exp in natural-log units from its running max m (log2
+// domain) and sum l; kNegInit for a row that kept no key (l == 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : kNegInit;
 }
 
 // Four consecutive elements at p (16-byte aligned for f32, 8 for bf16).

@@ -51,6 +51,12 @@
 // copied while tile t is computed, a warp skipping the tiles none of its
 // rows keeps.
 //
+// Given an lse pointer (the training forward, flash_attention_bwd.cu's
+// input), every kernel also writes each row's log-sum-exp of its kept
+// scaled scores, in natural-log units: the running max and sum it already
+// holds in the log2 domain, (m + log2 l) ln 2, and kNegInit for a row that
+// keeps no key.
+//
 // f32 (flash_attention_kernel) keeps the products on the FMA units in
 // full f32, so the f32 card-vs-CPU model check and the 2e-5 kernel tests
 // hold (TF32 would not): 4 threads per query row, each owning D/4
@@ -72,8 +78,9 @@ constexpr int kKeysPerTile = 32;
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
-    int Hkv, int causal, int window, int q_offset, float scale_log2) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
+    float scale_log2) {
   constexpr int C4 = D / 4;                  // float4 chunks of a row
   constexpr int CPT = C4 / kThreadsPerRow;   // chunks per thread
   static_assert(C4 % kThreadsPerRow == 0, "D must be a multiple of 16");
@@ -173,6 +180,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_attention_kernel(
   }
 
   if (!row_ok) return;
+  if (lse != nullptr && g == 0)
+    lse[(static_cast<size_t>(b) * Hq + h) * Sq + qi] = row_lse(m, l);
   const float inv = 1.f / (l > 0.f ? l : 1.f);
   const size_t o_row = ((static_cast<size_t>(b) * Sq + qi) * Hq + h) * D;
 #pragma unroll
@@ -225,8 +234,8 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
-    float scale_log2) {
+    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+    int window, int q_offset, float scale_log2) {
   constexpr int SD = mma_stride<D>();
   constexpr int KSTEPS = D / 16;        // k-steps of QK^T
   constexpr int DT = D / 8;             // 8-column tiles of O
@@ -267,6 +276,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
       if (q0 + r < Sq)
         *reinterpret_cast<uint4*>(ob + r * q_ld + (i % (D / 8)) * 8) = zero;
     }
+    const int r = threadIdx.x;
+    if (lse != nullptr && r < kMmaRows && q0 + r < Sq)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + q0 + r] = kNegInit;
     return;
   }
 
@@ -410,6 +422,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.f / (l[i] > 0.f ? l[i] : 1.f);
+    const int r = q0 + row0 + g + 8 * i;
+    if (lse != nullptr && tq == 0 && r < Sq)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + r] = row_lse(m[i], l[i]);
   }
   __nv_bfloat16* os = qs + row0 * SD;
 #pragma unroll
@@ -468,8 +483,8 @@ template <int D, int G>
 __global__ void __launch_bounds__(128 * G) flash_attention_wg_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
-    float scale_log2) {
+    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+    int window, int q_offset, float scale_log2) {
   constexpr int ROWS = 64;              // query rows of a warpgroup
   constexpr int NTH = 128 * G;          // threads of the block
   constexpr int NT = kMmaKeys / 8;      // 8-key tiles of S
@@ -514,6 +529,9 @@ __global__ void __launch_bounds__(128 * G) flash_attention_wg_kernel(
       if (q0 + r < Sq)
         *reinterpret_cast<uint4*>(ob + r * q_ld + (i % DT) * 8) = zero;
     }
+    const int r = threadIdx.x % 128;
+    if (lse != nullptr && r < ROWS && q0 + r < Sq)
+      lse[(static_cast<size_t>(b) * Hq + h0 + wg) * Sq + q0 + r] = kNegInit;
     return;
   }
 
@@ -644,6 +662,10 @@ __global__ void __launch_bounds__(128 * G) flash_attention_wg_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.f / (l[i] > 0.f ? l[i] : 1.f);
+    const int r = q0 + warp * 16 + g + 8 * i;
+    if (lse != nullptr && tq == 0 && r < Sq)
+      lse[(static_cast<size_t>(b) * Hq + h0 + wg) * Sq + r] =
+          row_lse(m[i], l[i]);
   }
   __syncthreads();   // every wgmma read of the Q tile is done
 #pragma unroll
@@ -675,6 +697,7 @@ struct FlashLaunch {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int B, Sq, Sk, Hq, Hkv, causal, window, q_offset;
   float scale_log2;
   cudaStream_t stream;
@@ -693,8 +716,8 @@ struct FlashLaunch {
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, causal, window,
-        q_offset, scale_log2);
+        static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv, causal,
+        window, q_offset, scale_log2);
     return static_cast<int>(cudaGetLastError());
   }
 
@@ -717,14 +740,14 @@ struct FlashLaunch {
       flash_attention_mma_kernel<D><<<dim3(Hq, B, n_q), kMmaThreads, smem,
                                       stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-          causal, window, q_offset, scale_log2);
+          static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq,
+          Hkv, causal, window, q_offset, scale_log2);
     } else {
       const dim3 grid((Sq + kRowsPerBlock - 1) / kRowsPerBlock, Hq, B);
       flash_attention_kernel<T, D><<<grid, kFlashThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-          causal, window, q_offset, scale_log2);
+          static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq,
+          Hkv, causal, window, q_offset, scale_log2);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -733,15 +756,17 @@ struct FlashLaunch {
 }  // namespace attn
 
 // dtype: 0 = f32, 1 = bf16. window <= 0 means no window. Query row i sits
-// at position i + q_offset.
+// at position i + q_offset. lse (B, Hq, Sq) f32, or null: each row's
+// log-sum-exp of its kept scaled scores in natural-log units, kNegInit for
+// a row that keeps no key (what the backward pass recomputes P from).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
-    int Sk, int Hq, int Hkv, int D, int dtype, int causal, int window,
-    int q_offset, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype, int causal,
+    int window, int q_offset, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const attn::FlashLaunch f{q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+  const attn::FlashLaunch f{q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal,
                             window, q_offset, scale * attn::kLog2e,
                             static_cast<cudaStream_t>(stream)};
   return attn::dispatch(dtype, D, f);

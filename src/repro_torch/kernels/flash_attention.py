@@ -5,20 +5,23 @@ Counterpart of the TPU kernel ``flash_attention_pallas``; the plain version
 is :func:`repro_torch.kernels.ref.flash_attention_ref`. ``launches``
 counts the kernel launches this process made.
 
-The kernel computes the forward pass only. ``flash_attention_train`` is
-the autograd path: a ``torch.autograd.Function`` whose forward launches the
-kernel and saves q, k and v, and whose backward recomputes the attention
-through the plain version in f32 and differentiates that (the JAX package
-has no backward kernel either; a hand-written one is open work). Calling
-``flash_attention_cuda`` itself on inputs that need a gradient raises, so
-no path drops the gradient quietly.
+The kernel computes the forward pass. The autograd path,
+``flash_attention_train`` (``kernels/flash_attention_bwd.py``), launches it
+through the second op, ``repro_torch::flash_attention_fwd_lse``, which also
+returns each row's log-sum-exp, and its backward is the backward kernel
+(``csrc/flash_attention_bwd.cu``). Calling ``flash_attention_cuda`` itself
+on inputs that need a gradient raises, so no path drops the gradient
+quietly.
 
-The launch is the torch op ``repro_torch::flash_attention_fwd``
+The serving launch is the torch op ``repro_torch::flash_attention_fwd``
 (``torch.library``): its CUDA implementation is the kernel, its fake
 implementation gives the output's shape and dtype, so a step traced on
 fake CUDA tensors (``launch/dryrun.py``) goes through it, and its FLOP
 formula (``torch.utils.flop_counter``) counts ``4·B·Hq·D`` for every
-(query, key) pair the causal or window mask keeps.
+(query, key) pair the causal or window mask keeps. ``flash_attention_fwd_lse``
+is the same launch with ``lse`` (B, Hq, Sq) f32 written beside the output:
+natural-log units, ``ref.ATTN_NEG_INF`` (−1e30) for a row that keeps no
+key; the same FLOP formula. Both count in ``launches``.
 
 ``q_offset`` is the position of the first query row (default ``Sk −
 Sq``: the queries right-aligned, the JAX kernel's only layout). A
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,12 +41,12 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["flash_attention_cuda", "flash_attention_train", "launches",
-           "HEAD_DIMS", "DTYPES", "check_query", "require_aligned",
-           "LIB", "kept_pairs"]
+__all__ = ["flash_attention_cuda", "launches", "HEAD_DIMS", "DTYPES",
+           "check_query", "require_aligned", "check_inputs", "LIB",
+           "kept_pairs"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 4 + (_I,) * 10 + (_F, _P)
+_ARGTYPES = (_P,) * 5 + (_I,) * 10 + (_F, _P)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)          # instantiated in csrc
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,7 +89,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     before PV, as the plain version does; f32 stays in full f32 on the
     FMA units.
     """
-    dev = _build.require_cuda(q, "flash_attention_cuda")
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (q, k, v)):
@@ -94,7 +96,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention_cuda computes no gradient: inputs that "
             "require grad go through flash_attention_train (or "
             "ops.flash_attention, which routes them there)")
-    D = check_query(q, 4, "flash_attention_cuda")
+    scale, off = check_inputs(q, k, v, window, scale, q_offset,
+                              "flash_attention_cuda")
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, window,
+                                                     scale, off)
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int], scale: Optional[float],
+                 q_offset: Optional[int], what: str) -> Tuple[float, int]:
+    """Raise unless q, k and v are what the kernels take (see
+    :func:`flash_attention_cuda`); returns the scale and the first query
+    row's position."""
+    dev = _build.require_cuda(q, what)
+    D = check_query(q, 4, what)
     B, Sq, Hq, _ = q.shape
     if not isinstance(k, torch.Tensor) or k.dim() != 4:
         raise ValueError(f"k must be (B, Sk, Hkv, D), got "
@@ -107,9 +122,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    scale = float(D ** -0.5 if scale is None else scale)
-    return torch.ops.repro_torch.flash_attention_fwd(
-        q, k, v, causal, window, scale, _offset(Sq, Sk, q_offset))
+    return (float(D ** -0.5 if scale is None else scale),
+            _offset(Sq, Sk, q_offset))
 
 
 def _offset(Sq: int, Sk: int, q_offset: Optional[int]) -> int:
@@ -127,13 +141,16 @@ def _offset(Sq: int, Sk: int, q_offset: Optional[int]) -> int:
 LIB = torch.library.Library("repro_torch", "FRAGMENT")
 LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
            "int? window, float scale, int? q_offset=None) -> Tensor")
+LIB.define("flash_attention_fwd_lse(Tensor q, Tensor k, Tensor v, "
+           "bool causal, int? window, float scale, int? q_offset=None) "
+           "-> (Tensor, Tensor)")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: Optional[int], scale: float,
-            q_offset: Optional[int] = None) -> torch.Tensor:
-    """The op's CUDA implementation: one kernel launch (arguments checked
-    by ``flash_attention_cuda``)."""
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         window: Optional[int], scale: float, q_offset: Optional[int],
+         lse: Optional[torch.Tensor]) -> torch.Tensor:
+    """One kernel launch (arguments checked by ``check_inputs``), writing
+    ``lse`` too where it is given."""
     require_aligned(q=q, k=k, v=v)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -141,25 +158,54 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     if Sk == 0:
+        if lse is not None:
+            lse.fill_(ref.ATTN_NEG_INF)
         return out.zero_()
     dev = q.device
     fn = _build.function("flash_attention_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                  _build.ptr(out), B, Sq, Sk, Hq, Hkv, D, DTYPES[q.dtype],
-                  int(causal), 0 if window is None else int(window),
+                  _build.ptr(out), _build.ptr(lse), B, Sq, Sk, Hq, Hkv, D,
+                  DTYPES[q.dtype], int(causal),
+                  0 if window is None else int(window),
                   _offset(Sq, Sk, q_offset), scale, _build.stream_of(dev))
     _build.check(code, "flash_attention")
     _build.count_launch(sys.modules[__name__])
     return out
 
 
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int], scale: float,
+            q_offset: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention_fwd``'s CUDA implementation: the serving launch."""
+    return _run(q, k, v, causal, window, scale, q_offset, None)
+
+
+def _launch_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: Optional[int], scale: float,
+                q_offset: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd_lse``'s CUDA implementation: the training
+    forward, the output and each row's log-sum-exp."""
+    B, Sq, Hq, _ = q.shape
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    return _run(q, k, v, causal, window, scale, q_offset, lse), lse
+
+
 LIB.impl("flash_attention_fwd", _launch, "CUDA")
+LIB.impl("flash_attention_fwd_lse", _launch_lse, "CUDA")
 
 
 @torch.library.register_fake("repro_torch::flash_attention_fwd")
 def _fake(q, k, v, causal, window, scale, q_offset=None):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd_lse")
+def _fake_lse(q, k, v, causal, window, scale, q_offset=None):
+    B, Sq, Hq, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32))
 
 
 def kept_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -175,7 +221,8 @@ def kept_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int],
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+@register_flop_formula([torch.ops.repro_torch.flash_attention_fwd,
+                        torch.ops.repro_torch.flash_attention_fwd_lse])
 def _flops(q_shape, k_shape, v_shape, causal, window, scale, q_offset=None,
            *args, out_shape=None, **kwargs) -> int:
     """QK^T and PV, two FLOPs a multiply-add each, over the kept pairs."""
@@ -183,41 +230,3 @@ def _flops(q_shape, k_shape, v_shape, causal, window, scale, q_offset=None,
     return 4 * B * Hq * D * kept_pairs(Sq, k_shape[1], causal, window,
                                        q_offset)
 
-
-class _FlashAttention(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: the plain version recomputed
-    in f32 under autograd, gradients returned in the inputs' dtype."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, q_offset):
-        # autograd runs this with grad mode off, so the kernel takes it
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   scale=scale, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, scale, q_offset)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        causal, window, scale, q_offset = ctx.opts
-        with torch.enable_grad():
-            qf, kf, vf = (t.detach().float().requires_grad_()
-                          for t in (q, k, v))
-            o = ref.flash_attention_ref(qf, kf, vf, causal=causal,
-                                        window=window, scale=scale,
-                                        q_offset=q_offset)
-            dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf),
-                                             dout.float())
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None)
-
-
-def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, causal: bool = True,
-                          window: Optional[int] = None,
-                          scale: Optional[float] = None,
-                          q_offset: Optional[int] = None) -> torch.Tensor:
-    """:func:`flash_attention_cuda` with a gradient: the kernel forward,
-    and the plain version's f32 gradient for dq, dk and dv."""
-    return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset)

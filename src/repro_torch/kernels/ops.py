@@ -6,8 +6,10 @@ and a plain PyTorch version (``repro_torch.kernels.ref``):
 * tensors on a CUDA device launch the kernel (whose wrapper raises on
   anything it cannot take); the two attention kernels launch through
   their torch ops (``repro_torch::flash_attention_fwd``,
-  ``repro_torch::decode_attention``), so fake CUDA tensors take the ops'
-  fake implementations and FLOP formulas (``launch/dryrun.py``);
+  ``repro_torch::decode_attention``; training through
+  ``flash_attention_fwd_lse`` and ``flash_attention_bwd``), so fake CUDA
+  tensors take the ops' fake implementations and FLOP formulas
+  (``launch/dryrun.py``);
 * tensors on the CPU take the plain version.
 
 There is no switch and no fallback: a CUDA tensor never takes the plain
@@ -21,8 +23,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_train)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention_bwd import flash_attention_train
 from repro_torch.kernels.fused_window import fused_window_cuda
 from repro_torch.kernels.last_join import last_join_cuda
 from repro_torch.kernels.preagg_window import preagg_window_cuda
@@ -114,7 +116,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D); query i at
     position ``i + q_offset`` (default ``Sk − Sq``, right-aligned). On the
     card, inputs that need a gradient (grad mode on) take the kernel inside
-    its autograd Function. ``block_k > 0`` with ``Sk > block_k`` selects
+    its autograd Function, whose backward is the backward kernel; on the
+    CPU autograd differentiates the plain version. ``block_k > 0`` with ``Sk > block_k`` selects
     the streaming plain version on CPU tensors, as JAX's op does on its
     path without Pallas; the kernel, which streams anyway, ignores it."""
     if not _on_cuda(q):

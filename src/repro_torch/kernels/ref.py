@@ -24,6 +24,10 @@ Both clamped to retention. All aggregates reduce over that interval.
 ``flash_attention_ref``  — causal / sliding-window GQA attention (dense).
 ``flash_attention_stream`` — the same attention as an online softmax over
                            KV blocks, never building the (Sq, Sk) scores.
+``flash_attention_lse_ref`` — the dense attention and each row's
+                           log-sum-exp (the training forward's outputs).
+``flash_attention_bwd_ref`` — dq, dk, dv from the output and the
+                           log-sum-exp (the FlashAttention-2 backward).
 ``decode_attention_ref`` — one-token GQA attention over a KV cache, prefix
                            or rolling-ring layout.
 
@@ -45,6 +49,7 @@ _BIG_I32 = 2**30
 __all__ = ["window_agg_ref", "fused_window_ref", "preagg_window_ref",
            "last_join_ref", "window_bounds", "check_fused_specs",
            "flash_attention_ref", "flash_attention_stream",
+           "flash_attention_lse_ref", "flash_attention_bwd_ref",
            "decode_attention_ref", "FUSED_FIELDS", "NEG_INF", "POS_INF",
            "ATTN_NEG_INF"]
 
@@ -461,6 +466,19 @@ def _query_positions(Sq: int, Sk: int, q_offset: Optional[int],
     return torch.arange(Sq, device=device) + off
 
 
+def _attention_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                    q_offset: Optional[int], device) -> torch.Tensor:
+    """(Sq, Sk) bool: the (query, key) pairs the mask keeps."""
+    qpos = _query_positions(Sq, Sk, q_offset, device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None,
@@ -478,17 +496,86 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, Sq, Hkv, rep, D)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * scale
-    qpos = _query_positions(Sq, Sk, q_offset, q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = _attention_mask(Sq, Sk, causal, window, q_offset, q.device)
     logits = logits.masked_fill(~mask, ATTN_NEG_INF)
     probs = torch.softmax(logits.float(), dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(q.dtype), v)
     return out.reshape(B, Sq, Hq, D)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: Optional[int], scale: float, q_offset: Optional[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scaled f32 scores (B, Hkv, rep, Sq, Sk) of q and k (products of
+    the inputs' values, summed in f32) and the mask."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float()) * scale
+    return s, _attention_mask(Sq, Sk, causal, window, q_offset, q.device)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None,
+                            q_offset: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref`'s output and each row's log-sum-exp of
+    its kept scaled scores, f32 (B, Hq, Sq), in natural-log units: the
+    log-sum-exp of the masked logits (f32), so a row that keeps no key
+    gets ``ATTN_NEG_INF`` (−1e30, the masked value) as the kernel writes
+    it."""
+    B, Sq, Hq, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    s, mask = _scores(q, k, causal, window, scale, q_offset)
+    lse = torch.logsumexp(s.masked_fill(~mask, ATTN_NEG_INF), dim=-1)
+    out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              scale=scale, q_offset=q_offset)
+    return out, lse.reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_ref(dout: torch.Tensor, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None,
+                            q_offset: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """dq, dk and dv of :func:`flash_attention_ref` at ``dout``, by the
+    FlashAttention-2 backward's formulas, as the backward kernel computes
+    them: ``Di = rowsum(dO ∘ O)``, ``P = exp(S·scale − lse)`` on the kept
+    pairs (0 elsewhere), ``dV = Pᵀ dO``, ``dP = dO Vᵀ``,
+    ``dS = P ∘ (dP − Di)``, ``dQ = scale · dS K``, ``dK = scale · dSᵀ Q``,
+    K/V gradients summed over a group's query heads; everything in f32,
+    with P and dS rounded to the inputs' dtype where they enter a product
+    (the kernel's tensor-core operands in bf16; no rounding in f32).
+    Returned in the inputs' dtype. A row that keeps no key (``lse`` at
+    −1e30) has zero gradient."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    s, mask = _scores(q, k, causal, window, scale, q_offset)
+    lse_g = lse.float().reshape(B, Hkv, rep, Sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    do = dout.float().reshape(B, Sq, Hkv, rep, D)
+    di = (do * out.float().reshape(B, Sq, Hkv, rep, D)).sum(-1)
+    di = di.permute(0, 2, 3, 1)[..., None]                # (B, Hkv, rep, Sq, 1)
+    dp = torch.einsum("bqhrd,bkhd->bhrqk", do, v.float())
+    ds = p * (dp - di)
+
+    def rounded(t):
+        return t.to(q.dtype).float()
+
+    dv = torch.einsum("bhrqk,bqhrd->bkhd", rounded(p), do)
+    dk = torch.einsum("bhrqk,bqhrd->bkhd", rounded(ds),
+                      q.float().reshape(B, Sq, Hkv, rep, D)) * scale
+    dq = torch.einsum("bhrqk,bkhd->bqhrd", rounded(ds), k.float()) * scale
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention_stream(q: torch.Tensor, k: torch.Tensor,

@@ -20,8 +20,11 @@ outputs; ``rtol 2e-4`` for sum and sumsq (another summation order). The
 attention kernels keep the logits in f32 where the plain versions round
 them to the input dtype (in bf16 both round the probabilities to bf16
 before PV): ``rtol = atol = 2e-2`` in bf16 and ``2e-5`` in f32, as
-``tests/test_kernels.py`` holds the Pallas kernels. No attention case has a query that keeps no key (there the
-kernels write 0 and the plain versions the uniform average).
+``tests/test_kernels.py`` holds the Pallas kernels. The backward kernel's
+gradients are held at the same tolerances to autograd of the plain version
+in f32. Only ``test_flash_attention_backward_rows_without_keys`` has a
+query that keeps no key (there the kernels write 0 and give it zero
+gradient, the plain versions the uniform average).
 """
 import os
 
@@ -564,14 +567,18 @@ def test_flash_attention_kernel_at_a_query_offset(card, B, Sq, Sk, Hq, Hkv,
 
 def test_flash_attention_gradient_at_a_query_offset(card):
     """The autograd Function at a nonzero ``q_offset``: the kernel forward
-    and the plain version's f32 gradients, both at that offset."""
+    and the backward kernel's gradients (one launch), held to autograd of
+    the plain version in f32 at that offset."""
+    from repro_torch.kernels import flash_attention_bwd
     B, Sq, Sk, Hq, Hkv, D, off = 2, 64, 128, 12, 2, 128, 64
     q = _randn((B, Sq, Hq, D), torch.bfloat16, card, 29).requires_grad_()
     k = _randn((B, Sk, Hkv, D), torch.bfloat16, card, 30).requires_grad_()
     v = _randn((B, Sk, Hkv, D), torch.bfloat16, card, 31).requires_grad_()
     dout = _randn((B, Sq, Hq, D), torch.bfloat16, card, 32)
     out = ops.flash_attention(q, k, v, q_offset=off)
+    n0 = flash_attention_bwd.launches
     grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert flash_attention_bwd.launches == n0 + 1
     ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = ref.flash_attention_ref(*ins, q_offset=off)
     wgrads = torch.autograd.grad(want, ins, dout.float())
@@ -655,9 +662,9 @@ def test_flash_attention_gradient(card, B, Sq, Sk, Hq, Hkv, D, causal,
                                   window, dtype):
     """Inputs that need a gradient go through the kernel inside its
     autograd Function: the forward is the kernel's (one launch), the
-    gradients are the plain version's f32 gradients, in the inputs'
-    dtype."""
-    from repro_torch.kernels import flash_attention
+    gradients the backward kernel's (one launch), in the inputs' dtype,
+    held to autograd of the plain version in f32."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
     if not causal:
         window = None
     q = _randn((B, Sq, Hq, D), dtype, card, 20).requires_grad_()
@@ -667,7 +674,10 @@ def test_flash_attention_gradient(card, B, Sq, Sk, Hq, Hkv, D, causal,
     n0 = flash_attention.launches
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == n0 + 1 and out.grad_fn is not None
+    b0 = flash_attention_bwd.launches
     grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert flash_attention_bwd.launches == b0 + 1
+    assert flash_attention.launches == n0 + 1
     with torch.no_grad():
         want = ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
@@ -682,6 +692,171 @@ def test_flash_attention_gradient(card, B, Sq, Sk, Hq, Hkv, D, causal,
     for g, w, t in zip(grads, wgrads, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape
         torch.testing.assert_close(g.float(), w, rtol=tol, atol=tol)
+
+
+def _plain_f32_grads(q, k, v, dout, **kw):
+    """Autograd of the plain version in f32: out, (dq, dk, dv)."""
+    ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out = ref.flash_attention_ref(*ins, **kw)
+    return out.detach(), torch.autograd.grad(out, ins, dout.float())
+
+
+def _kernel_grads(q, k, v, dout, **kw):
+    """The Function's output and gradients on fresh leaves of q, k, v."""
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*ins, **kw)
+    return out.detach(), torch.autograd.grad(out, ins, dout)
+
+
+def _assert_grads(got, want, dtype, what):
+    tol = ATTN_TOL[dtype]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype, (what, name)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{what} {name}: {m}")
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 96, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_every_head_dim(card, D, causal,
+                                                        window, dtype):
+    """Every head dim the kernels are built for, ragged lengths (70 queries
+    over 90 keys, neither a tile multiple) and GQA rep 3: the backward
+    kernel against autograd of the plain version in f32, and against the
+    plain backward (``ref.flash_attention_bwd_ref``) fed the kernel
+    forward's output and log-sum-exp; the forward's log-sum-exp against
+    the plain one."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    if not causal:
+        window = None
+    B, Sq, Sk, Hq, Hkv = 2, 70, 90, 6, 2
+    q = _randn((B, Sq, Hq, D), dtype, card, 40)
+    k = _randn((B, Sk, Hkv, D), dtype, card, 41)
+    v = _randn((B, Sk, Hkv, D), dtype, card, 42)
+    dout = _randn((B, Sq, Hq, D), dtype, card, 43)
+    kw = dict(causal=causal, window=window)
+    scale = D ** -0.5
+    out, lse = torch.ops.repro_torch.flash_attention_fwd_lse(
+        q, k, v, causal, window, scale, Sk - Sq)
+    assert torch.equal(out, flash_attention.flash_attention_cuda(q, k, v,
+                                                                 **kw))
+    _, want_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+    got = flash_attention_bwd.flash_attention_bwd_cuda(dout, q, k, v, out,
+                                                       lse, **kw)
+    _assert_grads(got, ref.flash_attention_bwd_ref(dout, q, k, v, out, lse,
+                                                   **kw),
+                  dtype, f"D={D} vs the plain backward")
+    _, want = _plain_f32_grads(q, k, v, dout, **kw)
+    _assert_grads(got, want, dtype, f"D={D} vs autograd")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 64, 128, 12, 2, 128),     # a rank's rows of the mesh's CP training
+    (1, 100, 300, 4, 2, 64),      # ragged query and key tiles
+    (2, 48, 200, 6, 2, 80),       # the mma.sync forward
+    (1, 37, 150, 6, 3, 16)])
+@pytest.mark.parametrize("where", ["zero", "mid", "right"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_at_a_query_offset(
+        card, B, Sq, Sk, Hq, Hkv, D, where, causal, window, dtype):
+    """A context-parallel rank's rows at ``q_offset`` 0, a point off every
+    tile edge in between, and ``Sk − Sq``: the backward kernel's inverse
+    band against autograd of the plain version in f32 at that offset."""
+    off = {"zero": 0, "mid": (Sk - Sq) // 2 + 3, "right": Sk - Sq}[where]
+    q = _randn((B, Sq, Hq, D), dtype, card, 44)
+    k = _randn((B, Sk, Hkv, D), dtype, card, 45)
+    v = _randn((B, Sk, Hkv, D), dtype, card, 46)
+    dout = _randn((B, Sq, Hq, D), dtype, card, 47)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    _, got = _kernel_grads(q, k, v, dout, **kw)
+    _, want = _plain_f32_grads(q, k, v, dout, **kw)
+    _assert_grads(got, want, dtype, f"q_offset {off}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_rows_without_keys(card, D, dtype):
+    """Query rows that keep no key: causal rows before every key
+    (``q_offset`` −10, whole query tiles of them and a tile that mixes
+    them with rows that keep keys) and, non-causal, rows whose window
+    starts past the last key. The forward writes 0 and the −1e30
+    log-sum-exp there; their dq is exactly 0 and they add nothing to dk
+    and dv: the gradients equal autograd of the plain version in f32 over
+    the rows that keep keys alone."""
+    B, Hq, Hkv = 2, 4, 2
+    for Sq, Sk, kw, n_empty in (
+            (100, 64, dict(causal=True, q_offset=-70), 70),
+            (40, 64, dict(causal=True, window=16, q_offset=-10), 10),
+            (40, 64, dict(causal=False, window=8, q_offset=60), 29)):
+        q = _randn((B, Sq, Hq, D), dtype, card, 48)
+        k = _randn((B, Sk, Hkv, D), dtype, card, 49)
+        v = _randn((B, Sk, Hkv, D), dtype, card, 50)
+        dout = _randn((B, Sq, Hq, D), dtype, card, 51)
+        mask = ref._attention_mask(Sq, Sk, kw["causal"], kw.get("window"),
+                                   kw["q_offset"], card)
+        empty = ~mask.any(-1)
+        assert int(empty.sum()) == n_empty
+        out, lse = torch.ops.repro_torch.flash_attention_fwd_lse(
+            q, k, v, kw["causal"], kw.get("window"), D ** -0.5,
+            kw["q_offset"])
+        assert not bool(out[:, empty].any())
+        assert bool((lse[:, :, empty] == ref.ATTN_NEG_INF).all())
+        out, (dq, dk, dv) = _kernel_grads(q, k, v, dout, **kw)
+        assert not bool(dq[:, empty].any())
+        rows = (~empty).nonzero()[:, 0]
+        r0, r1 = int(rows[0]), int(rows[-1]) + 1
+        assert r1 - r0 == len(rows)            # the kept rows are one run
+        sub = [t[:, r0:r1].contiguous() for t in (q, dout)]
+        kw_r = dict(kw, q_offset=kw["q_offset"] + r0)
+        _, want = _plain_f32_grads(sub[0], k, v, sub[1], **kw_r)
+        _assert_grads((dq[:, r0:r1], dk, dv), want, dtype,
+                      f"{(Sq, Sk)} {kw}")
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_backward_calls_no_plain_version(card, monkeypatch):
+    """On the card the Function's backward is the kernel: with the plain
+    attention versions and the plain backward made to raise, a training
+    call (forward and backward, f32 and bf16) still runs, and the
+    library's attention is never called."""
+    import torch.nn.functional as F
+
+    def boom(*a, **kw):
+        raise AssertionError("the card's backward reached a plain version")
+
+    for name in ("flash_attention_ref", "flash_attention_stream",
+                 "flash_attention_lse_ref", "flash_attention_bwd_ref"):
+        monkeypatch.setattr(ref, name, boom)
+    monkeypatch.setattr(F, "scaled_dot_product_attention", boom)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((2, 64, 12, 128), dtype, card, 52)
+        k = _randn((2, 64, 2, 128), dtype, card, 53)
+        dout = _randn((2, 64, 12, 128), dtype, card, 54)
+        _, grads = _kernel_grads(q, k, k, dout)
+        assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(card, dtype):
+    """No atomics: two backward passes of the same inputs give bit-equal
+    gradients (qwen2-1.5b's training heads, 12 over 2 of 128, causal)."""
+    q = _randn((2, 256, 12, 128), dtype, card, 55)
+    k = _randn((2, 256, 2, 128), dtype, card, 56)
+    v = _randn((2, 256, 2, 128), dtype, card, 57)
+    dout = _randn((2, 256, 12, 128), dtype, card, 58)
+    _, first = _kernel_grads(q, k, v, dout)
+    _, second = _kernel_grads(q, k, v, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_cuda_refuses_inputs_that_need_a_gradient(card):

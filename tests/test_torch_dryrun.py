@@ -381,6 +381,38 @@ def test_flash_op_on_meta_shape_and_flops(B, Sq, Sk, Hq, Hkv, D, causal,
                                                            window)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,q_offset", [
+    (2, 32, 32, 8, 2, 64, True, None, None),  # causal prefill
+    (1, 40, 40, 4, 4, 128, True, 16, None),   # sliding window
+    (3, 17, 50, 4, 1, 32, False, None, None),  # non-causal, cross shapes
+    (2, 48, 144, 6, 2, 16, True, 24, 48),     # a context-parallel rank
+])
+def test_flash_train_ops_on_meta_shape_and_flops(B, Sq, Sk, Hq, Hkv, D,
+                                                causal, window, q_offset):
+    """The training ops on meta tensors: ``flash_attention_fwd_lse`` gives
+    the output and a (B, Hq, Sq) f32 log-sum-exp and counts the forward's
+    ``4·B·Hq·D`` a kept pair; ``flash_attention_bwd`` gives dq, dk and dv
+    shaped like q, k and v and counts its seven products, ``14·B·Hq·D`` a
+    kept pair."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import flash_attention_bwd  # noqa: F401
+    q = torch.empty(B, Sq, Hq, D, device="meta", dtype=torch.bfloat16)
+    k = torch.empty(B, Sk, Hkv, D, device="meta", dtype=torch.bfloat16)
+    pairs = _pairs(Sq, Sk, causal, window, q_offset)
+    with FlopCounterMode(display=False) as fc:
+        out, lse = torch.ops.repro_torch.flash_attention_fwd_lse(
+            q, k, k, causal, window, D ** -0.5, q_offset)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    assert fc.get_total_flops() == 4 * B * Hq * D * pairs
+    with FlopCounterMode(display=False) as fc:
+        grads = torch.ops.repro_torch.flash_attention_bwd(
+            out, q, k, k, out, lse, causal, window, D ** -0.5, q_offset)
+    for g, t in zip(grads, (q, k, k)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+    assert fc.get_total_flops() == 14 * B * Hq * D * pairs
+
+
 @pytest.mark.parametrize("q_offset", [0, 16, 48, 96])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
                                            (False, None)])

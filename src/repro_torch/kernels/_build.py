@@ -274,12 +274,15 @@ def ptr(t: Optional[torch.Tensor], offset: int = 0) -> Optional[int]:
 _count_lock = threading.Lock()
 
 
-def count_launch(module) -> None:
+def count_launch(module, route: Optional[str] = None) -> None:
     """Add one to a wrapper module's ``launches`` counter atomically:
     ``launches += 1`` is a read and a write, which concurrent launching
-    threads would interleave and lose counts."""
+    threads would interleave and lose counts. With ``route``, also to the
+    module's ``route_launches[route]``."""
     with _count_lock:
         module.launches += 1
+        if route is not None:
+            module.route_launches[route] += 1
 
 
 def stream_of(device: torch.device) -> int:

@@ -32,7 +32,7 @@ seed. On ``(2, 2)`` over ``("data", "model")`` with ``act_dp=("data",)``,
 
 The world runs ``distributed/gloo_cuda.py``'s collectives registered for
 the CPU (the card's path), from a ``FileStore`` under ``tmp_path``,
-joined within 120 s.
+joined by one ``JOIN_S`` deadline from the fixture's start.
 """
 import dataclasses
 import os
@@ -40,6 +40,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -63,7 +64,11 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 ARCH = "qwen2-1.5b"
-JOIN_S = 120
+# One deadline for every process a fixture starts, counted from the
+# fixture's start, and the ranks' gloo timeout: over 3x the slowest
+# world fixture seen (276 s, the gloo test modules run together on 6
+# xdist workers over 8 cores).
+JOIN_S = 900
 B, S, S_ODD, STEPS, LR = 4, 64, 24, 3, 1e-3
 BLOCK = 16
 HEADS = {"heads4": {}, "heads3": {"n_heads": 3, "n_kv_heads": 1,
@@ -121,7 +126,7 @@ RANK = textwrap.dedent("""
         d = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4),
                             rank=rank, world_size=4,
-                            timeout=timedelta(seconds=90))
+                            timeout=timedelta(seconds=JOIN_S))
     gloo_cuda.install("CPU")
     seen = []
     flash = ops.flash_attention
@@ -244,12 +249,13 @@ RANK = textwrap.dedent("""
         dist.destroy_process_group()
     with open(out, "wb") as f:
         pickle.dump(res, f)
-""")
+""").replace("JOIN_S", str(JOIN_S))
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Each rank's results from the 4-rank world."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("context_parallel")
     (tmp / "rank.py").write_text(RANK)
     d = {"arch": ARCH, "block": BLOCK, "heads": HEADS, "layout": STREAMING,
@@ -265,9 +271,11 @@ def ranks(tmp_path_factory):
     try:
         for r, p in enumerate(procs):
             try:
-                _, err = p.communicate(timeout=JOIN_S)
+                _, err = p.communicate(
+                    timeout=max(start + JOIN_S - time.monotonic(), 1.0))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"rank {r} did not end in {JOIN_S} s")
+                raise AssertionError(f"rank {r} did not end {JOIN_S} s "
+                                     f"after the fixture began")
             assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
     finally:
         for p in procs:

@@ -577,8 +577,10 @@ def test_flash_attention_gradient_at_a_query_offset(card):
     dout = _randn((B, Sq, Hq, D), torch.bfloat16, card, 32)
     out = ops.flash_attention(q, k, v, q_offset=off)
     n0 = flash_attention_bwd.launches
-    grads = torch.autograd.grad(out, (q, k, v), dout)
+    grads, routes = _bwd_routes(
+        lambda: torch.autograd.grad(out, (q, k, v), dout))
     assert flash_attention_bwd.launches == n0 + 1
+    assert routes == {"wgmma": 1}
     ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = ref.flash_attention_ref(*ins, q_offset=off)
     wgrads = torch.autograd.grad(want, ins, dout.float())
@@ -675,8 +677,10 @@ def test_flash_attention_gradient(card, B, Sq, Sk, Hq, Hkv, D, causal,
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == n0 + 1 and out.grad_fn is not None
     b0 = flash_attention_bwd.launches
-    grads = torch.autograd.grad(out, (q, k, v), dout)
+    grads, routes = _bwd_routes(
+        lambda: torch.autograd.grad(out, (q, k, v), dout))
     assert flash_attention_bwd.launches == b0 + 1
+    assert routes == {_bwd_route(dtype, D): 1}
     assert flash_attention.launches == n0 + 1
     with torch.no_grad():
         want = ref.flash_attention_ref(q, k, v, causal=causal,
@@ -716,6 +720,23 @@ def _assert_grads(got, want, dtype, what):
                                    msg=lambda m: f"{what} {name}: {m}")
 
 
+def _bwd_route(dtype, D):
+    """The backward route a call takes: the wgmma kernels for bf16 at head
+    dims 64 and 128, mma.sync for bf16 at the others, FMA for f32."""
+    return ("fma" if dtype == torch.float32 else
+            "wgmma" if D in (64, 128) else "mma")
+
+
+def _bwd_routes(fn):
+    """``fn()`` and the backward launches it made, by route."""
+    from repro_torch.kernels import flash_attention_bwd
+    before = dict(flash_attention_bwd.route_launches)
+    res = fn()
+    return res, {r: n - before[r]
+                 for r, n in flash_attention_bwd.route_launches.items()
+                 if n != before[r]}
+
+
 @pytest.mark.parametrize("D", [16, 32, 64, 80, 96, 128])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
                                            (False, None)])
@@ -745,8 +766,10 @@ def test_flash_attention_backward_kernel_every_head_dim(card, D, causal,
     _, want_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
     torch.testing.assert_close(lse, want_lse, rtol=ATTN_TOL[dtype],
                                atol=ATTN_TOL[dtype])
-    got = flash_attention_bwd.flash_attention_bwd_cuda(dout, q, k, v, out,
-                                                       lse, **kw)
+    got, routes = _bwd_routes(
+        lambda: flash_attention_bwd.flash_attention_bwd_cuda(
+            dout, q, k, v, out, lse, **kw))
+    assert routes == {_bwd_route(dtype, D): 1}
     _assert_grads(got, ref.flash_attention_bwd_ref(dout, q, k, v, out, lse,
                                                    **kw),
                   dtype, f"D={D} vs the plain backward")
@@ -774,7 +797,9 @@ def test_flash_attention_backward_kernel_at_a_query_offset(
     v = _randn((B, Sk, Hkv, D), dtype, card, 46)
     dout = _randn((B, Sq, Hq, D), dtype, card, 47)
     kw = dict(causal=causal, window=window, q_offset=off)
-    _, got = _kernel_grads(q, k, v, dout, **kw)
+    (_, got), routes = _bwd_routes(lambda: _kernel_grads(q, k, v, dout,
+                                                         **kw))
+    assert routes == {_bwd_route(dtype, D): 1}
     _, want = _plain_f32_grads(q, k, v, dout, **kw)
     _assert_grads(got, want, dtype, f"q_offset {off}")
     torch.cuda.synchronize()
@@ -808,7 +833,9 @@ def test_flash_attention_backward_rows_without_keys(card, D, dtype):
             kw["q_offset"])
         assert not bool(out[:, empty].any())
         assert bool((lse[:, :, empty] == ref.ATTN_NEG_INF).all())
-        out, (dq, dk, dv) = _kernel_grads(q, k, v, dout, **kw)
+        (out, (dq, dk, dv)), routes = _bwd_routes(
+            lambda: _kernel_grads(q, k, v, dout, **kw))
+        assert routes == {_bwd_route(dtype, D): 1}
         assert not bool(dq[:, empty].any())
         rows = (~empty).nonzero()[:, 0]
         r0, r1 = int(rows[0]), int(rows[-1]) + 1
@@ -839,7 +866,9 @@ def test_flash_attention_backward_calls_no_plain_version(card, monkeypatch):
         q = _randn((2, 64, 12, 128), dtype, card, 52)
         k = _randn((2, 64, 2, 128), dtype, card, 53)
         dout = _randn((2, 64, 12, 128), dtype, card, 54)
-        _, grads = _kernel_grads(q, k, k, dout)
+        (_, grads), routes = _bwd_routes(lambda: _kernel_grads(q, k, k,
+                                                               dout))
+        assert routes == {_bwd_route(dtype, 128): 1}
         assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
     torch.cuda.synchronize()
 
@@ -852,10 +881,63 @@ def test_flash_attention_backward_is_deterministic(card, dtype):
     k = _randn((2, 256, 2, 128), dtype, card, 56)
     v = _randn((2, 256, 2, 128), dtype, card, 57)
     dout = _randn((2, 256, 12, 128), dtype, card, 58)
-    _, first = _kernel_grads(q, k, v, dout)
+    (_, first), routes = _bwd_routes(lambda: _kernel_grads(q, k, v, dout))
     _, second = _kernel_grads(q, k, v, dout)
     torch.cuda.synchronize()
+    assert routes == {_bwd_route(dtype, 128): 1}
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# (B, Sq, Sk, flash options): a ragged causal length (no tile multiple),
+# the non-causal 512 x 1024 of an encoder-decoder's cross call, a window
+# of 37, a context-parallel rank's rows at q_offset -13 (rows before every
+# key) and mid-sequence
+WGMMA_CASES = {"ragged": (2, 200, 200, {}),
+               "cross": (1, 512, 1024, {"causal": False}),
+               "window": (1, 190, 190, {"window": 37}),
+               "offset_neg": (2, 130, 150, {"q_offset": -13}),
+               "offset_mid": (1, 100, 300, {"q_offset": 103})}
+
+
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+@pytest.mark.parametrize("rep", [1, 3, 6, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_backward_wgmma_route(card, case, rep, D):
+    """The wgmma route at head dims 64 and 128 and GQA rep 1, 3, 6 and 8
+    (two KV heads; the plan's split parts and warpgroups with them): the
+    gradients against autograd of the plain version in f32 at 2e-2, the
+    route counted, and a rerun bit-equal. Rows that keep no key (the
+    first 13 at ``q_offset`` −13) get dq 0, and the rest are held to the
+    plain version over those rows alone (which averages V over no key
+    at the others)."""
+    B, Sq, Sk, kw = WGMMA_CASES[case]
+    Hkv = 2
+    Hq = rep * Hkv
+    dtype = torch.bfloat16
+    q = _randn((B, Sq, Hq, D), dtype, card, 60 + rep)
+    k = _randn((B, Sk, Hkv, D), dtype, card, 61 + rep)
+    v = _randn((B, Sk, Hkv, D), dtype, card, 62 + rep)
+    dout = _randn((B, Sq, Hq, D), dtype, card, 63 + rep)
+    (_, got), routes = _bwd_routes(lambda: _kernel_grads(q, k, v, dout,
+                                                         **kw))
+    assert routes == {"wgmma": 1}
+    off = kw.get("q_offset", Sk - Sq)
+    mask = ref._attention_mask(Sq, Sk, kw.get("causal", True),
+                               kw.get("window"), off, card)
+    rows = mask.any(-1).nonzero()[:, 0]
+    r0, r1 = int(rows[0]), int(rows[-1]) + 1
+    assert r1 - r0 == len(rows) and r1 == Sq
+    assert r0 == (13 if case == "offset_neg" else 0)
+    assert not bool(got[0][:, :r0].any())
+    _, want = _plain_f32_grads(q[:, r0:].contiguous(), k, v,
+                               dout[:, r0:].contiguous(),
+                               **dict(kw, q_offset=off + r0))
+    _assert_grads((got[0][:, r0:], got[1], got[2]), want, dtype,
+                  f"rep {rep} D {D} {case}")
+    _, again = _kernel_grads(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
         assert torch.equal(a, b)
 
 

@@ -31,8 +31,9 @@ against the JAX package's on the CPU.
   data axis over both): the compressed step against JAX's on two host
   devices and against the port's uncompressed step.
 
-Spawned ranks and the JAX subprocess are started together and each is
-joined with a 120 s timeout; every one still running is killed.
+Spawned ranks and the JAX subprocess are started together and joined by
+one ``JOIN_S`` deadline from the fixture's start; every one still running
+is killed.
 """
 import contextlib
 import os
@@ -40,6 +41,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 from datetime import timedelta
 
 import jax
@@ -73,7 +75,11 @@ SRC = os.path.join(REPO, "src")
 ARCH = "qwen1.5-0.5b"
 LR = 1e-3
 STEPS = 3
-JOIN_S = 120
+# One deadline for every process a fixture starts, counted from the
+# fixture's start, and the ranks' gloo timeout: over 3x the slowest
+# world fixture seen (276 s, the gloo test modules run together on 6
+# xdist workers over 8 cores).
+JOIN_S = 900
 
 
 def _np(tree):
@@ -367,7 +373,7 @@ RANK = textwrap.dedent("""
         d = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
                             rank=rank, world_size=2,
-                            timeout=timedelta(seconds=60))
+                            timeout=timedelta(seconds=JOIN_S))
     res = {}
     try:
         pod = tmesh.make_mesh((2,), ("pod",), device_type="cpu")
@@ -427,7 +433,7 @@ RANK = textwrap.dedent("""
         dist.destroy_process_group()
     with open(out, "wb") as f:
         pickle.dump(res, f)
-""")
+""").replace("JOIN_S", str(JOIN_S))
 
 JAX_STEP = textwrap.dedent("""
     import os
@@ -478,14 +484,16 @@ JAX_STEP = textwrap.dedent("""
 """)
 
 
-def _run_all(procs):
-    """Join every process within JOIN_S seconds each; kill the rest."""
+def _run_all(procs, start):
+    """Join every process by one deadline, JOIN_S seconds after ``start``
+    (``time.monotonic()`` when the fixture began); kill the rest."""
     try:
         for name, p in procs:
             try:
-                _, err = p.communicate(timeout=JOIN_S)
+                _, err = p.communicate(timeout=_left(start, JOIN_S))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{name} did not end in {JOIN_S} s")
+                raise AssertionError(f"{name} did not end {JOIN_S} s after "
+                                     f"the fixture began")
             assert p.returncode == 0, f"{name}: {err[-3000:]}"
     finally:
         for _, p in procs:
@@ -494,10 +502,17 @@ def _run_all(procs):
                 p.communicate()
 
 
+def _left(start, limit):
+    """Seconds left of ``limit`` since ``start``; at least one, so a
+    process that ended in time still hands over its output."""
+    return max(start + limit - time.monotonic(), 1.0)
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """Two port ranks and JAX's two-device step, run together once for
     the module: (the inputs, the ranks' results, JAX's step results)."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("pods")
     rng = np.random.default_rng(7)
     _, _, jp, batch = _jax_model()
@@ -527,7 +542,7 @@ def two_ranks(tmp_path_factory):
         [sys.executable, str(tmp / "jax_step.py"), str(inp),
          str(tmp / "jax.pkl")], env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-    _run_all(procs)
+    _run_all(procs, start)
     ranks = [pickle.loads((tmp / f"out{r}.pkl").read_bytes())
              for r in (0, 1)]
     return d, ranks, pickle.loads((tmp / "jax.pkl").read_bytes())

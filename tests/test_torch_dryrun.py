@@ -12,7 +12,7 @@ on its CPU placeholder devices).
   decode step counted by ``StepCounter`` on a fake ``(2, 2)`` world
   equal those counted on a real 4-rank gloo world (reduced qwen2-1.5b at
   1 layer; reduced granite with its experts over ``data``, whose local
-  groups exchange by all-to-all), 120 s each process.
+  groups exchange by all-to-all), all joined by one ``JOIN_S`` deadline.
 * (c) A meshless dense train step at ``remat='none'``: the counted FLOPs
   equal the sum of ``2·m·n·k`` over every product, forward and twice
   that backward, within 0.1 %.
@@ -49,6 +49,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import numpy as np
@@ -75,8 +76,12 @@ SRC = os.path.join(REPO, "src")
 ARCHS = list_archs()
 MESHES = {"pod": ((16, 16), ("data", "model")),
           "multipod": ((2, 16, 16), ("pod", "data", "model"))}
-WORLD_S = 300        # a fake world's process (every arch × shape)
-JOIN_S = 120         # a (2, 2) world's process
+# One deadline for every process a fixture starts, counted from the
+# fixture's start (and the gloo ranks' timeout): over 3x the slowest
+# world fixture seen (276 s, the gloo test modules run together on 6
+# xdist workers over 8 cores; these two took up to 108 s and 37 s).
+WORLD_S = 900        # the two fake worlds (every arch × shape)
+JOIN_S = 900         # the (2, 2) world and the fake world beside it
 
 # JAX's run_cell keys, and what the port's cell adds to them
 JAX_KEYS = {"arch", "shape", "mesh", "rules", "status", "skip_reason",
@@ -141,6 +146,7 @@ PLACE = textwrap.dedent("""
 def placed_bytes(tmp_path_factory):
     """{mesh: {"arch/shape": rank 0's argument bytes}}, one fake world a
     process, both worlds at once."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("dryrun_place")
     (tmp / "place.py").write_text(PLACE)
     procs = {m: subprocess.Popen(
@@ -150,10 +156,11 @@ def placed_bytes(tmp_path_factory):
     try:
         for m, p in procs.items():
             try:
-                _, err = p.communicate(timeout=WORLD_S)
+                _, err = p.communicate(
+                    timeout=max(start + WORLD_S - time.monotonic(), 1.0))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"the {m} world did not end in "
-                                     f"{WORLD_S} s")
+                raise AssertionError(f"the {m} world did not end {WORLD_S} "
+                                     f"s after the fixture began")
             assert p.returncode == 0, f"{m} world: {err[-3000:]}"
     finally:
         for p in procs.values():
@@ -245,7 +252,7 @@ COUNT = textwrap.dedent("""
     else:                                            # a gloo rank
         dist.init_process_group("gloo", store=dist.FileStore(sys.argv[3], 4),
                                 rank=rank, world_size=4,
-                                timeout=timedelta(seconds=90))
+                                timeout=timedelta(seconds=JOIN_S))
         from repro_torch.distributed import gloo_cuda
         gloo_cuda.install("CPU")
         try:
@@ -277,12 +284,13 @@ COUNT = textwrap.dedent("""
             dist.destroy_process_group()
     with open(out, "wb") as f:
         pickle.dump(res, f)
-""")
+""").replace("JOIN_S", str(JOIN_S))
 
 
 @pytest.fixture(scope="module")
 def counted(tmp_path_factory):
     """(the fake world's counts, each gloo rank's), run together."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("dryrun_count")
     (tmp / "count.py").write_text(COUNT)
     procs = [(f"rank {r}", subprocess.Popen(
@@ -293,9 +301,11 @@ def counted(tmp_path_factory):
     try:
         for name, p in procs:
             try:
-                _, err = p.communicate(timeout=JOIN_S)
+                _, err = p.communicate(
+                    timeout=max(start + JOIN_S - time.monotonic(), 1.0))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{name} did not end in {JOIN_S} s")
+                raise AssertionError(f"{name} did not end {JOIN_S} s after "
+                                     f"the fixture began")
             assert p.returncode == 0, f"{name}: {err[-3000:]}"
     finally:
         for _, p in procs:

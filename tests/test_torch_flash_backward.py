@@ -28,6 +28,10 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.configs import base as t_base
+from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import ops, ref as tref
 
 torch.set_num_threads(1)
@@ -187,3 +191,164 @@ def test_ops_flash_attention_trains_through_the_plain_version_on_the_cpu(
     assert calls == []
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the backward's plan: routes, grid and the dK/dV parts' summation order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", list(fa.DTYPES))
+def test_plan_routes_every_head_dim_and_dtype(D, dtype):
+    """bf16 at head dims 64 and 128 takes the wgmma kernels, bf16 at the
+    others the mma.sync kernels, f32 the FMA kernels; every launch of the
+    plan has blocks and the row scratch covers the padded rows."""
+    p = fb.plan(2, 100, 130, 12, 4, D, dtype)
+    want = ("fma" if dtype == torch.float32 else
+            "wgmma" if D in (64, 128) else "mma")
+    assert p.route == want and p.route in fb.ROUTES
+    assert [n for n, _ in p.blocks][0] == "di"
+    assert all(b > 0 for _, b in p.blocks)
+    assert p.sq_pad >= 100 and p.scratch_bytes >= 4 * 2 * 12 * p.sq_pad
+    if want == "wgmma":
+        assert p.sq_pad % 64 == 0 and 3 % p.split == 0
+    else:
+        assert (p.split, p.wg_q, p.sq_pad) == (1, 1, 100)
+
+
+def test_plan_fills_the_card_at_the_training_call():
+    """qwen2-1.5b's training call (B 4, S 512, 12/2 heads of 128, bf16):
+    64 key tiles of (KV head, batch) alone leave SMs idle, so each group's
+    six heads are cut into three blocks of two heads (two warpgroups
+    each): 192 dK/dV blocks, with the parts' f32 dK and dV in a 12.6 MB
+    scratch."""
+    p = fb.plan(4, 512, 512, 12, 2, 128, torch.bfloat16)
+    blocks = dict(p.blocks)
+    assert p.route == "wgmma" and (p.split, p.wg_q) == (3, 2)
+    assert blocks["dkdv"] >= fb.SMS and blocks["dkdv"] == 192
+    assert blocks["dq"] == 192 and blocks["dkdv_sum"] == 512
+    assert p.scratch_bytes == 4 * (2 * 4 * 12 * 512
+                                   + 3 * 2 * 4 * 512 * 2 * 128)
+
+
+def _training_calls(cfg, B, S):
+    """(Sq, Sk, Hq, Hkv, D, causal, window) of each attention call one
+    training step of ``cfg`` makes at batch B and length S: causal
+    self-attention (with the config's window); an encoder-decoder adds
+    its encoder's non-causal self-attention over the frontend's frames
+    and the decoder's non-causal cross-attention onto them."""
+    if not any(kind.startswith("a") for kind in cfg.pattern):
+        return []
+    calls = [(S, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True,
+              cfg.sliding_window)]
+    if cfg.is_encdec:
+        F = cfg.frontend_len
+        calls += [(F, F, cfg.n_heads, cfg.n_kv_heads, cfg.hd, False, None),
+                  (S, F, cfg.n_heads, cfg.n_kv_heads, cfg.hd, False, None)]
+    return calls
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_plan_names_a_route_for_every_registered_training_call(arch):
+    """Every registered config's training attention (train_4k's length at
+    one and four sequences a card, the config's dtype) has a route with
+    its grid and scratch; bf16 at head dims 64 and 128 is the wgmma
+    route, and its dK/dV grid reaches every SM wherever the heads allow."""
+    cfg = get_config(arch)
+    calls = _training_calls(cfg, 1, t_base.SHAPES["train_4k"].seq_len)
+    assert calls or cfg.family == "ssm"
+    for B in (1, 4):
+        for Sq, Sk, Hq, Hkv, D, causal, window in _training_calls(
+                cfg, B, t_base.SHAPES["train_4k"].seq_len):
+            p = fb.plan(B, Sq, Sk, Hq, Hkv, D, cfg.compute_dtype)
+            assert p.route in fb.ROUTES and p.scratch_bytes > 0
+            assert p.route == ("wgmma" if D in (64, 128) else "mma")
+            rep = Hq // Hkv
+            assert rep % p.split == 0 and rep % p.wg_q == 0
+            blocks = dict(p.blocks)
+            assert blocks["dkdv"] >= fb.SMS or p.split == rep
+            assert ("dkdv_sum" in blocks) == (p.split > 1)
+
+
+def _query_band(k0, k1, Sq, causal, window, q_offset):
+    """The kernel's QueryBand: the first and the end query row that see a
+    key of [k0, k1), the first rounded down to a 64-row tile."""
+    lo, hi = 0, Sq
+    if causal:
+        lo = max(k0 - q_offset, 0)
+    if window is not None:
+        hi = min(k1 - 1 + window - q_offset, Sq)
+    return lo - lo % 64, hi
+
+
+_KV_GROUPS = 2   # consumer warpgroups of a dK/dV block (kKvGroups)
+
+
+def _split_order(dout, q, k, v, out, lse, p, causal=True, window=None,
+                 q_offset=None):
+    """dK and dV summed in the wgmma route's order, in plain PyTorch: for
+    each 64-key tile, block pb of the split walks steps u = (head of its
+    part, query tile of the key tile's band), head-major; warpgroup
+    u % 2 adds step u's dK and dV (the plain backward on those rows and
+    keys alone) in step order; a block is warpgroup 0's sum plus
+    warpgroup 1's (shared memory), and the blocks are added in block
+    order (flash_bwd_dkdv_sum_kernel)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    off = Sk - Sq if q_offset is None else q_offset
+    rep = Hq // Hkv
+    heads = rep // p.split
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for kvh in range(Hkv):
+        for k0 in range(0, Sk, 64):
+            k1 = min(k0 + 64, Sk)
+            lo, hi = _query_band(k0, k1, Sq, causal, window, off)
+            n_qt = -(-(hi - lo) // 64) if hi > lo else 0
+            ks = (slice(None), slice(k0, k1), slice(kvh, kvh + 1))
+            total_k = total_v = 0
+            for pb in range(p.split):
+                wgs = [[0, 0] for _ in range(_KV_GROUPS)]
+                for u in range(heads * n_qt):
+                    h = kvh * rep + pb * heads + u // n_qt
+                    i0 = lo + (u % n_qt) * 64
+                    i1 = min(i0 + 64, Sq)
+                    qs = (slice(None), slice(i0, i1), slice(h, h + 1))
+                    _, gk, gv = tref.flash_attention_bwd_ref(
+                        dout[qs].contiguous(), q[qs].contiguous(),
+                        k[ks].contiguous(), v[ks].contiguous(),
+                        out[qs].contiguous(),
+                        lse[:, h:h + 1, i0:i1].contiguous(), causal=causal,
+                        window=window, q_offset=off + i0 - k0)
+                    acc = wgs[u % _KV_GROUPS]
+                    acc[0], acc[1] = acc[0] + gk, acc[1] + gv
+                total_k = total_k + sum(a[0] for a in wgs)
+                total_v = total_v + sum(a[1] for a in wgs)
+            dk[ks], dv[ks] = total_k, total_v
+    return dk, dv
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,split,opts", [
+    (4, 512, 512, 12, 2, 64, 3, {}),                # rep 6, 2 heads a block
+    (1, 200, 200, 3, 1, 64, 3, {"window": 37}),     # rep 3
+    (2, 40, 72, 6, 2, 128, 3, {"causal": False}),   # Sq < Sk
+    (1, 130, 150, 8, 1, 64, 8, {"q_offset": -13}),  # rows without keys
+])
+def test_the_wgmma_routes_summation_order_equals_the_plain_backward(
+        B, Sq, Sk, Hq, Hkv, D, split, opts):
+    """The wgmma route's dK/dV summation order (the plan's split parts,
+    the steps dealt to two warpgroups), modelled in plain PyTorch in f32,
+    equals the plain backward at 1e-6 of each element plus 1e-6 of the
+    largest: the two add the same f32 terms in another order (the plain
+    backward contracts a group's heads and queries in one product)."""
+    p = fb.plan(B, Sq, Sk, Hq, Hkv, D, torch.bfloat16)
+    assert p.route == "wgmma" and p.split == split
+    _, (q, k, v, do) = _inputs(9, "f32", (B, Sq, Hq, D), (B, Sk, Hkv, D),
+                               (B, Sk, Hkv, D), (B, Sq, Hq, D))
+    out, lse = tref.flash_attention_lse_ref(q, k, v, **opts)
+    out = torch.where((lse > -1e29).permute(0, 2, 1)[..., None], out, 0.0)
+    want = tref.flash_attention_bwd_ref(do, q, k, v, out, lse, **opts)
+    got = _split_order(do, q, k, v, out, lse, p, **opts)
+    for g, w, name in zip(got, want[1:], ("dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(w.abs().max()),
+                                   err_msg=name)

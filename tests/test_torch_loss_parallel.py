@@ -13,7 +13,7 @@ the vocab ``Shard`` over ``model`` where it divides the vocab
 relative of JAX's, the logits' gradient within 1e-5 relative L2.
 
 Two 4-rank worlds from a ``FileStore`` under ``tmp_path``, started
-together and each joined within 120 s: plain gloo on ``(2, 2)``,
+together and joined by one ``JOIN_S`` deadline: plain gloo on ``(2, 2)``,
 ``(4, 1)`` and ``(2, 2, 1)`` over ``("pod", "data", "model")``; and
 ``distributed/gloo_cuda.py``'s collectives registered for the CPU (the
 card's path) on ``(1, 4)`` and ``(2, 1, 2)``. Cases: targets on the
@@ -35,6 +35,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 import types
 
 import jax
@@ -47,7 +48,11 @@ from repro.models import lm as j_lm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
-JOIN_S = 120
+# One deadline for every process a fixture starts, counted from the
+# fixture's start, and the ranks' gloo timeout: over 3x the slowest
+# world fixture seen (276 s, the gloo test modules run together on 6
+# xdist workers over 8 cores).
+JOIN_S = 900
 MASKED = -100
 FRONT = 3                       # qwen2-vl's patch rows ahead of the text
 
@@ -173,7 +178,7 @@ RANK = textwrap.dedent("""
         d = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4),
                             rank=rank, world_size=4,
-                            timeout=timedelta(seconds=90))
+                            timeout=timedelta(seconds=JOIN_S))
     if world == "gloo_cuda":
         from repro_torch.distributed import gloo_cuda
         gloo_cuda.install("CPU")
@@ -277,13 +282,14 @@ RANK = textwrap.dedent("""
         dist.destroy_process_group()
     with open(out, "wb") as f:
         pickle.dump(res, f)
-""")
+""").replace("JOIN_S", str(JOIN_S))
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """{(mesh, case): [each rank's result]} from the two worlds, run
     together."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("loss_parallel")
     (tmp / "rank.py").write_text(RANK)
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
@@ -302,9 +308,11 @@ def ranks(tmp_path_factory):
     try:
         for name, p in procs:
             try:
-                _, err = p.communicate(timeout=JOIN_S)
+                _, err = p.communicate(
+                    timeout=max(start + JOIN_S - time.monotonic(), 1.0))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{name} did not end in {JOIN_S} s")
+                raise AssertionError(f"{name} did not end {JOIN_S} s after "
+                                     f"the fixture began")
             assert p.returncode == 0, f"{name}: {err[-3000:]}"
     finally:
         for _, p in procs:

@@ -13,8 +13,9 @@ against the JAX package's on the CPU.
 * Gloo worlds: one 4-rank world per mesh shape, ``(2, 2)``, ``(4, 1)``
   and ``(1, 4)`` over ``("data", "model")``, on reduced qwen2-1.5b (f32;
   4 q heads and 1 kv head of 16): ranks joined by a ``FileStore`` under
-  ``tmp_path``, started together with JAX's reference subprocess, each
-  joined with a 120 s timeout, every result in one pickle per rank. 3
+  ``tmp_path``, started together with JAX's reference subprocess, all
+  joined by one ``JOIN_S`` deadline from the fixture's start, every
+  result in one pickle per rank. 3
   train steps from JAX's parameters against JAX's meshless step and the
   port's: losses within 1e-5 relative, the parameters within 1e-4
   relative L2 (the whole parameter vector); the placements of every
@@ -39,6 +40,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import numpy as np
@@ -72,7 +74,11 @@ ARCHS = list_archs()
 ARCH = "qwen2-1.5b"
 LR = 1e-3
 STEPS = 3
-JOIN_S = 120
+# One deadline for every process a fixture starts, counted from the
+# fixture's start, and the ranks' gloo timeout: over 3x the slowest
+# world fixture seen (276 s, the gloo test modules run together on 6
+# xdist workers over 8 cores).
+JOIN_S = 900
 WORLDS = {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}
 # batches (2, 2) does not split into even rows per data rank, or at all
 UNEVEN = (1, 3, 6, 10)
@@ -330,7 +336,7 @@ RANK = textwrap.dedent("""
         d = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4),
                             rank=rank, world_size=4,
-                            timeout=timedelta(seconds=90))
+                            timeout=timedelta(seconds=JOIN_S))
     res_ops = None
     if shape == (1, 4):
         # this world's DTensor collectives go through gloo_cuda's
@@ -587,7 +593,7 @@ RANK = textwrap.dedent("""
         dist.destroy_process_group()
     with open(out, "wb") as f:
         pickle.dump(res, f)
-""")
+""").replace("JOIN_S", str(JOIN_S))
 
 JAX_REF = textwrap.dedent("""
     import os
@@ -645,14 +651,16 @@ JAX_REF = textwrap.dedent("""
 """)
 
 
-def _run_all(procs):
-    """Join every process within JOIN_S seconds each; kill the rest."""
+def _run_all(procs, start):
+    """Join every process by one deadline, JOIN_S seconds after ``start``
+    (``time.monotonic()`` when the fixture began); kill the rest."""
     try:
         for name, p in procs:
             try:
-                _, err = p.communicate(timeout=JOIN_S)
+                _, err = p.communicate(timeout=_left(start, JOIN_S))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{name} did not end in {JOIN_S} s")
+                raise AssertionError(f"{name} did not end {JOIN_S} s after "
+                                     f"the fixture began")
             assert p.returncode == 0, f"{name}: {err[-3000:]}"
     finally:
         for _, p in procs:
@@ -661,11 +669,18 @@ def _run_all(procs):
                 p.communicate()
 
 
+def _left(start, limit):
+    """Seconds left of ``limit`` since ``start``; at least one, so a
+    process that ended in time still hands over its output."""
+    return max(start + limit - time.monotonic(), 1.0)
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """The three 4-rank worlds and JAX's reference, run together once
     for the module: (inputs, {world: [rank results]}, JAX's results,
     the checkpoint dir)."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("worlds")
     jc = j_reduced(j_get_config(ARCH))
     jp = jax.tree_util.tree_map(
@@ -703,7 +718,7 @@ def worlds(tmp_path_factory):
         [sys.executable, str(tmp / "jax_ref.py"), str(inp),
          str(tmp / "jax.pkl")], env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-    _run_all(procs)
+    _run_all(procs, start)
     ranks = {w: [pickle.loads((tmp / f"out_{w}_{r}.pkl").read_bytes())
                  for r in range(4)] for w in WORLDS}
     return d, ranks, pickle.loads((tmp / "jax.pkl").read_bytes()), tmp

@@ -6,8 +6,9 @@ package's meshless steps and the port's, on the CPU.
 Gloo worlds of 4 ranks, one per mesh shape, ``(2, 2)``, ``(4, 1)`` and
 ``(1, 4)`` over ``("data", "model")``, started together with one JAX
 reference process (4 host devices, for the pod mesh) in a module fixture:
-ranks joined by a ``FileStore`` under ``tmp_path``, each process joined
-with a ``JOIN_S`` timeout. The ``(2, 2)`` world, the card's layout,
+ranks joined by a ``FileStore`` under ``tmp_path``, all processes joined
+by one ``JOIN_S`` deadline from the fixture's start. The ``(2, 2)`` world,
+the card's layout,
 registers ``distributed/gloo_cuda.py``'s collectives for the CPU.
 
 Configs (f32, 2 encoder and 2 decoder layers, 16 frames and 12 tokens,
@@ -41,6 +42,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import numpy as np
@@ -70,7 +72,11 @@ CONFIGS = {"seamless": {},
            "gqa": dict(n_heads=8, n_kv_heads=2, head_dim=8)}
 LR = 1e-3
 STEPS = 3
-JOIN_S = 240
+# One deadline for every process a fixture starts, counted from the
+# fixture's start, and the ranks' gloo timeout: over 3x the slowest
+# world fixture seen (276 s, the gloo test modules run together on 6
+# xdist workers over 8 cores).
+JOIN_S = 900
 WORLDS = {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}
 # the configs each world runs: the others reach no other layout there
 # (on (4, 1) no model axis; gqa's kv heads divide (2, 2)'s model axis)
@@ -112,7 +118,7 @@ RANK = textwrap.dedent("""
         d = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4),
                             rank=rank, world_size=4,
-                            timeout=timedelta(seconds=180))
+                            timeout=timedelta(seconds=JOIN_S))
     if shape == (2, 2):
         from repro_torch.distributed import gloo_cuda
         gloo_cuda.install("CPU")
@@ -263,7 +269,7 @@ RANK = textwrap.dedent("""
         dist.destroy_process_group()
     with open(out, "wb") as f:
         pickle.dump(res, f)
-""")
+""").replace("JOIN_S", str(JOIN_S))
 
 JAX_REF = textwrap.dedent("""
     import os
@@ -342,20 +348,28 @@ JAX_REF = textwrap.dedent("""
 """)
 
 
-def _run_all(procs):
-    """Join every process within JOIN_S seconds each; kill the rest."""
+def _run_all(procs, start):
+    """Join every process by one deadline, JOIN_S seconds after ``start``
+    (``time.monotonic()`` when the fixture began); kill the rest."""
     try:
         for name, p in procs:
             try:
-                _, err = p.communicate(timeout=JOIN_S)
+                _, err = p.communicate(timeout=_left(start, JOIN_S))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{name} did not end in {JOIN_S} s")
+                raise AssertionError(f"{name} did not end {JOIN_S} s after "
+                                     f"the fixture began")
             assert p.returncode == 0, f"{name}: {err[-3000:]}"
     finally:
         for _, p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+
+
+def _left(start, limit):
+    """Seconds left of ``limit`` since ``start``; at least one, so a
+    process that ended in time still hands over its output."""
+    return max(start + limit - time.monotonic(), 1.0)
 
 
 def _frames(rng, b, d):
@@ -378,6 +392,7 @@ def _inputs(rng, b, d, vocab):
 def worlds(tmp_path_factory):
     """The three worlds and JAX's reference, run together once for the
     module: (inputs, {world: [rank results]}, JAX's results)."""
+    start = time.monotonic()
     tmp = tmp_path_factory.mktemp("encdec_worlds")
     params = {}
     for name in CONFIGS:
@@ -416,7 +431,7 @@ def worlds(tmp_path_factory):
         [sys.executable, str(tmp / "jax_ref.py"), str(tmp / "in.pkl"),
          str(tmp / "jax.pkl")], env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-    _run_all(procs)
+    _run_all(procs, start)
     ranks = {w: [pickle.loads((tmp / f"out_{w}_{r}.pkl").read_bytes())
                  for r in range(4)] for w in WORLDS}
     return d, ranks, pickle.loads((tmp / "jax.pkl").read_bytes())
